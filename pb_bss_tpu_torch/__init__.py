@@ -1,0 +1,12 @@
+"""pb_bss_tpu_torch: the PyTorch + CUDA port of pb_bss_tpu.
+
+Multi-channel blind source separation on an NVIDIA Hopper GPU:
+``separate`` / ``separate_batch`` run STFT -> cACGMM EM -> DHTV
+permutation alignment -> mask or GEV beamformer extraction -> iSTFT,
+with the EM fit and the GEV beamformer in hand-written CUDA kernels
+(``ops/em_loop.py``, ``ops/gev.py``). Imports torch, never jax; the
+kernels are built on first use, not at import.
+"""
+from .pipeline import separate, separate_batch  # noqa: F401
+
+__version__ = '0.1.0'

@@ -1,0 +1,249 @@
+// Whole-fit cACGMM EM: every EM iteration of a fit in ONE launch.
+//
+// Replaces pb_bss_tpu/ops/pallas_em_loop.py:cacgmm_em_full (the Pallas
+// TPU kernel). Frequency bins are independent, so one CTA owns one
+// (utterance, bin) and runs all iterations for it:
+//
+//   load y (D x T complex), the initial affiliations and quadratic
+//   forms into shared memory once; then per iteration
+//     M-step  weight sums and weights a/max(q, 10 tiny) (a warp per
+//             class), the K D(D+1)/2 Hermitian scatter sums over T (a
+//             warp per sum, lanes over T, shuffle reduction),
+//     eigh    the K D x D Jacobis (a warp per class, jacobi.cuh): cold
+//             at `sweeps` in iteration 0, then warm-started from the
+//             previous eigenbasis at `warm_sweeps`,
+//             eigenvalue max-normalization and floor, log-determinant,
+//             inverse covariance V diag(1/l) V^H,
+//     E-step  threads over T: quadratic form through the inverse
+//             covariance, log-pdf, max-shift softmax with the mixture
+//             weight, affiliation_eps clipping (none in the final
+//             iteration, so the result equals predict()).
+//
+// What bounds it on the H100: y is read from device memory once per
+// fit, so the kernel is bound by fp32 FMAs and the log/exp of the
+// E-step, not by bytes. The whole working set of a bin lives in shared
+// memory: 8 (D T + 4 K D^2) + 4 (2 K T + K D + 3 K) bytes, which must
+// fit the 227 KB a block may opt into (T <= 3178 at D=6, K=3); the
+// Python wrapper gates on the same formula.
+//
+// There is no padding: loops run over the real T and the grid has
+// exactly one CTA per bin, so no padded lane can feed 0 * inf into a
+// reduction.
+//
+// Layouts (all contiguous): y (N, D, T) complex64 as float2;
+// aff0/qf0/aff (N, K, T) float; weight (N, K); eig (N, K, D) unsorted;
+// V (N, K, D, D) complex64, eigenvectors in columns.
+#include <cfloat>
+#include <cmath>
+#include <cuda_runtime.h>
+
+#include "jacobi.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+inline size_t em_smem_bytes(int D, int K, int T) {
+  return sizeof(float2) * (size_t(D) * T + 4 * size_t(K) * D * D) +
+         sizeof(float) * (2 * size_t(K) * T + size_t(K) * D + 3 * K);
+}
+
+__global__ void __launch_bounds__(kThreads)
+cacgmm_em_full_kernel(const float2* __restrict__ y,
+                      const float* __restrict__ aff0,
+                      const float* __restrict__ qf0,
+                      float* __restrict__ weight_out,
+                      float* __restrict__ eig_out,
+                      float2* __restrict__ v_out,
+                      float* __restrict__ aff_out,
+                      int D, int K, int T, int iterations, int sweeps,
+                      int warm_sweeps, float eigenvalue_floor,
+                      float affiliation_eps) {
+  extern __shared__ float4 smem_raw[];
+  const int DD = D * D;
+  float2* ys = reinterpret_cast<float2*>(smem_raw);  // D*T
+  float2* S = ys + size_t(D) * T;                    // K*D*D scatter/eig
+  float2* V = S + K * DD;                            // K*D*D eigvecs
+  float2* C = V + K * DD;                            // K*D*D scratch
+  float2* Ci = C + K * DD;                           // K*D*D inverse cov
+  float* aff = reinterpret_cast<float*>(Ci + K * DD);  // K*T
+  float* qw = aff + size_t(K) * T;   // K*T quadratic form, then weights
+  float* eig = qw + size_t(K) * T;   // K*D
+  float* wsum = eig + K * D;         // K
+  float* wgt = wsum + K;             // K
+  float* logdet = wgt + K;           // K
+
+  const size_t n = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int nwarps = blockDim.x >> 5;
+  const size_t DT = size_t(D) * T;
+  const size_t KT = size_t(K) * T;
+  const float tiny = FLT_MIN;
+
+  for (size_t i = tid; i < DT; i += blockDim.x) ys[i] = y[n * DT + i];
+  for (size_t i = tid; i < KT; i += blockDim.x) {
+    aff[i] = aff0[n * KT + i];
+    qw[i] = qf0[n * KT + i];
+  }
+  __syncthreads();
+
+  const int P = D * (D + 1) / 2;  // upper-triangle entries per class
+  for (int it = 0; it < iterations; ++it) {
+    const bool warm = it > 0 && warm_sweeps >= 0;
+
+    // ---- M-step: weight sums; qw <- a / max(q, 10 tiny) ------------
+    for (int k = warp; k < K; k += nwarps) {
+      float acc = 0.f;
+      for (int t = lane; t < T; t += 32) {
+        const float a = aff[k * T + t];
+        acc += a;
+        qw[k * T + t] = a / fmaxf(qw[k * T + t], 10.f * tiny);
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) {
+        wsum[k] = acc;
+        wgt[k] = acc / float(T);  // mean over the real T
+      }
+    }
+    __syncthreads();
+
+    // ---- M-step: S_k = D/max(wsum,tiny) sum_t w y y^H (upper tri) ---
+    for (int item = warp; item < K * P; item += nwarps) {
+      const int k = item / P;
+      int rem = item % P;
+      int d = 0;
+      while (rem >= D - d) {
+        rem -= D - d;
+        ++d;
+      }
+      const int e = d + rem;
+      float re = 0.f, im = 0.f;
+      for (int t = lane; t < T; t += 32) {
+        const float w = qw[k * T + t];
+        const float2 p = c_mul_conj(ys[d * T + t], ys[e * T + t]);
+        re += w * p.x;
+        im += w * p.y;
+      }
+      re = warp_sum(re);
+      im = warp_sum(im);
+      if (lane == 0) {
+        const float scale = float(D) / fmaxf(wsum[k], tiny);
+        float2* Sk = S + k * DD;
+        if (d == e) {
+          Sk[d * D + d] = make_float2(re * scale, 0.f);
+        } else {
+          Sk[d * D + e] = make_float2(re * scale, im * scale);
+          Sk[e * D + d] = make_float2(re * scale, -im * scale);
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- eigendecomposition, normalization, inverse covariance ------
+    for (int k = warp; k < K; k += nwarps) {
+      float2* Sk = S + k * DD;
+      float2* Vk = V + k * DD;
+      if (warm) {
+        warp_warm_rotate(Sk, Vk, C + k * DD, D);
+        warp_jacobi(Sk, Vk, D, warm_sweeps);
+      } else {
+        warp_set_identity(Vk, D);
+        warp_jacobi(Sk, Vk, D, sweeps);
+      }
+      float lmax = Sk[0].x;
+      for (int i = 1; i < D; ++i) lmax = fmaxf(lmax, Sk[i * D + i].x);
+      lmax = fmaxf(lmax, tiny);
+      if (lane < D)
+        eig[k * D + lane] =
+            fmaxf(Sk[lane * D + lane].x / lmax, eigenvalue_floor);
+      __syncwarp();
+      if (lane == 0) {
+        float ld = 0.f;
+        for (int i = 0; i < D; ++i) ld += logf(eig[k * D + i]);
+        logdet[k] = ld;
+      }
+      for (int de = lane; de < DD; de += 32) {
+        const int d = de / D;
+        const int e = de % D;
+        float2 acc = make_float2(0.f, 0.f);
+        for (int i = 0; i < D; ++i)
+          acc = c_add(acc, c_scale(1.f / eig[k * D + i],
+                                   c_mul_conj(Vk[d * D + i], Vk[e * D + i])));
+        Ci[k * DD + de] = acc;
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+
+    // ---- E-step ------------------------------------------------------
+    const float eps = (it == iterations - 1) ? 0.f : affiliation_eps;
+    for (int t = tid; t < T; t += blockDim.x) {
+      float mx = -INFINITY;
+      for (int k = 0; k < K; ++k) {
+        const float2* Cik = Ci + k * DD;
+        float q = 0.f;
+        for (int d = 0; d < D; ++d) {
+          const float2 yd = ys[d * T + t];
+          q += Cik[d * D + d].x * (yd.x * yd.x + yd.y * yd.y);
+          for (int e = d + 1; e < D; ++e) {
+            // 2 Re(Cinv_de conj(y_d) y_e) with p = y_d conj(y_e)
+            const float2 p = c_mul_conj(yd, ys[e * T + t]);
+            q += 2.f * (Cik[d * D + e].x * p.x + Cik[d * D + e].y * p.y);
+          }
+        }
+        q = fmaxf(q, tiny);
+        const float lp = -float(D) * logf(q) - logdet[k];
+        qw[k * T + t] = q;
+        aff[k * T + t] = lp;
+        mx = fmaxf(mx, lp);
+      }
+      float den = 0.f;
+      for (int k = 0; k < K; ++k) {
+        const float num = expf(aff[k * T + t] - mx) * wgt[k];
+        aff[k * T + t] = num;
+        den += num;
+      }
+      den = fmaxf(den, tiny);
+      for (int k = 0; k < K; ++k) {
+        float a = aff[k * T + t] / den;
+        if (eps != 0.f) a = fminf(fmaxf(a, eps), 1.f - eps);
+        aff[k * T + t] = a;
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int k = tid; k < K; k += blockDim.x) weight_out[n * K + k] = wgt[k];
+  for (int i = tid; i < K * D; i += blockDim.x)
+    eig_out[n * K * D + i] = eig[i];
+  for (int i = tid; i < K * DD; i += blockDim.x)
+    v_out[n * K * DD + i] = V[i];
+  for (size_t i = tid; i < KT; i += blockDim.x) aff_out[n * KT + i] = aff[i];
+}
+
+}  // namespace
+
+// Launch the whole-fit EM on `stream` for N independent bins.
+// Returns a cudaError_t (0 on success); neither synchronizes nor
+// allocates.
+extern "C" int cacgmm_em_full_launch(
+    const void* y, const void* aff0, const void* qf0, void* weight,
+    void* eig, void* v, void* aff, int N, int D, int K, int T,
+    int iterations, int sweeps, int warm_sweeps, float eigenvalue_floor,
+    float affiliation_eps, void* stream) {
+  const size_t bytes = em_smem_bytes(D, K, T);
+  cudaError_t err = cudaFuncSetAttribute(
+      cacgmm_em_full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(bytes));
+  if (err != cudaSuccess) return int(err);
+  cacgmm_em_full_kernel<<<N, kThreads, bytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(y), static_cast<const float*>(aff0),
+      static_cast<const float*>(qf0), static_cast<float*>(weight),
+      static_cast<float*>(eig), static_cast<float2*>(v),
+      static_cast<float*>(aff), D, K, T, iterations, sweeps, warm_sweeps,
+      eigenvalue_floor, affiliation_eps);
+  return int(cudaGetLastError());
+}

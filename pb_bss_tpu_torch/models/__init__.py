@@ -1,0 +1,6 @@
+from .base import Model  # noqa: F401
+from .cacgmm import CACGMM, CACGMMTrainer  # noqa: F401
+from .complex_angular_central_gaussian import (  # noqa: F401
+    ComplexAngularCentralGaussian,
+    ComplexAngularCentralGaussianTrainer,
+)

@@ -1,0 +1,62 @@
+"""Shared mixture-model math: E-step posteriors and mixture weights
+(counterpart of ``pb_bss_tpu.models.mixture_model_utils``)."""
+from __future__ import annotations
+
+import torch
+
+from .._dtypes import tiny as _tiny
+
+__all__ = ['log_pdf_to_affiliation', 'estimate_mixture_weight']
+
+
+def log_pdf_to_affiliation(weight, log_pdf, source_activity_mask=None,
+                           affiliation_eps=0.):
+    """Posterior responsibilities from per-class log densities.
+
+    Max-shifted exponentiation, weight multiplication in the linear
+    domain, optional boolean source-activity gating, tiny-clamped
+    normalization, optional ``[eps, 1 - eps]`` clipping (no
+    re-normalization afterwards).
+
+    Args:
+        weight: broadcastable against log_pdf, e.g. (..., K, 1).
+        log_pdf: (..., K, N)
+        source_activity_mask: optional bool (..., K, N)
+    """
+    affiliation = torch.exp(
+        log_pdf - log_pdf.max(dim=-2, keepdim=True).values)
+    affiliation = affiliation * weight
+    if source_activity_mask is not None:
+        affiliation = affiliation * source_activity_mask
+    denominator = torch.clamp(
+        affiliation.sum(-2, keepdim=True), min=_tiny(affiliation))
+    affiliation = affiliation / denominator
+    if affiliation_eps != 0:
+        affiliation = torch.clamp(
+            affiliation, affiliation_eps, 1 - affiliation_eps)
+    return affiliation
+
+
+def _axes(axis):
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
+def estimate_mixture_weight(affiliation, saliency=None,
+                            weight_constant_axis=-1):
+    """M-step mixture weight with ``weight_constant_axis`` semantics:
+    an axis resolving to -2 (the class axis) fixes the weights to 1/K
+    with shape (K, 1); otherwise the (saliency-weighted, then
+    L1-normalized over classes) mean over the given axes, keepdims."""
+    if isinstance(weight_constant_axis, int) and \
+            weight_constant_axis % affiliation.ndim - affiliation.ndim == -2:
+        K = affiliation.shape[-2]
+        return torch.full((K, 1), 1. / K, dtype=affiliation.dtype,
+                          device=affiliation.device)
+    axes = _axes(weight_constant_axis)
+    if saliency is None:
+        return affiliation.mean(dim=axes, keepdim=True)
+    masked = (affiliation * saliency[..., None, :]).sum(
+        dim=axes, keepdim=True)
+    norm = masked.abs().sum(-2, keepdim=True)
+    norm = torch.where(norm == 0, torch.full_like(norm, 1e-10), norm)
+    return masked / norm

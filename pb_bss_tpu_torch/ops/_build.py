@@ -1,0 +1,120 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface,
+compiled by hand with ``nvcc`` for Hopper (``sm_90a``) into a shared
+library and loaded with ctypes. Nothing is built or loaded when a
+module is imported: :func:`load` builds on first use. The library name
+carries a hash of the sources, so an edited kernel is rebuilt and a
+stale one never loaded. The build directory, ``_kernels/`` inside this
+package, is listed in ``.gitignore``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+__all__ = ['CSRC', 'BUILD_DIR', 'KERNELS', 'nvcc_command', 'load',
+           'build_all']
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_DIR = CSRC.parent / '_kernels'
+_HEADERS = ('jacobi.cuh',)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points of each kernel library: name -> (argtypes, restype)
+KERNELS = {
+    'em_loop': {
+        'cacgmm_em_full_launch': (
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+             _F, _P], _I),
+    },
+    'gev': {
+        'gev_launch': ([_P, _P, _P, _I, _I, _I, _P], _I),
+    },
+}
+
+
+def _nvcc():
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH') \
+        or '/usr/local/cuda'
+    return str(pathlib.Path(home) / 'bin' / 'nvcc')
+
+
+def _sources(name):
+    return [CSRC / f'{name}.cu'] + [CSRC / h for h in _HEADERS]
+
+
+def _library_path(name):
+    digest = hashlib.sha256()
+    for path in _sources(name):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
+
+
+def nvcc_command(name, output=None):
+    """The nvcc command that builds kernel ``name`` (not run here)."""
+    if name not in KERNELS:
+        raise KeyError(name)
+    output = output or _library_path(name)
+    return [
+        _nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
+        '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
+        '-Xptxas', '-v', '-I', str(CSRC),
+        '-o', str(output), str(CSRC / f'{name}.cu'),
+    ]
+
+
+def _build(name):
+    path = _library_path(name)
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build under a temporary name, then rename: concurrent builders
+    # (e.g. a CLI subprocess) never load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        result = subprocess.run(
+            nvcc_command(name, tmp), capture_output=True, text=True)
+        if result.returncode != 0:
+            raise RuntimeError(
+                f'nvcc failed to build {name}:\n{result.stderr}')
+        path.with_suffix('.log').write_text(result.stderr)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def load(name):
+    """Build (once) and load kernel library ``name`` with its C
+    signatures declared."""
+    lib = ctypes.CDLL(str(_build(name)))
+    for fn, (argtypes, restype) in KERNELS[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def build_log(name):
+    """The compiler's report (``-Xptxas -v``: registers, shared memory,
+    spills) of the last build of kernel ``name``."""
+    return _library_path(name).with_suffix('.log').read_text()
+
+
+def build_all():
+    """Build and load every kernel; returns {name: library}."""
+    return {name: load(name) for name in KERNELS}

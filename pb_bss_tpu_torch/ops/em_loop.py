@@ -1,0 +1,167 @@
+"""Whole-fit cACGMM EM in one CUDA launch (kernel ``csrc/em_loop.cu``).
+
+Replaces the JAX package's Pallas TPU kernel
+``pb_bss_tpu/ops/pallas_em_loop.py:cacgmm_em_full``. One CTA owns one
+(utterance, frequency bin) and runs every EM iteration with the bin's
+observations resident in shared memory: Hermitian M-step scatter,
+warm-started complex Jacobi (cold ``sweeps`` in iteration 0, then
+``warm_sweeps`` from the previous eigenbasis), eigenvalue
+max-normalization and floor, inverse-covariance E-step and max-shift
+softmax. The final E-step is unclipped, so the returned affiliation
+equals ``predict`` on the returned model.
+
+What bounds it on the H100: the observations are read from device
+memory once per fit, so the kernel is bound by fp32 FMAs and the
+log/exp of the E-step, not by bytes; the design keeps the whole
+working set of a bin in shared memory to get there.
+
+Gate (:func:`fits`): D <= 16 (a warp owns a D x D Jacobi) and the
+bin's working set, :func:`smem_bytes`, within the 227 KB of shared
+memory a block may opt into on the H100 — T <= 3178 frames at D=6,
+K=3 (:func:`max_frames`). It replaces the JAX package's VMEM tile
+budget (``pallas_em_loop.choose_tile_f``), which stops near 600 frames.
+
+On a CPU tensor the wrapper runs the plain PyTorch twin,
+:func:`cacgmm_em_full_reference`. On a CUDA tensor it launches the
+kernel or raises; it never falls back.
+"""
+from __future__ import annotations
+
+import torch
+
+from .linalg import sort_ascending
+
+__all__ = ['cacgmm_em_full', 'cacgmm_em_full_reference', 'smem_bytes',
+           'max_frames', 'fits']
+
+# bytes of shared memory one block may opt into on the H100 (sm_90)
+SMEM_LIMIT = 232448
+
+
+def smem_bytes(D, K, T):
+    """Shared memory one bin's CTA needs (csrc/em_loop.cu)."""
+    return 8 * (D * T + 4 * K * D * D) + 4 * (2 * K * T + K * D + 3 * K)
+
+
+def max_frames(D, K):
+    """Longest T the kernel takes at (D, K)."""
+    return (SMEM_LIMIT - 8 * 4 * K * D * D - 4 * (K * D + 3 * K)) \
+        // (8 * D + 8 * K)
+
+
+def fits(D, K, T):
+    """Does the whole-fit kernel take this shape?"""
+    return D <= 16 and smem_bytes(D, K, T) <= SMEM_LIMIT
+
+
+def cacgmm_em_full_reference(y, affiliation, quadratic_form, *,
+                             iterations, sweeps=6, eigenvalue_floor=1e-10,
+                             affiliation_eps=1e-10, saliency=None,
+                             source_activity_mask=None):
+    """Plain PyTorch twin of the kernel: the scan-path EM restated with
+    one trailing unclipped E-step (the JAX package's
+    ``cacgmm_em_full_reference``). It runs a cold Jacobi with
+    ``sweeps`` every iteration; the kernel warm-starts later
+    iterations, which converges to the same eigendecomposition.
+
+    Args: as :func:`cacgmm_em_full`.
+    """
+    from ..models.cacgmm import _m_step
+
+    model = None
+    for i in range(iterations):
+        model = _m_step(
+            y, quadratic_form, affiliation, saliency,
+            hermitize=True, covariance_norm='eigenvalue',
+            eigenvalue_floor=eigenvalue_floor, weight_constant_axis=(-1,),
+            eigh_sweeps=sweeps, eigh_method='jacobi')
+        affiliation, quadratic_form, _ = model._predict(
+            y, source_activity_mask=source_activity_mask,
+            affiliation_eps=0. if i == iterations - 1 else affiliation_eps)
+    return (model.weight[..., 0], model.cacg.covariance_eigenvalues,
+            model.cacg.covariance_eigenvectors, affiliation)
+
+
+def cacgmm_em_full(y, affiliation, quadratic_form, *, iterations,
+                   sweeps=6, warm_sweeps=None, eigenvalue_floor=1e-10,
+                   affiliation_eps=1e-10, saliency=None,
+                   source_activity_mask=None):
+    """Run a full cACGMM EM fit as ONE kernel launch.
+
+    ``iterations`` M-steps starting from the given affiliations and
+    quadratic forms, an E-step after each; the final E-step uses
+    ``affiliation_eps=0``.
+
+    Args:
+        y: (F, D, T) or (B, F, D, T) complex64 unit-norm, time-last
+            observations (a leading batch folds into the bin axis).
+        affiliation: (..., F, K, T) initial posteriors.
+        quadratic_form: (..., F, K, T) initial quadratic forms.
+        warm_sweeps: Jacobi sweeps of the warm-started iterations
+            (None: every iteration cold with ``sweeps``).
+        saliency / source_activity_mask: plain path only; the kernel
+            raises ``NotImplementedError`` for them.
+    Returns:
+        (weight (..., F, K), eigenvalues (..., F, K, D) ascending,
+        eigenvectors (..., F, K, D, D) complex64, affiliation
+        (..., F, K, T)).
+    """
+    if iterations < 1:
+        raise ValueError(f'iterations must be >= 1, got {iterations}')
+    if y.device.type == 'cpu':
+        return cacgmm_em_full_reference(
+            y, affiliation, quadratic_form, iterations=iterations,
+            sweeps=sweeps, eigenvalue_floor=eigenvalue_floor,
+            affiliation_eps=affiliation_eps, saliency=saliency,
+            source_activity_mask=source_activity_mask)
+    if y.device.type != 'cuda':
+        raise ValueError(f'unsupported device {y.device}')
+    if saliency is not None or source_activity_mask is not None:
+        raise NotImplementedError(
+            'saliency and source_activity_mask are not implemented in '
+            'the CUDA whole-fit EM kernel yet (ROADMAP queue 2 K2)')
+    if y.dtype != torch.complex64 or y.ndim not in (3, 4):
+        raise ValueError(
+            f'y must be complex64 (F, D, T) or (B, F, D, T), got '
+            f'{y.dtype} {tuple(y.shape)}')
+    *lead, D, T = y.shape
+    K = affiliation.shape[-2]
+    for name, x in (('affiliation', affiliation),
+                    ('quadratic_form', quadratic_form)):
+        if tuple(x.shape) != (*lead, K, T) or x.device != y.device:
+            raise ValueError(
+                f'{name} must be {(*lead, K, T)} on {y.device}, got '
+                f'{tuple(x.shape)} on {x.device}')
+    if not fits(D, K, T):
+        raise ValueError(
+            f'(D={D}, K={K}, T={T}) is outside the whole-fit kernel gate '
+            f'(D <= 16, T <= {max_frames(D, K)})')
+    N = 1
+    for n in lead:
+        N *= n
+    y_ = y.resolve_conj().reshape(N, D, T).contiguous()
+    a_ = affiliation.reshape(N, K, T).to(torch.float32).contiguous()
+    q_ = quadratic_form.reshape(N, K, T).to(torch.float32).contiguous()
+    weight = torch.empty((N, K), dtype=torch.float32, device=y.device)
+    eig = torch.empty((N, K, D), dtype=torch.float32, device=y.device)
+    vec = torch.empty((N, K, D, D), dtype=torch.complex64, device=y.device)
+    aff = torch.empty((N, K, T), dtype=torch.float32, device=y.device)
+    if N:
+        from ._build import load
+        err = load('em_loop').cacgmm_em_full_launch(
+            y_.data_ptr(), a_.data_ptr(), q_.data_ptr(), weight.data_ptr(),
+            eig.data_ptr(), vec.data_ptr(), aff.data_ptr(), N, D, K, T,
+            int(iterations), int(sweeps),
+            -1 if warm_sweeps is None else int(warm_sweeps),
+            float(eigenvalue_floor), float(affiliation_eps),
+            torch.cuda.current_stream(y.device).cuda_stream)
+        if err:
+            raise RuntimeError(
+                f'cacgmm_em_full kernel launch failed: CUDA error {err}')
+        cacgmm_em_full.launches += 1
+    eig, vec = sort_ascending(eig, vec)
+    return (weight.reshape(*lead, K), eig.reshape(*lead, K, D),
+            vec.reshape(*lead, K, D, D), aff.reshape(*lead, K, T))
+
+
+cacgmm_em_full.launches = 0

@@ -1,0 +1,173 @@
+"""High-level separation pipeline.
+
+The standard recipe — STFT -> cACGMM EM -> DHTV permutation alignment
+-> mask-based extraction or GEV beamforming -> iSTFT — as
+:func:`separate` (one utterance) and :func:`separate_batch` (a leading
+batch axis, one EM kernel launch for the whole batch). Counterpart of
+``pb_bss_tpu.pipeline``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .extraction.beamformer import (
+    apply_beamforming_vector,
+    get_power_spectral_density_matrix,
+    phase_correction,
+)
+from .extraction.beamformer_wrapper import get_bf_vector
+from .models.cacgmm import CACGMMTrainer
+from .permutation_alignment import DHTVPermutationAlignment
+from .transform import istft, stft
+from .transform.stft_module import stft_frames
+
+__all__ = ['separate', 'separate_batch']
+
+
+def _check_options(beamformer, model, mesh, refine):
+    if refine is not None:
+        if refine != 'fca':
+            raise ValueError(f'Unknown refine stage: {refine!r}')
+        if beamformer is not None:
+            raise ValueError(
+                'refine and beamformer are mutually exclusive, got '
+                f'refine={refine!r}, beamformer={beamformer!r}')
+        raise NotImplementedError(
+            "refine='fca' is not ported yet (ROADMAP queue 1, FCA)")
+    if model in ('cwmm', 'cbmm'):
+        raise NotImplementedError(
+            f'model={model!r} is not ported yet (ROADMAP queue 1, '
+            'CWMM/CBMM)')
+    if model != 'cacgmm':
+        raise ValueError(model)
+    if mesh is not None:
+        raise NotImplementedError(
+            'mesh sharding is not ported yet (ROADMAP queue 1, parallel)')
+    if beamformer not in (None, 'gev', 'gev+ban'):
+        raise NotImplementedError(
+            f'beamformer {beamformer!r} is not ported yet (ROADMAP queue '
+            "1, extraction); available: None, 'gev', 'gev+ban'")
+
+
+def _random_affiliation(generator, shape, dtype, device):
+    """The trainer's random initialization: uniform, normalized over
+    classes."""
+    affiliation = torch.rand(shape, generator=generator, dtype=dtype,
+                             device=device)
+    return affiliation / affiliation.sum(-2, keepdim=True)
+
+
+def _separate(observations, initialization, *, iterations, stft_size,
+              stft_shift, beamformer, reference_channel, eigh_sweeps):
+    """observations (B, D, N), initialization (B, F, K, T) ->
+    (B, K, N)."""
+    num_samples = observations.shape[-1]
+    Observation = stft(observations, stft_size, stft_shift)  # (B, D, T, F)
+    Y = Observation.permute(0, 3, 2, 1)  # (B, F, T, D)
+    _, affiliation = CACGMMTrainer().fit_predict_model(
+        Y, initialization=initialization, iterations=iterations,
+        eigh_sweeps=eigh_sweeps)  # (B, F, K, T)
+    pa = DHTVPermutationAlignment.from_stft_size(stft_size)
+    masks = pa(affiliation.transpose(1, 2))  # (B, K, F, T)
+
+    if beamformer is None:
+        masked = masks.transpose(-1, -2) \
+            * Observation[:, reference_channel, None]  # (B, K, T, F)
+        return istft(masked, stft_size, stft_shift, num_samples=num_samples)
+
+    Y_fdt = Observation.permute(0, 3, 1, 2)  # (B, F, D, T)
+    psds = get_power_spectral_density_matrix(
+        Y_fdt, masks.transpose(1, 2))  # (B, F, K, D, D)
+    phi_nn = psds.sum(2, keepdim=True) - psds
+    # every class of every bin in one call (pencils are independent)
+    w = get_bf_vector(beamformer, psds, phi_nn)  # (B, F, K, D)
+    # eigenvector-based beamformers carry an arbitrary phase per bin;
+    # align phases across bins before the synthesis
+    w = phase_correction(w.transpose(1, 2))  # (B, K, F, D)
+    out = apply_beamforming_vector(w, Y_fdt[:, None])  # (B, K, F, T)
+    return istft(out.transpose(-1, -2), stft_size, stft_shift,
+                 num_samples=num_samples)
+
+
+def _init_shape(observation, num_classes, stft_size, stft_shift):
+    """(F, K, T) of the EM initialization for one utterance."""
+    frames = stft_frames(observation.shape[-1], stft_size, stft_shift)
+    return (stft_size // 2 + 1, num_classes, frames)
+
+
+def separate(observation, *, num_classes=3, iterations=80, stft_size=512,
+             stft_shift=128, beamformer=None, reference_channel=0,
+             generator=None, eigh_sweeps=None, model='cacgmm', mesh=None,
+             refine=None, refine_iterations=20):
+    """Blind source separation of a multichannel recording.
+
+    Args:
+        observation: (D, num_samples) real tensor; the computation runs
+            on its device.
+        num_classes: number of mixture components (speakers + noise).
+        iterations: EM iterations.
+        beamformer: None for mask-based extraction at
+            ``reference_channel``, or ``'gev'`` / ``'gev+ban'`` applied
+            per class with the summed other classes as noise.
+        generator: ``torch.Generator`` for the EM initialization
+            (default: one seeded 0 on the observation's device).
+        eigh_sweeps: optional Jacobi sweeps of the EM eigh.
+        model / mesh / refine / refine_iterations: JAX options whose
+            paths are not ported yet (``NotImplementedError``).
+    Returns:
+        (num_classes, num_samples) separated time signals (global class
+        order is arbitrary).
+    """
+    assert observation.ndim == 2, observation.shape
+    _check_options(beamformer, model, mesh, refine)
+    if generator is None:
+        generator = torch.Generator(observation.device).manual_seed(0)
+    dtype = torch.float64 if observation.dtype == torch.float64 \
+        else torch.float32
+    init = _random_affiliation(
+        generator,
+        _init_shape(observation, num_classes, stft_size, stft_shift),
+        dtype, observation.device)
+    return _separate(
+        observation[None], init[None], iterations=iterations,
+        stft_size=stft_size, stft_shift=stft_shift, beamformer=beamformer,
+        reference_channel=reference_channel, eigh_sweeps=eigh_sweeps)[0]
+
+
+def utterance_generators(generator, batch, device):
+    """One generator per utterance, seeded from ``generator`` (the
+    counterpart of splitting a jax key): ``separate(observations[i],
+    generator=utterance_generators(g, B, device)[i])`` draws exactly
+    the initialization ``separate_batch(observations, generator=g)``
+    uses for utterance i."""
+    seeds = torch.randint(0, 2 ** 62, (batch,), generator=generator,
+                          device=generator.device).tolist()
+    return [torch.Generator(device).manual_seed(s) for s in seeds]
+
+
+def separate_batch(observations, *, num_classes=3, iterations=80,
+                   stft_size=512, stft_shift=128, beamformer=None,
+                   reference_channel=0, generator=None, eigh_sweeps=None,
+                   model='cacgmm', mesh=None, refine=None,
+                   refine_iterations=20):
+    """Batched :func:`separate`: (B, D, num_samples) ->
+    (B, num_classes, num_samples). The batch is a leading axis through
+    every stage (one EM kernel launch, one GEV launch per attempt).
+    Utterance i is initialized from the i-th of
+    :func:`utterance_generators` (default master: seeded 0)."""
+    assert observations.ndim == 3, observations.shape
+    _check_options(beamformer, model, mesh, refine)
+    device = observations.device
+    if generator is None:
+        generator = torch.Generator(device).manual_seed(0)
+    dtype = torch.float64 if observations.dtype == torch.float64 \
+        else torch.float32
+    shape = _init_shape(observations[0], num_classes, stft_size, stft_shift)
+    init = torch.stack([
+        _random_affiliation(g, shape, dtype, device)
+        for g in utterance_generators(
+            generator, observations.shape[0], device)])
+    return _separate(
+        observations, init, iterations=iterations, stft_size=stft_size,
+        stft_shift=stft_shift, beamformer=beamformer,
+        reference_channel=reference_channel, eigh_sweeps=eigh_sweeps)

@@ -1,0 +1,88 @@
+"""Package-level properties of pb_bss_tpu_torch: it imports no jax,
+builds nothing at import, its kernel wrappers run their plain twins on
+CPU tensors without counting a launch, and its kernel build names only
+Hopper and the package's own CUDA sources."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import torch
+
+from pb_bss_tpu_torch.ops import _build
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PACKAGE = ROOT / 'pb_bss_tpu_torch'
+
+_PROBE = r'''
+import sys
+import torch
+import pb_bss_tpu_torch
+from pb_bss_tpu_torch import (cli, permutation_alignment, pipeline)
+from pb_bss_tpu_torch.evaluation import module_si_sdr
+from pb_bss_tpu_torch.extraction import beamformer, beamformer_wrapper
+from pb_bss_tpu_torch.models import (
+    base, cacgmm, complex_angular_central_gaussian, mixture_model_utils)
+from pb_bss_tpu_torch.ops import _build, em_loop, gev, linalg
+from pb_bss_tpu_torch.testing import dummy_data
+from pb_bss_tpu_torch.transform import stft_module
+assert 'jax' not in sys.modules, 'jax was imported'
+assert 'pb_bss_tpu' not in sys.modules, 'pb_bss_tpu was imported'
+assert _build.load.cache_info().currsize == 0, 'a kernel was loaded'
+
+g = torch.Generator().manual_seed(0)
+y = torch.randn((4, 6, 20), dtype=torch.complex64, generator=g)
+y = y / torch.linalg.vector_norm(y, dim=-2, keepdim=True)
+aff = torch.rand((4, 3, 20), generator=g)
+aff = aff / aff.sum(-2, keepdim=True)
+out = em_loop.cacgmm_em_full(y, aff, torch.ones_like(aff), iterations=2)
+assert out[3].shape == (4, 3, 20)
+a = torch.randn((5, 6, 6), dtype=torch.complex64, generator=g)
+phi = a @ a.conj().transpose(-1, -2)
+assert gev.gev(phi, phi + torch.eye(6)).shape == (5, 6)
+assert em_loop.cacgmm_em_full.launches == 0
+assert gev.gev.launches == 0
+print('ok')
+'''
+
+
+def test_imports_without_jax_and_plain_paths_count_no_launch():
+    result = subprocess.run(
+        [sys.executable, '-c', _PROBE], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.strip() == 'ok'
+
+
+def test_no_jax_import_in_the_sources():
+    forbidden = re.compile(
+        r'^\s*(import|from)\s+(jax|pb_bss_tpu)(\.|\s|$)', re.M)
+    for path in PACKAGE.rglob('*.py'):
+        assert not forbidden.search(path.read_text()), path
+
+
+def test_nvcc_command_targets_hopper_and_the_package_sources():
+    for name in _build.KERNELS:
+        cmd = _build.nvcc_command(name, output='/dev/null')
+        assert 'arch=compute_90a,code=sm_90a' in cmd
+        assert cmd[cmd.index('-gencode') + 1] == \
+            'arch=compute_90a,code=sm_90a'
+        for flag in ('-shared', '-fPIC', '-std=c++17', '-O3'):
+            assert flag in cmd, flag
+        assert '--use_fast_math' not in cmd
+        sources = [pathlib.Path(c) for c in cmd if c.endswith('.cu')]
+        assert sources == [_build.CSRC / f'{name}.cu']
+        for source in sources:
+            assert source.is_file()
+            assert source.resolve().parent == PACKAGE / 'csrc'
+
+
+def test_library_name_follows_the_sources():
+    """An edited kernel source gives a new library name, so a stale
+    build is never loaded."""
+    paths = {name: _build._library_path(name) for name in _build.KERNELS}
+    assert len(set(paths.values())) == len(paths)
+    for path in paths.values():
+        assert path.parent == PACKAGE / '_kernels'
