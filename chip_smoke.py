@@ -2,16 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from pb_bss_tpu_torch/csrc, holds
-each against its plain PyTorch version on the card, drives the main
-path (``separate_batch`` with the GEV+BAN beamformer, ``separate`` at
-its defaults and the ``python -m pb_bss_tpu_torch`` CLI) with launch
-counters reset just before, checks finiteness and separation quality,
-and times kernels and the pipeline with CUDA events. Prints a JSON line
-of per-kernel results, the card's name and power limit, and as the
-last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
-CUDA device, outside a checkout of the repository, or when any phase
-fails. Imports nothing of JAX.
+Builds the hand-written CUDA kernels from pb_bss_tpu_torch/csrc (one
+nvcc per source, all at once), holds each against its plain PyTorch
+version on the card, and drives two paths, each with the launch
+counters reset just before and read just after:
+
+* the short-recording path: ``separate_batch`` of 4.8 s utterances
+  with the GEV+BAN beamformer (whole-fit EM kernel, GEV kernel),
+  ``separate`` at its defaults and the ``python -m pb_bss_tpu_torch``
+  CLI;
+* the long-recording path: ``separate_batch`` of 60 s recordings
+  (streamed EM statistics kernel and batched Jacobi kernel, GEV
+  kernel), ``separate`` at its defaults and the CLI on one of them, and
+  the plain EM loop (``use_fused_em=False``) on the card, whose M-step
+  runs the Jacobi kernel.
+
+It checks finiteness and separation quality, and times kernels and
+pipeline with CUDA events. Prints a JSON line of per-kernel results,
+the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA
+device, outside a checkout of the repository, or when any phase fails.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -34,6 +45,20 @@ OUT = ROOT / 'chiprun_out' / 'smoke'
 # differ (different local optima per utterance), hence the margins.
 MEAN_FLOOR_DB = 2.0
 SINGLE_FLOOR_DB = -6.0
+
+# a 60 s, 6-channel recording at 8 kHz: 13 concatenated dummy scenarios
+# of 38,520 samples, cut to length (T = 3753 STFT frames at 512/128)
+LONG_SAMPLES = 480_000
+LONG_PIECES = 13
+# quality floors for separate_batch(4 x 60 s, 20 iterations,
+# 'gev+ban'), the same metric as above. The plain path on the CPU gives
+# per-speaker batch means of -8.1 and -7.2 dB and a worst single
+# estimate of -10.0 dB on these recordings (the JAX package gives -6.1
+# and -3.4 dB on the first; the mixture's reference channel itself
+# scores -2.2 and 2.1 dB): the EM separates this synthetic minute
+# poorly in both packages, so the floors only catch a broken path.
+LONG_MEAN_FLOOR_DB = -11.0
+LONG_SINGLE_FLOOR_DB = -15.5
 
 
 def log(*args):
@@ -233,6 +258,171 @@ def check_gev(B, D, seed, plant=3):
     return err
 
 
+def hermitian_batch(B, D, seed, dtype=None):
+    """B random Hermitian positive semi-definite D x D matrices
+    (complex64, or float32 symmetric)."""
+    import torch
+    g = torch.Generator('cuda').manual_seed(seed)
+    x = torch.randn((B, D, D), generator=g, device='cuda')
+    if dtype in (None, torch.complex64):
+        x = torch.complex(x, torch.randn((B, D, D), generator=g,
+                                         device='cuda'))
+    return x @ x.conj().transpose(-1, -2) / D
+
+
+def check_eigh(B, D, seed, dtype=None, plant=False):
+    """K1 against its plain twin. With ``plant``, the first matrices are
+    identities and diagonal matrices with repeated eigenvalues, which
+    must come out exactly diagonal and stably sorted. Returns the max
+    abs eigenvalue error."""
+    import torch
+    from pb_bss_tpu_torch.ops.eigh import eigh_jacobi, eigh_jacobi_reference
+    a = hermitian_batch(B, D, seed, dtype)
+    eye = torch.eye(D, device='cuda', dtype=a.dtype)
+    if plant:
+        a[:8] = eye
+        # diag(2, 1, 2, 1, ...): ascending, ties keep the lower index
+        diag = torch.tensor([2., 1.] * (D // 2) + [2.] * (D % 2),
+                            device='cuda')
+        a[8:16] = torch.diag(diag).to(a.dtype)
+    w_k, v_k = eigh_jacobi(a)
+    w_p, v_p = eigh_jacobi_reference(a)
+    sync()
+    lam_max = w_p.abs().max(-1).values.clamp(min=1e-30)
+    err_w = (w_k - w_p).abs().max().item()
+    rel_w = ((w_k - w_p).abs().max(-1).values / lam_max).max().item()
+    recon = v_k @ torch.diag_embed(w_k).to(a.dtype) @ v_k.conj() \
+        .transpose(-1, -2) - a
+    rel_r = (torch.linalg.matrix_norm(recon)
+             / torch.linalg.matrix_norm(a)).max().item()
+    orth = (v_k.conj().transpose(-1, -2) @ v_k - eye).abs().max().item()
+    log(f'K1 B={B} D={D} {a.dtype}: max|w_k - w_p| / lam_max {rel_w:.2e} '
+        f'({err_w:.2e} abs); |V diag(w) V^H - A| / |A| {rel_r:.2e}; '
+        f'|V^H V - I| {orth:.2e}; dtypes {w_k.dtype} {v_k.dtype}')
+    if v_k.dtype != a.dtype or w_k.dtype != torch.float32:
+        fail(f'K1 output dtypes {w_k.dtype}, {v_k.dtype} for {a.dtype}')
+    # two f32 Jacobi runs of the same rotations in another order of
+    # rounding: eigenvalues within 2e-5 of the largest, factorization
+    # and orthonormality within 1e-4
+    if not (rel_w <= 2e-5 and rel_r <= 1e-4 and orth <= 1e-4):
+        fail(f'K1 mismatch at B={B} D={D} {a.dtype}')
+    if plant:
+        order = torch.sort(diag, stable=True).indices
+        exact = (torch.equal(w_k[:8], torch.ones_like(w_k[:8]))
+                 and torch.equal(v_k[:8], eye.expand(8, D, D))
+                 and torch.equal(w_k[8:16], diag[order].expand(8, D))
+                 and torch.equal(v_k[8:16], eye[:, order].expand(8, D, D)))
+        log(f'K1 planted identity and repeated-eigenvalue blocks exact: '
+            f'{exact}')
+        if not exact:
+            fail('K1 planted diagonal matrices did not come out exactly '
+                 'diagonal and stably sorted')
+    return err_w
+
+
+def stream_inputs(B, F, D, K, T, seed, saliency=False, mask=False):
+    """em_inputs plus optional saliency (B, F, T) and 0/1 source-activity
+    mask (B, F, K, T) (no frame with every class gated)."""
+    import torch
+    y, aff, qf = em_inputs(B, F, D, K, T, seed)
+    g = torch.Generator('cuda').manual_seed(seed + 1)
+    sal = sam = None
+    if saliency:
+        sal = 0.2 + 0.8 * torch.rand((B, F, T), generator=g, device='cuda')
+    if mask:
+        sam = torch.rand((B, F, K, T), generator=g, device='cuda') > 0.2
+        sam[:, :, 0] |= ~sam.any(2)
+        sam = sam.float()
+    return y, aff, qf, sal, sam
+
+
+def check_stream(B, F, D, K, T, seed, weight_mode='per_bin',
+                 saliency=False, mask=False):
+    """One K4 statistics pass in each mode (from_init, then model mode
+    from the plain path's first M-step) against its plain twin. Returns
+    the max abs error of the covariances D scatter / asum."""
+    import torch
+    from pb_bss_tpu_torch.ops.em_stream import (
+        cacgmm_em_long_reference, e_stats, e_stats_reference)
+    y, aff, qf, sal, sam = stream_inputs(B, F, D, K, T, seed, saliency,
+                                         mask)
+    N = B * F
+
+    def fold(x, *trailing):
+        return None if x is None else x.reshape(N, *trailing)
+
+    extra = dict(saliency=fold(sal, T), source_activity_mask=fold(sam, K, T))
+    weight, ev, vec = cacgmm_em_long_reference(
+        y, aff, qf, iterations=1, weight_mode=weight_mode, saliency=sal,
+        source_activity_mask=sam)
+    if weight_mode == 'fc':
+        weight = weight[:, None, :].expand(B, F, K)
+    modes = {
+        'from_init': dict(affiliation=fold(aff, K, T),
+                          quadratic_form=fold(qf, K, T)),
+        'model': dict(eigenvalues=fold(ev, K, D),
+                      eigenvectors=fold(vec, K, D, D),
+                      weight=fold(weight, K), affiliation_eps=1e-10)}
+    worst = 0.
+    for mode, kwargs in modes.items():
+        s_k, a_k = e_stats(fold(y, D, T), **kwargs, **extra)
+        s_p, a_p = e_stats_reference(fold(y, D, T), **kwargs, **extra)
+        sync()
+        cov_k = D * s_k / a_k.clamp(min=1e-30)[..., None, None]
+        cov_p = D * s_p / a_p.clamp(min=1e-30)[..., None, None]
+        err = (cov_k - cov_p).abs().max().item()
+        scale = cov_p.abs().max().item()
+        rel_a = ((a_k - a_p).abs() / a_p.abs().clamp(min=1e-30)).max().item()
+        herm = (s_k - s_k.conj().transpose(-1, -2)).abs().max().item()
+        log(f'K4 {mode} B={B} F={F} D={D} K={K} T={T} {weight_mode}'
+            f'{" +saliency" if saliency else ""}{" +mask" if mask else ""}: '
+            f'max|cov_k - cov_p| {err:.2e} (max|cov| {scale:.2f}); '
+            f'asum rel {rel_a:.2e}; |S - S^H| {herm:.1e}')
+        # f32 sums over thousands of frames in two orders, and (model
+        # mode) the quadratic form through the assembled inverse
+        # against the projection V^H y: 1e-4 of the largest entry
+        if not (err <= 1e-4 * scale and rel_a <= 1e-4 and herm == 0.
+                and bool(torch.isfinite(s_k).all())):
+            fail(f'K4 {mode} mismatch at {(B, F, D, K, T, weight_mode)}')
+        worst = max(worst, err)
+    return worst
+
+
+def check_stream_fit(B, F, D, K, T, seed, iterations=20):
+    """The whole streamed EM (K4 + K1 + finish) against its plain twin
+    over ``iterations`` iterations, held like K2's 20-iteration check:
+    trajectories part in ambiguous bins, so the final masks are held by
+    argmax agreement. Returns the agreement."""
+    import torch
+    from pb_bss_tpu_torch.models.cacgmm import (
+        CACGMM, _predict_time_last_blocked)
+    from pb_bss_tpu_torch.models.complex_angular_central_gaussian import (
+        ComplexAngularCentralGaussian)
+    from pb_bss_tpu_torch.ops.em_stream import (
+        cacgmm_em_long, cacgmm_em_long_reference)
+    y, aff, qf = em_inputs(B, F, D, K, T, seed)
+    masks = []
+    for fit in (cacgmm_em_long, cacgmm_em_long_reference):
+        weight, ev, vec = fit(y, aff, qf, iterations=iterations)
+        model = CACGMM(weight=weight[..., None],
+                       cacg=ComplexAngularCentralGaussian(
+                           covariance_eigenvectors=vec,
+                           covariance_eigenvalues=ev))
+        masks.append(_predict_time_last_blocked(model, y, t_block=2048)
+                     .argmax(-2))
+        if fit is cacgmm_em_long:
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (weight, ev, vec))
+            wsum = (weight.sum(-1) - 1).abs().max().item()
+    sync()
+    agree = (masks[0] == masks[1]).float().mean().item()
+    log(f'K4 {iterations} iter B={B} F={F} D={D} K={K} T={T}: finite '
+        f'{finite} |sum w - 1| {wsum:.2e} argmax agreement {agree:.4f}')
+    if not (finite and wsum < 1e-4 and agree > 0.9):
+        fail(f'K4 {iterations}-iteration check failed at {(B, F, D, K, T)}')
+    return agree
+
+
 def phase_kernels():
     results = {}
     results['em_bench'] = check_em(8, 513, 6, 3, 300, seed=1)
@@ -244,6 +434,19 @@ def phase_kernels():
     check_gev(8 * 257, 6, seed=9)
     results['gev_slice'] = check_gev(8 * 257 * 3, 6, seed=7)
     check_gev(100, 3, seed=8)
+    import torch
+    # K1 at the long path's M-step shape: 4 recordings x 257 bins x 3
+    results['eigh'] = check_eigh(4 * 257 * 3, 6, seed=10, plant=True)
+    check_eigh(100, 3, seed=11, plant=True)
+    check_eigh(200, 16, seed=12, plant=True)
+    check_eigh(4 * 257 * 3, 6, seed=13, dtype=torch.float32, plant=True)
+    # K4: batched 60 s recordings (T = 3753, not a multiple of the tile)
+    results['stream'] = check_stream(4, 257, 6, 3, 3753, seed=14)
+    check_stream(1, 257, 6, 3, 3753, seed=15, weight_mode='fc')
+    check_stream(2, 65, 6, 3, 1000, seed=16, saliency=True, mask=True)
+    check_stream(1, 33, 3, 2, 777, seed=17, weight_mode='fc',
+                 saliency=True)
+    check_stream_fit(4, 257, 6, 3, 3753, seed=18)
     return results
 
 
@@ -252,20 +455,17 @@ def phase_guards():
     plain code on the card."""
     import torch
     from pb_bss_tpu_torch.models.cacgmm import CACGMMTrainer
-    from pb_bss_tpu_torch.ops.linalg import eigh
-    a = torch.eye(6, dtype=torch.complex64, device='cuda').repeat(64, 1, 1)
     g = torch.Generator('cuda').manual_seed(0)
-    y_long = torch.randn((3, 4000, 6), dtype=torch.complex64,
-                         device='cuda', generator=g)
+    y = torch.randn((3, 300, 6), dtype=torch.complex64, device='cuda',
+                    generator=g)
     for name, call in (
-            ('eigh auto (K1)', lambda: eigh(a)),
-            ('fit past the T gate (K4)',
-             lambda: CACGMMTrainer().fit(y_long, num_classes=3,
-                                         iterations=1)),
-            ('frequency-constant weights (K5)',
+            ('frequency-constant weights inside the whole-fit gate (K5)',
              lambda: CACGMMTrainer().fit(
-                 y_long[:, :300], num_classes=3, iterations=1,
-                 weight_constant_axis=(-3, -1)))):
+                 y, num_classes=3, iterations=1,
+                 weight_constant_axis=(-3, -1))),
+            ('use_pallas_em (K11)',
+             lambda: CACGMMTrainer().fit(
+                 y, num_classes=3, iterations=1, use_pallas_em=True))):
         try:
             call()
         except NotImplementedError as e:
@@ -296,8 +496,7 @@ def phase_main_path():
     obs, images = load_utterances(range(8))
     obs = obs.cuda()
     sync()
-    cacgmm_em_full.launches = 0
-    gev.launches = 0
+    reset_counters()
     out = P.separate_batch(obs, num_classes=3, iterations=20,
                            beamformer='gev+ban')
     sync()
@@ -335,15 +534,15 @@ def phase_main_path():
     return launches
 
 
-def phase_cli(observation):
+def phase_cli(observation, name='mixture'):
     import numpy as np
     from scipy.io import wavfile
     OUT.mkdir(parents=True, exist_ok=True)
-    wav = OUT / 'mixture.wav'
+    wav = OUT / f'{name}.wav'
     peak = np.abs(observation).max()
     wavfile.write(wav, 8000, (observation.T / peak * 0.9 * 32767)
                   .astype(np.int16))
-    out_dir = OUT / 'separated'
+    out_dir = OUT / f'{name}_separated'
     for old in out_dir.glob('*.wav'):
         old.unlink()
     result = subprocess.run(
@@ -351,7 +550,8 @@ def phase_cli(observation):
          '-b', 'gev+ban', '-o', str(out_dir)],
         cwd=ROOT, capture_output=True, text=True, timeout=600)
     files = sorted(out_dir.glob('*.wav'))
-    log(f'CLI rc {result.returncode}, wrote {[f.name for f in files]}')
+    log(f'CLI ({name}, {observation.shape[-1]} samples) rc '
+        f'{result.returncode}, wrote {[f.name for f in files]}')
     if result.returncode != 0:
         fail(f'CLI failed:\n{result.stderr[-2000:]}')
     if len(files) != 3:
@@ -362,11 +562,129 @@ def phase_cli(observation):
             fail(f'{f.name} is not a finite, non-silent signal')
 
 
-def phase_timing(errors, launches):
+def long_recordings(first_seed, count):
+    """``count`` 60 s, 6-channel recordings (observation and the
+    reference-channel speech images), each LONG_PIECES concatenated
+    dummy scenarios cut to LONG_SAMPLES. The direct-path delays depend
+    only on the speaker and channel index, so the two speakers stand
+    still across the joins."""
+    import numpy as np
+    import torch
+    from pb_bss_tpu_torch.testing import low_reverberation_data
+    obs, images = [], []
+    for r in range(count):
+        data = [low_reverberation_data(seed=first_seed + LONG_PIECES * r + i)
+                for i in range(LONG_PIECES)]
+        obs.append(np.concatenate(
+            [d['observation'] for d in data], -1)[:, :LONG_SAMPLES])
+        images.append(np.concatenate(
+            [d['speech_image'][:, 0] for d in data], -1)[:, :LONG_SAMPLES])
+    return (torch.as_tensor(np.stack(obs), dtype=torch.float32),
+            torch.as_tensor(np.stack(images)))
+
+
+def counters():
+    from pb_bss_tpu_torch.ops import em_loop, em_stream, eigh, gev
+    return {'cacgmm_em_full': em_loop.cacgmm_em_full,
+            'gev': gev.gev,
+            'eigh_jacobi': eigh.eigh_jacobi,
+            'cacgmm_em_long': em_stream.e_stats}
+
+
+def reset_counters():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def phase_long():
+    """The long-recording path: 60 s recordings past the whole-fit
+    kernel's gate run the streamed EM (K4) with the Jacobi kernel (K1)
+    in its M-step finish."""
     import torch
     import pb_bss_tpu_torch as P
+    from pb_bss_tpu_torch.evaluation import si_sdr
+    from pb_bss_tpu_torch.evaluation import si_sdr_stft
+    from pb_bss_tpu_torch.models.cacgmm import CACGMMTrainer
+
+    obs, images = long_recordings(1000, 4)
+    obs = obs.cuda()
+    sync()
+    reset_counters()
+    out = P.separate_batch(obs, num_classes=3, iterations=20,
+                           beamformer='gev+ban')
+    sync()
+    launches = read_counters()
+    log(f'long path separate_batch(4 x {tuple(obs.shape[1:])}, '
+        f"'gev+ban', 20 it) -> {tuple(out.shape)}; launches {launches}")
+    if not (launches['cacgmm_em_full'] == 0
+            and launches['cacgmm_em_long'] >= 1
+            and launches['eigh_jacobi'] >= 1 and launches['gev'] == 2):
+        fail(f'long path launches {launches}, expected K2 = 0, K4 >= 1, '
+             'K1 >= 1, K3 = 2')
+    if not bool(torch.isfinite(out).all()):
+        fail('long separate_batch output is not finite')
+    scores = si_sdr_stft(images[:, :, None],
+                         out.cpu().double()[:, None]).max(-1).values
+    log('long path per-frequency SI-SDR (dB), best estimate per speaker:',
+        [[round(v, 2) for v in row] for row in scores.tolist()])
+    means = scores.mean(0)
+    log('long path batch mean per speaker:',
+        [round(v, 2) for v in means.tolist()])
+    if not (bool((means >= LONG_MEAN_FLOOR_DB).all())
+            and bool((scores >= LONG_SINGLE_FLOOR_DB).all())):
+        fail(f'long-path separation quality below the floor '
+             f'({LONG_MEAN_FLOOR_DB} dB mean, {LONG_SINGLE_FLOOR_DB} dB '
+             'single)')
+
+    reset_counters()
+    single = P.separate(obs[0])
+    sync()
+    single_launches = read_counters()
+    if single.shape != (3, obs.shape[-1]) or \
+            not bool(torch.isfinite(single).all()):
+        fail(f'separate() at its defaults on 60 s gave '
+             f'{tuple(single.shape)} or non-finite output')
+    mask_scores = si_sdr(images[0][:, None],
+                         single.cpu().double()[None]).max(-1).values
+    log('separate() defaults (mask, 80 it) on 60 s: SI-SDR per speaker',
+        [round(v, 2) for v in mask_scores.tolist()], '| launches',
+        single_launches)
+    if single_launches['cacgmm_em_long'] < 1:
+        fail(f'separate() on 60 s did not launch K4: {single_launches}')
+
+    phase_cli(obs[0].cpu().numpy(), name='long_mixture')
+
+    # the plain EM loop on the card: its M-step eigh launches K1
+    y, aff, _ = em_inputs(1, 257, 6, 3, 304, seed=30)
+    reset_counters()
+    model = CACGMMTrainer().fit(y[0].transpose(-1, -2), iterations=5,
+                                initialization=aff[0], use_fused_em=False)
+    sync()
+    scan_launches = read_counters()
+    log(f'fit(use_fused_em=False) on CUDA (F=257, T=304): launches '
+        f'{scan_launches}')
+    if scan_launches['eigh_jacobi'] < 1 or \
+            scan_launches['cacgmm_em_full'] != 0:
+        fail(f'the scan path on CUDA did not run through K1: '
+             f'{scan_launches}')
+    if not bool(torch.isfinite(model.cacg.covariance_eigenvalues).all()):
+        fail('scan-path fit on CUDA is not finite')
+    return launches
+
+
+def phase_timing(errors, launches, long_launches):
+    import torch
+    import pb_bss_tpu_torch as P
+    from pb_bss_tpu_torch.ops.eigh import eigh_jacobi, eigh_jacobi_reference
     from pb_bss_tpu_torch.ops.em_loop import (
         cacgmm_em_full, cacgmm_em_full_reference)
+    from pb_bss_tpu_torch.ops.em_stream import (
+        cacgmm_em_long, cacgmm_em_long_reference, e_stats,
+        e_stats_reference)
     from pb_bss_tpu_torch.ops.gev import gev, gev_reference
 
     def em_times(B, F, T, reps_kernel, reps_plain, seed):
@@ -398,21 +716,54 @@ def phase_timing(errors, launches):
     log(f'timing K3 6168 pencils (separate_batch shape): kernel '
         f'{gslice_ms:.4f} ms, plain {gslice_plain:.4f} ms')
 
-    # end to end: host clock around synchronized separate_batch calls,
-    # distinct utterances per repetition
-    batches = [load_utterances(range(8 * r, 8 * r + 8))[0].cuda()
-               for r in range(1, 4)]
-    P.separate_batch(batches[0], iterations=20, beamformer='gev+ban')
-    sync()
-    times = []
-    for obs in batches:
-        t0 = time.perf_counter()
-        P.separate_batch(obs, iterations=20, beamformer='gev+ban')
+    # K1 at the long path's M-step shape (4 x 257 bins x 3 classes)
+    inputs = [(hermitian_batch(4 * 257 * 3, 6, 500 + i),) for i in range(6)]
+    eigh_ms = cuda_time(eigh_jacobi, inputs)
+    eigh_plain = cuda_time(eigh_jacobi_reference, inputs[:3])
+    log(f'timing K1 3084 matrices 6x6 c64: kernel {eigh_ms:.4f} ms, plain '
+        f'{eigh_plain:.4f} ms')
+
+    # K4 at four 60 s recordings: one statistics pass in model mode, and
+    # the whole streamed EM (20 iterations) against its plain twin
+    B, F, T = 4, 257, 3753
+    N = B * F
+    em_in = [em_inputs(B, F, 6, 3, T, 600 + i) for i in range(4)]
+    weight, ev, vec = cacgmm_em_long_reference(*em_in[0], iterations=1)
+    model = dict(eigenvalues=ev.reshape(N, 3, 6),
+                 eigenvectors=vec.reshape(N, 3, 6, 6),
+                 weight=weight.reshape(N, 3), affiliation_eps=1e-10)
+    stats_in = [(y.reshape(N, 6, T),) for y, _, _ in em_in]
+    stats_ms = cuda_time(lambda y: e_stats(y, **model), stats_in)
+    stats_plain = cuda_time(lambda y: e_stats_reference(y, **model),
+                            stats_in[:3])
+    log(f'timing K4 statistics pass B=4 F=257 D=6 K=3 T=3753 (model '
+        f'mode): kernel {stats_ms:.4f} ms, plain {stats_plain:.4f} ms')
+    long_ms = cuda_time(lambda y, a, q: cacgmm_em_long(
+        y, a, q, iterations=20), em_in[1:])
+    long_plain = cuda_time(lambda y, a, q: cacgmm_em_long_reference(
+        y, a, q, iterations=20), em_in[1:3])
+    log(f'timing cacgmm_em_long B=4 F=257 T=3753, 20 it: kernels '
+        f'{long_ms:.3f} ms, plain {long_plain:.3f} ms')
+
+    def e2e(batches, count, label):
+        """Host clock around synchronized separate_batch calls, distinct
+        recordings per repetition, after one warm-up call."""
+        P.separate_batch(batches[0], iterations=20, beamformer='gev+ban')
         sync()
-        times.append(time.perf_counter() - t0)
-    per_utt = [1e3 * t / 8 for t in times]
-    log('timing e2e separate_batch(8, gev+ban, 20 it): ms per utterance '
-        f'{[round(t, 2) for t in per_utt]}')
+        times = []
+        for obs in batches[1:]:
+            t0 = time.perf_counter()
+            P.separate_batch(obs, iterations=20, beamformer='gev+ban')
+            sync()
+            times.append(time.perf_counter() - t0)
+        per_utt = [1e3 * t / count for t in times]
+        log(f'timing e2e separate_batch({count}, gev+ban, 20 it): ms per '
+            f'{label} {[round(t, 2) for t in per_utt]}')
+
+    e2e([load_utterances(range(8 * r, 8 * r + 8))[0].cuda()
+         for r in range(1, 5)], 8, 'utterance (4.8 s)')
+    e2e([long_recordings(first, 4)[0].cuda()
+         for first in (1000, 2000, 3000)], 4, '60 s recording')
 
     return [
         {'name': 'cacgmm_em_full', 'route': 'cuda',
@@ -427,6 +778,18 @@ def phase_timing(errors, launches):
          'launches': launches['gev'],
          'max_abs_err': errors['gev_slice'], 'ms': gslice_ms,
          'plain_ms': gslice_plain},
+        {'name': 'eigh_jacobi', 'route': 'cuda',
+         'source': 'pb_bss_tpu_torch/csrc/eigh.cu',
+         'replaces': 'pb_bss_tpu/ops/pallas_eigh.py:124',
+         'launches': long_launches['eigh_jacobi'],
+         'max_abs_err': errors['eigh'], 'ms': eigh_ms,
+         'plain_ms': eigh_plain},
+        {'name': 'cacgmm_em_long', 'route': 'cuda',
+         'source': 'pb_bss_tpu_torch/csrc/em_stream.cu',
+         'replaces': 'pb_bss_tpu/ops/pallas_em_stream.py:248',
+         'launches': long_launches['cacgmm_em_long'],
+         'max_abs_err': errors['stream'], 'ms': stats_ms,
+         'plain_ms': stats_plain},
     ]
 
 
@@ -450,7 +813,8 @@ def main():
         sync()
         phase_guards()
         launches = phase_main_path()
-        kernels = phase_timing(errors, launches)
+        long_launches = phase_long()
+        kernels = phase_timing(errors, launches, long_launches)
         sync()
     except SystemExit:
         raise

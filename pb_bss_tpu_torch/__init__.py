@@ -3,9 +3,11 @@
 Multi-channel blind source separation on an NVIDIA Hopper GPU:
 ``separate`` / ``separate_batch`` run STFT -> cACGMM EM -> DHTV
 permutation alignment -> mask or GEV beamformer extraction -> iSTFT,
-with the EM fit and the GEV beamformer in hand-written CUDA kernels
-(``ops/em_loop.py``, ``ops/gev.py``). Imports torch, never jax; the
-kernels are built on first use, not at import.
+with the EM fit (whole-fit for short recordings, streamed statistics
+plus batched Jacobi for long ones) and the GEV beamformer in
+hand-written CUDA kernels (``ops/em_loop.py``, ``ops/em_stream.py``,
+``ops/eigh.py``, ``ops/gev.py``). Imports torch, never jax; the kernels
+are built on first use, not at import.
 """
 from .pipeline import separate, separate_batch  # noqa: F401
 

@@ -1,24 +1,35 @@
 """cACGMM — the flagship spatial mixture model.
 
-Counterpart of ``pb_bss_tpu.models.cacgmm`` for the separation slice:
-the model (predict), the plain EM loop (``_m_step`` /
-``_fit_em``, a Python loop over iterations) and the trainer with the
-JAX package's routing between the plain loop and the whole-fit kernel
-(:func:`pb_bss_tpu_torch.ops.em_loop.cacgmm_em_full`).
+Counterpart of ``pb_bss_tpu.models.cacgmm``: the model (predict), the
+plain EM loop (``_m_step`` / ``_fit_em``, a Python loop over
+iterations), the time-blocked EM for long signals
+(``_fit_em_t_blocked``) and the trainer with the JAX package's routing
+between them and the EM kernels.
 
-Routing of ``CACGMMTrainer.fit`` (mirrors the JAX package):
+Routing of ``CACGMMTrainer.fit`` (decision for decision the JAX
+package's, ``pb_bss_tpu/models/cacgmm.py:894-1010``):
 
-* CPU tensors, ``use_fused_em='auto'``: the plain loop.
-* CUDA tensors, ``'auto'``: the whole-fit kernel for complex64
-  (F, N, D) / (B, F, N, D) input with per-bin weights, the standard
-  knobs, D <= 16 and T inside the kernel's gate
-  (:func:`~pb_bss_tpu_torch.ops.em_loop.fits`). Shapes the JAX package
-  sends to its other EM kernels (frequency-constant weights: K5, T past
-  the gate: K4) raise ``NotImplementedError`` until those are ported.
-* ``use_fused_em=False``: the plain loop (on CUDA its eigh then meets
-  the K1 guard of :func:`pb_bss_tpu_torch.ops.linalg.eigh`).
-* ``use_fused_em=True``: the whole-fit route on any device (its plain
-  twin on the CPU).
+1. **whole fit** (:func:`pb_bss_tpu_torch.ops.em_loop.cacgmm_em_full`,
+   one launch): per-bin weights and the standard knobs, T inside the
+   kernel's gate (:func:`~pb_bss_tpu_torch.ops.em_loop.fits`).
+2. **frequency-constant weights** (``weight_constant_axis=(-3, -1)``)
+   inside the same gate: the JAX package's per-iteration kernel K5,
+   not ported yet (``NotImplementedError``).
+3. **streamed** (:func:`pb_bss_tpu_torch.ops.em_stream.cacgmm_em_long`,
+   one statistics launch per iteration, no T limit): either weight mode
+   past the gate, saliency and source-activity masks included.
+4. **time-blocked** (``_fit_em_t_blocked``): standard knobs with
+   ``t_block`` an int, or ``'auto'`` past ``T_BLOCK_AUTO_THRESHOLD``
+   frames when no kernel route is taken.
+5. **scan**: the plain loop (its eigh launches the batched Jacobi
+   kernel on CUDA, :mod:`pb_bss_tpu_torch.ops.eigh`).
+
+``use_fused_em='auto'`` takes routes 1-3 only on the accelerator (CUDA
+tensors, :func:`_on_accelerator`), for complex64 (F, N, D) /
+(B, F, N, D) input with D <= 16, under the JAX eligibility predicates;
+a frequency-constant fit resumed from a model with per-bin weights
+stays on the scan path. ``use_fused_em=True`` forces routes 1-3 on any
+device (the kernels' plain twins on the CPU); ``False`` skips them.
 """
 from __future__ import annotations
 
@@ -27,9 +38,9 @@ from operator import xor
 import numpy as np
 import torch
 
-from .._dtypes import real_dtype as _real_dtype
-from ..ops import em_loop
-from .base import Model, modelclass
+from .._dtypes import real_dtype as _real_dtype, tiny as _tiny
+from ..ops import em_loop, em_stream
+from .base import Model, force_hermitian, modelclass
 from .complex_angular_central_gaussian import (
     ComplexAngularCentralGaussian,
     ComplexAngularCentralGaussianTrainer,
@@ -39,10 +50,14 @@ from .mixture_model_utils import (
     estimate_mixture_weight,
     log_pdf_to_affiliation,
 )
+from ._precision import full_fp32
 
 __all__ = ['CACGMM', 'CACGMMTrainer']
 
 _ROADMAP = 'ROADMAP queue 2'
+
+T_BLOCK_AUTO_THRESHOLD = 8192
+T_BLOCK_AUTO = 2048
 
 
 @modelclass
@@ -119,18 +134,179 @@ def _fit_em(y, model, affiliation, quadratic_form, saliency,
     return model
 
 
+def _t_blocks(x, t_block, pad_value=0.0):
+    """(..., C, T) -> (nb, ..., C, t_block) leading-block layout, the
+    tail padded with ``pad_value``."""
+    T = x.shape[-1]
+    nb = -(-T // t_block)
+    x = torch.nn.functional.pad(x, (0, nb * t_block - T), value=pad_value)
+    x = x.reshape(*x.shape[:-1], nb, t_block)
+    return x.movedim(-2, 0)
+
+
+def _fit_em_t_blocked(y, model, affiliation, quadratic_form, *, iterations,
+                      eigenvalue_floor, affiliation_eps, first_e_step,
+                      eigh_sweeps, t_block):
+    """EM with the time axis processed in blocks.
+
+    The scan path's E-step materializes the projection ``V^H y`` of
+    shape (..., K, D, T). Here each EM iteration is a loop over
+    T-blocks whose body computes the block's posterior from the current
+    parameters and folds it straight into the M-step accumulators
+    (scatter (..., K, D, D) and affiliation sums (..., K)): neither the
+    (..., K, T) posterior nor the (..., K, D, T) projection exists at
+    full length, so the working set is O(F K D^2 + F D t_block)
+    whatever T. The scan path's operations in its order; only the
+    summation order differs.
+
+    Standard knobs only (no saliency, mask or aligner,
+    ``weight_constant_axis=-1``, hermitize, eigenvalue norm); the
+    caller checks them.
+    """
+    D, T = y.shape[-2:]
+    rdtype = _real_dtype(y)
+    y_blocks = _t_blocks(y, t_block)  # (nb, ..., D, tb)
+    nb = y_blocks.shape[0]
+    # zero weight for the padded tail frames
+    valid_blocks = (torch.arange(nb * t_block, device=y.device) < T).to(
+        rdtype).reshape(nb, t_block)
+
+    def block_stats(aff, qf, y_block):
+        """M-step contribution of one block (the cACG trainer's
+        weighting w = affiliation / quadratic_form)."""
+        w = aff / torch.clamp(qf, min=10 * _tiny(qf))
+        yw = y_block[..., None, :, :] * w[..., None, :].to(y.dtype)
+        with full_fp32():
+            scatter = yw @ y_block[..., None, :, :].conj().transpose(-1, -2)
+        return scatter, aff.sum(-1)
+
+    def m_from_stats(scatter, aff_sum):
+        covariance = D * scatter / torch.clamp(
+            aff_sum, min=_tiny(aff_sum))[..., None, None].to(scatter.dtype)
+        cacg = ComplexAngularCentralGaussian.from_covariance(
+            force_hermitian(covariance), eigenvalue_floor=eigenvalue_floor,
+            covariance_norm='eigenvalue', eigh_sweeps=eigh_sweeps)
+        return CACGMM(weight=(aff_sum / T)[..., None], cacg=cacg)
+
+    if not first_e_step:
+        # first M-step from the initialization; padded affiliations are
+        # zero and padded quadratic forms one, so the tail adds nothing
+        aff_blocks = _t_blocks(affiliation, t_block)
+        qf_blocks = _t_blocks(quadratic_form, t_block, pad_value=1.0)
+        scatter = aff_sum = 0
+        for i in range(nb):
+            s, n = block_stats(aff_blocks[i], qf_blocks[i], y_blocks[i])
+            scatter, aff_sum = scatter + s, aff_sum + n
+        model = m_from_stats(scatter, aff_sum)
+        n_steps = iterations - 1
+    else:
+        n_steps = iterations
+
+    for _ in range(n_steps):
+        scatter = aff_sum = 0
+        for i in range(nb):
+            aff, qf, _ = model._predict(
+                y_blocks[i], affiliation_eps=affiliation_eps)
+            aff = aff * valid_blocks[i]  # zero the padded tail columns
+            s, n = block_stats(aff, qf, y_blocks[i])
+            scatter, aff_sum = scatter + s, aff_sum + n
+        model = m_from_stats(scatter, aff_sum)
+    return model
+
+
+def _predict_time_last_blocked(model, y, *, t_block):
+    """Blocked final E-step (predict semantics): the (..., K, D, T)
+    projection only ever exists per block; returns the full (..., K, T)
+    affiliation."""
+    T = y.shape[-1]
+    blocks = [model._predict(y_block)[0]
+              for y_block in _t_blocks(y, t_block)]
+    return torch.cat(blocks, dim=-1)[..., :T]
+
+
+def _on_accelerator(y):
+    """Do the EM kernels run for ``y``? (CUDA tensors; the JAX package
+    asks ``jax.default_backend() != 'cpu'``.)"""
+    return y.device.type == 'cuda'
+
+
 def _per_bin_knobs(aligner, weight_constant_axis, hermitize,
                    covariance_norm):
-    """Knobs the whole-fit kernel implements."""
+    """Knobs the whole-fit and the per-bin streamed kernels implement."""
     return (aligner is None and weight_constant_axis in ((-1,), -1)
             and hermitize and covariance_norm == 'eigenvalue')
 
 
 def _fc_knobs(aligner, weight_constant_axis, hermitize, covariance_norm):
-    """Knobs of the JAX package's frequency-constant-weight EM kernel
-    (K5, not ported yet)."""
+    """Knobs of the frequency-constant-weight kernels (K5, not ported
+    yet, and the streamed kernel's 'fc' mode)."""
     return (weight_constant_axis in ((-3, -1), (-1, -3))
             and hermitize and covariance_norm == 'eigenvalue')
+
+
+def _fc_init_weight(model, y_ndim):
+    """The global per-class weight of a model for a frequency-constant
+    resume: (K,) (or (B, K) / (1, K) for batched input) when the
+    model's weight is frequency-constant, else None (per-bin weights
+    stay on the scan path)."""
+    w = torch.as_tensor(model.weight)
+    if w.ndim < 2 or w.shape[-1] != 1:
+        return None
+    squeezed = w[..., 0]  # drop the T axis
+    lead = squeezed.shape[:-1]
+    if y_ndim == 4:
+        if all(n == 1 for n in lead):  # (K,), (1, K), (1, 1, K)
+            return squeezed.reshape(1, -1)  # broadcast over B
+        if len(lead) == 2 and lead[-1] == 1:
+            return squeezed[:, 0, :]  # (B, 1, K) -> (B, K)
+        return None
+    if all(n == 1 for n in lead):
+        return squeezed.reshape(-1)  # (K,)
+    return None
+
+
+def _fused_em_eligible(y, num_classes, aligner, weight_constant_axis,
+                       hermitize, covariance_norm):
+    """Route the fit to the whole-fit kernel?"""
+    return (_on_accelerator(y) and y.ndim in (3, 4)
+            and y.dtype == torch.complex64
+            and _per_bin_knobs(aligner, weight_constant_axis, hermitize,
+                               covariance_norm)
+            and em_loop.fits(y.shape[-2], num_classes, y.shape[-1]))
+
+
+def _fused_em_fc_eligible(y, num_classes, aligner, weight_constant_axis,
+                          hermitize, covariance_norm, model):
+    """Route the fit to the frequency-constant per-iteration kernel
+    (K5)? Until K5 brings its own gate, "short enough" is the whole-fit
+    kernel's gate."""
+    return (_on_accelerator(y) and y.ndim in (3, 4)
+            and y.dtype == torch.complex64
+            and _fc_knobs(aligner, weight_constant_axis, hermitize,
+                          covariance_norm)
+            and (model is None or _fc_init_weight(model, y.ndim) is not None)
+            and em_loop.fits(y.shape[-2], num_classes, y.shape[-1]))
+
+
+def _stream_feasible(y, num_classes):
+    """Shape feasibility of the streamed kernel (saliency and the mask
+    do not change its budget)."""
+    return y.ndim in (3, 4) and em_stream.fits(y.shape[-2], num_classes)
+
+
+def _fused_em_stream_eligible(y, num_classes, aligner, weight_constant_axis,
+                              hermitize, covariance_norm, model):
+    """Route long signals to the streamed kernel when the whole-fit
+    kernels cannot take them?"""
+    per_bin = _per_bin_knobs(
+        aligner, weight_constant_axis, hermitize, covariance_norm)
+    fc = _fc_knobs(aligner, weight_constant_axis, hermitize,
+                   covariance_norm)
+    return (_on_accelerator(y) and y.dtype == torch.complex64
+            and (per_bin or fc)
+            and (not fc or model is None
+                 or _fc_init_weight(model, y.ndim) is not None)
+            and _stream_feasible(y, num_classes))
 
 
 def _fit_fused(y, model, affiliation, quadratic_form, *, iterations,
@@ -164,6 +340,73 @@ def _fit_fused(y, model, affiliation, quadratic_form, *, iterations,
     return fitted
 
 
+def _fit_fused_fc(y, model, affiliation, quadratic_form, **kwargs):
+    """Frequency-constant-weight route inside the whole-fit gate: the
+    JAX package's per-iteration kernel, not ported yet."""
+    raise NotImplementedError(
+        'frequency-constant mixture weights on signals inside the '
+        'whole-fit gate run on the JAX per-iteration EM kernel '
+        f'pallas_em_step.cacgmm_em_fc ({_ROADMAP} K5), which is not '
+        'ported to CUDA yet')
+
+
+def _fit_fused_stream(y, model, affiliation, quadratic_form, *,
+                      iterations, eigenvalue_floor, affiliation_eps,
+                      eigh_sweeps, weight_mode, saliency=None,
+                      source_activity_mask=None,
+                      return_affiliation=False):
+    """Long-T route: one streamed statistics launch per EM iteration
+    (the posterior never materialized), M-step finish in PyTorch
+    (:func:`pb_bss_tpu_torch.ops.em_stream.cacgmm_em_long`)."""
+    rdtype = _real_dtype(y)
+    *independent, D, T = y.shape
+    K = (affiliation.shape[-2] if affiliation is not None
+         else model.weight.shape[-2])
+    if saliency is not None:
+        saliency = torch.broadcast_to(
+            torch.as_tensor(saliency, dtype=rdtype, device=y.device),
+            (*independent, T))
+    if source_activity_mask is not None:
+        source_activity_mask = torch.broadcast_to(
+            source_activity_mask.to(rdtype), (*independent, K, T))
+    common = dict(
+        iterations=int(iterations), sweeps=eigh_sweeps,
+        eigenvalue_floor=float(eigenvalue_floor),
+        affiliation_eps=float(affiliation_eps), weight_mode=weight_mode,
+        saliency=saliency, source_activity_mask=source_activity_mask)
+    if model is not None:
+        if weight_mode == 'per_bin':
+            init_weight = torch.broadcast_to(
+                torch.as_tensor(model.weight)[..., 0], (*independent, K))
+        else:
+            init_weight = _fc_init_weight(model, y.ndim)
+        w, eigenvalues, eigenvectors = em_stream.cacgmm_em_long(
+            y, None, None, first_e_step=True, init_weight=init_weight,
+            init_eigenvalues=model.cacg.covariance_eigenvalues,
+            init_eigenvectors=model.cacg.covariance_eigenvectors, **common)
+    else:
+        w, eigenvalues, eigenvectors = em_stream.cacgmm_em_long(
+            y, affiliation, quadratic_form, **common)
+    if weight_mode == 'per_bin':
+        weight = w[..., None]  # (..., F, K, 1)
+    else:
+        weight = w[..., None, :, None]  # estimate_mixture_weight's shape
+    fitted = CACGMM(
+        weight=weight,
+        cacg=ComplexAngularCentralGaussian(
+            covariance_eigenvectors=eigenvectors,
+            covariance_eigenvalues=eigenvalues))
+    if return_affiliation:
+        if source_activity_mask is None and T > T_BLOCK_AUTO:
+            affiliation = _predict_time_last_blocked(
+                fitted, y, t_block=T_BLOCK_AUTO)
+        else:
+            affiliation, _, _ = fitted._predict(
+                y, source_activity_mask=source_activity_mask)
+        return fitted, affiliation
+    return fitted
+
+
 class CACGMMTrainer:
     def fit(self, y, initialization=None, num_classes=None, iterations=100,
             *, generator=None, saliency=None, source_activity_mask=None,
@@ -189,9 +432,16 @@ class CACGMMTrainer:
             use_fused_em: ``'auto'``, True or False — see the module
                 docstring for the routing.
             eigh_sweeps: Jacobi sweeps of the EM eigendecomposition.
-            use_pallas_em / inline_permutation_aligner / t_block: JAX
-                knobs whose code paths are not ported yet; a non-default
-                value raises ``NotImplementedError``.
+            t_block: time-blocked EM for long signals: each iteration
+                loops over T-blocks and folds posteriors straight into
+                the M-step accumulators. ``'auto'`` (default) enables it
+                with block ``T_BLOCK_AUTO`` for T >
+                ``T_BLOCK_AUTO_THRESHOLD`` when no kernel route is taken
+                and the knobs are standard; an int forces that block
+                length; ``None`` disables.
+            use_pallas_em / inline_permutation_aligner: JAX knobs whose
+                code paths are not ported yet; a non-default value
+                raises ``NotImplementedError``.
         """
         assert xor(initialization is None, num_classes is None), (
             'Provide either `initialization` or `num_classes` — not '
@@ -205,10 +455,6 @@ class CACGMMTrainer:
             raise NotImplementedError(
                 'the inline permutation aligner is not ported yet '
                 '(ROADMAP queue 1, the cACGMM slice)')
-        if t_block not in ('auto', None):
-            raise NotImplementedError(
-                'the time-blocked EM is not ported yet (ROADMAP queue 1, '
-                'the cACGMM slice)')
         assert y.is_complex(), y.dtype
         assert y.shape[-1] > 1, y.shape
         assert iterations > 0, iterations
@@ -238,6 +484,8 @@ class CACGMMTrainer:
             shape = (*independent, num_classes, num_observations)
             assert initialization.ndim == len(shape), (
                 initialization.shape, shape)
+            assert tuple(initialization.shape[-2:]) == shape[-2:], (
+                initialization.shape, shape)
             affiliation = torch.broadcast_to(
                 initialization.to(rdtype), shape)
             quadratic_form = torch.ones(shape, dtype=rdtype, device=y.device)
@@ -251,47 +499,81 @@ class CACGMMTrainer:
                 source_activity_mask, device=y.device)
             assert source_activity_mask.dtype == torch.bool, \
                 source_activity_mask.dtype
+            assert tuple(source_activity_mask.shape[-2:]) == (
+                num_classes, num_observations), (
+                source_activity_mask.shape, independent, num_classes,
+                num_observations)
         assert num_classes < 20, f'num_classes: {num_classes}, sure?'
         assert D < 35, f'Channels: {D}, sure?'
 
-        per_bin = _per_bin_knobs(
-            inline_permutation_aligner, weight_constant_axis, hermitize,
-            covariance_norm)
-        fc = _fc_knobs(
-            inline_permutation_aligner, weight_constant_axis, hermitize,
-            covariance_norm)
+        aligner = inline_permutation_aligner
+        knobs = (aligner, weight_constant_axis, hermitize, covariance_norm)
+        per_bin = _per_bin_knobs(*knobs)
+        fc = _fc_knobs(*knobs)
         if use_fused_em == 'auto':
             use_fused_em = (
-                y.device.type == 'cuda' and y.dtype == torch.complex64
-                and y.ndim in (3, 4) and D <= 16 and (per_bin or fc))
+                _fused_em_eligible(y, num_classes, *knobs)
+                or _fused_em_fc_eligible(y, num_classes, *knobs, model)
+                or _fused_em_stream_eligible(y, num_classes, *knobs, model))
         if use_fused_em:
             assert y.ndim in (3, 4), (
                 'use_fused_em requires (F, N, D) or (B, F, N, D) '
                 'observations', y.shape)
-            if per_bin and em_loop.fits(D, num_classes, num_observations):
-                return _fit_fused(
-                    y, model, affiliation, quadratic_form,
-                    iterations=int(iterations),
-                    eigenvalue_floor=float(eigenvalue_floor),
-                    affiliation_eps=float(affiliation_eps),
-                    eigh_sweeps=eigh_sweeps, saliency=saliency,
-                    source_activity_mask=source_activity_mask,
-                    return_affiliation=_return_affiliation)
-            if fc:
-                raise NotImplementedError(
-                    'frequency-constant mixture weights run on the JAX '
-                    'per-iteration EM kernel pallas_em_step.cacgmm_em_fc '
-                    f'({_ROADMAP} K5), which is not ported to CUDA yet')
-            if per_bin:
-                raise NotImplementedError(
-                    f'T={num_observations} is past the whole-fit kernel '
-                    f'gate (T <= {em_loop.max_frames(D, num_classes)} at '
-                    f'D={D}, K={num_classes}); the JAX package streams '
-                    'such signals through pallas_em_stream.cacgmm_em_long '
-                    f'({_ROADMAP} K4), which is not ported to CUDA yet')
-            raise AssertionError(
-                'use_fused_em=True requires weight_constant_axis=(-1,), '
-                "hermitize=True and covariance_norm='eigenvalue'")
+            assert per_bin or fc, (
+                'use_fused_em=True requires weight_constant_axis=(-1,) or '
+                "(-3, -1), hermitize=True and covariance_norm='eigenvalue'"
+                f'; got {weight_constant_axis=}, {hermitize=}, '
+                f'{covariance_norm=}')
+            fused_kwargs = dict(
+                iterations=int(iterations),
+                eigenvalue_floor=float(eigenvalue_floor),
+                affiliation_eps=float(affiliation_eps),
+                eigh_sweeps=None if eigh_sweeps is None else int(eigh_sweeps),
+                saliency=saliency,
+                source_activity_mask=source_activity_mask,
+                return_affiliation=_return_affiliation)
+            short = em_loop.fits(D, num_classes, num_observations)
+            fc_init_ok = (model is None
+                          or _fc_init_weight(model, y.ndim) is not None)
+            if per_bin and short:
+                # short T: the whole fit in one kernel launch
+                return _fit_fused(y, model, affiliation, quadratic_form,
+                                  **fused_kwargs)
+            if fc and short and fc_init_ok:
+                return _fit_fused_fc(y, model, affiliation, quadratic_form,
+                                     **fused_kwargs)
+            assert (_stream_feasible(y, num_classes)
+                    and (per_bin or fc_init_ok)), (
+                'no fused-kernel variant feasible for this shape', y.shape)
+            # long T: one streamed statistics launch per iteration
+            return _fit_fused_stream(
+                y, model, affiliation, quadratic_form,
+                weight_mode='per_bin' if per_bin else 'fc', **fused_kwargs)
+
+        standard = (saliency is None and source_activity_mask is None
+                    and per_bin)
+        if t_block == 'auto':
+            t_block = (T_BLOCK_AUTO
+                       if standard
+                       and num_observations > T_BLOCK_AUTO_THRESHOLD
+                       else None)
+        if t_block is not None:
+            assert standard, (
+                't_block requires standard knobs (no saliency/mask/'
+                'aligner, weight_constant_axis=-1, hermitize, '
+                'eigenvalue covariance norm)')
+            fitted = _fit_em_t_blocked(
+                y, model, affiliation, quadratic_form,
+                iterations=int(iterations),
+                eigenvalue_floor=float(eigenvalue_floor),
+                affiliation_eps=float(affiliation_eps),
+                first_e_step=model is not None,
+                eigh_sweeps=None if eigh_sweeps is None else int(eigh_sweeps),
+                t_block=int(t_block))
+            if _return_affiliation:
+                return fitted, _predict_time_last_blocked(
+                    fitted, y, t_block=int(t_block))
+            return fitted
 
         fitted = _fit_em(
             y, model, affiliation, quadratic_form, saliency,

@@ -10,6 +10,7 @@ package, is listed in ``.gitignore``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -38,6 +39,14 @@ KERNELS = {
     },
     'gev': {
         'gev_launch': ([_P, _P, _P, _I, _I, _I, _P], _I),
+    },
+    'eigh': {
+        'eigh_jacobi_launch': ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    },
+    'em_stream': {
+        'em_stream_launch': (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+             _I, _F, _P], _I),
     },
 }
 
@@ -116,5 +125,9 @@ def build_log(name):
 
 
 def build_all():
-    """Build and load every kernel; returns {name: library}."""
+    """Build every kernel (one nvcc per source, all at once) and load
+    them; returns {name: library}."""
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        for _ in pool.map(_build, KERNELS):
+            pass
     return {name: load(name) for name in KERNELS}

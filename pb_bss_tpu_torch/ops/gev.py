@@ -23,13 +23,10 @@ from __future__ import annotations
 
 import torch
 
+from .eigh import default_sweeps
 from .linalg import gev_staged
 
 __all__ = ['gev', 'gev_reference']
-
-
-def _default_sweeps(d):
-    return 6 if d <= 8 else 8
 
 
 def gev_reference(target_psd_matrix, noise_psd_matrix, *, sweeps=None):
@@ -38,7 +35,7 @@ def gev_reference(target_psd_matrix, noise_psd_matrix, *, sweeps=None):
     d = target_psd_matrix.shape[-1]
     return gev_staged(
         target_psd_matrix, noise_psd_matrix, eigh_method='jacobi',
-        sweeps=_default_sweeps(d) if sweeps is None else sweeps)
+        sweeps=default_sweeps(d) if sweeps is None else sweeps)
 
 
 def gev(target_psd_matrix, noise_psd_matrix, *, sweeps=None):
@@ -76,7 +73,7 @@ def gev(target_psd_matrix, noise_psd_matrix, *, sweeps=None):
         from ._build import load
         err = load('gev').gev_launch(
             xx.data_ptr(), nn.data_ptr(), beam.data_ptr(), B, d,
-            _default_sweeps(d) if sweeps is None else int(sweeps),
+            default_sweeps(d) if sweeps is None else int(sweeps),
             torch.cuda.current_stream(xx.device).cuda_stream)
         if err:
             raise RuntimeError(f'gev kernel launch failed: CUDA error {err}')

@@ -5,11 +5,10 @@ Hermitian symmetrization, unit norm, the plain batched cyclic Jacobi
 eigensolver, diagonal loading and the GEV dominant eigenvector, with
 the JAX package's routing between plain code and hand-written kernels.
 
-Routing on CUDA follows the JAX package's TPU routing. Where the JAX
-package would launch a Pallas kernel that the port has not ported yet
-(the batched Jacobi kernel ``pallas_eigh.eigh_jacobi_pallas``, ROADMAP
-queue 2 K1), the port raises ``NotImplementedError`` instead of quietly
-running the plain code on the card.
+Routing on CUDA follows the JAX package's TPU routing: where the JAX
+package launches its batched Jacobi kernel
+(``pallas_eigh.eigh_jacobi_pallas``) or its fused GEV kernel, the port
+launches their CUDA counterparts (:mod:`.eigh`, :mod:`.gev`).
 """
 from __future__ import annotations
 
@@ -26,11 +25,6 @@ __all__ = [
     'condition_hermitian',
     'gev_max_eigvec',
 ]
-
-_K1_MESSAGE = (
-    'the batched Jacobi eigh kernel (JAX pb_bss_tpu.ops.pallas_eigh.'
-    'eigh_jacobi_pallas, ROADMAP queue 2 K1) is not ported to CUDA yet; '
-    "pass method='jacobi' to run the plain batched Jacobi explicitly")
 
 
 def force_hermitian(matrix):
@@ -150,10 +144,11 @@ def eigh(a, *, method='auto', sweeps=None, sort=True):
 
     ``method='auto'`` runs the plain Jacobi for D <= 16 and
     ``torch.linalg.eigh`` for larger matrices, except on CUDA for
-    f32/c64 batches of at least 64 with D <= 16, where the JAX package
-    launches its Jacobi kernel (K1): that kernel is not ported yet, so
-    the call raises ``NotImplementedError``. ``method='jacobi'`` always
-    runs the plain Jacobi; ``method='pallas'`` names the K1 kernel.
+    f32/c64 batches of at least 64 with D <= 16, where it launches the
+    batched Jacobi kernel (:func:`pb_bss_tpu_torch.ops.eigh.eigh_jacobi`)
+    as the JAX package launches its Pallas one. ``method='jacobi'``
+    always runs the plain Jacobi; ``method='pallas'`` the kernel route
+    (its plain twin on CPU tensors).
     """
     if method == 'auto':
         if _kernel_eligible(a):
@@ -161,7 +156,8 @@ def eigh(a, *, method='auto', sweeps=None, sort=True):
         else:
             method = 'jacobi' if a.shape[-1] <= 16 else 'xla'
     if method == 'pallas':
-        raise NotImplementedError(_K1_MESSAGE)
+        from .eigh import eigh_jacobi as eigh_kernel
+        return eigh_kernel(a, sweeps=sweeps, sort=sort)
     if method == 'jacobi':
         return eigh_jacobi(a, sweeps=sweeps, sort=sort)
     if method == 'xla':

@@ -3,8 +3,10 @@
 The standard recipe — STFT -> cACGMM EM -> DHTV permutation alignment
 -> mask-based extraction or GEV beamforming -> iSTFT — as
 :func:`separate` (one utterance) and :func:`separate_batch` (a leading
-batch axis, one EM kernel launch for the whole batch). Counterpart of
-``pb_bss_tpu.pipeline``.
+batch axis through every stage). Counterpart of ``pb_bss_tpu.pipeline``.
+On the card the EM runs one whole-fit launch for recordings inside its
+gate and the streamed route (one statistics launch per iteration) for
+longer ones, such as a minute at 8 kHz.
 """
 from __future__ import annotations
 
@@ -152,7 +154,8 @@ def separate_batch(observations, *, num_classes=3, iterations=80,
                    refine_iterations=20):
     """Batched :func:`separate`: (B, D, num_samples) ->
     (B, num_classes, num_samples). The batch is a leading axis through
-    every stage (one EM kernel launch, one GEV launch per attempt).
+    every stage (the EM kernels and one GEV launch per attempt take the
+    whole batch).
     Utterance i is initialized from the i-th of
     :func:`utterance_generators` (default master: seeded 0)."""
     assert observations.ndim == 3, observations.shape

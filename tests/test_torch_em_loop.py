@@ -252,14 +252,36 @@ def test_unported_routes_raise(kwargs, match):
         CACGMMTrainer().fit(Y, num_classes=3, iterations=1, **kwargs)
 
 
-def test_past_the_gate_raises_k4():
+def test_past_the_gate_runs_the_streamed_twin(monkeypatch):
+    """use_fused_em=True past the whole-fit gate (T=3200 at D=6, K=3)
+    takes the streamed route (K4's plain twin on the CPU, no launch) and
+    performs the scan path's operations."""
+    import pb_bss_tpu_torch.models.cacgmm as mc
+    from pb_bss_tpu_torch.ops import em_stream
     rng = np.random.default_rng(0)
     Y = torch.as_tensor((rng.standard_normal((2, 3200, 6))
                          + 1j * rng.standard_normal((2, 3200, 6))
                          ).astype(np.complex64))
-    with pytest.raises(NotImplementedError, match='K4'):
-        CACGMMTrainer().fit(Y, num_classes=3, iterations=1,
-                            use_fused_em=True)
+    routes = []
+    real = mc._fit_fused_stream
+
+    def counted(*args, **kwargs):
+        routes.append(kwargs['weight_mode'])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(mc, '_fit_fused_stream', counted)
+    before = em_stream.e_stats.launches
+    kwargs = dict(num_classes=3, iterations=2, t_block=None)
+    stream = CACGMMTrainer().fit(Y, use_fused_em=True, **kwargs)
+    scan = CACGMMTrainer().fit(Y, use_fused_em=False, **kwargs)
+    assert routes == ['per_bin']
+    assert em_stream.e_stats.launches == before
+    # the same operations; the summation order over T differs
+    torch.testing.assert_close(stream.weight, scan.weight, atol=2e-4,
+                               rtol=0)
+    torch.testing.assert_close(stream.cacg.covariance_eigenvalues,
+                               scan.cacg.covariance_eigenvalues, atol=2e-4,
+                               rtol=0)
 
 
 def test_default_generator_is_seeded_zero():

@@ -80,3 +80,79 @@ def test_trainer_routes_to_the_kernel_on_cuda(cuda):
     assert cacgmm_em_full.launches == before + 1
     agree = (aff.argmax(-2) == model.predict(Y).argmax(-2)).float().mean()
     assert agree > 0.98, agree
+
+
+def _hermitian(B, D, dtype, device, seed):
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn((B, D, D), device=device, generator=g)
+    if dtype == torch.complex64:
+        x = torch.complex(x, torch.randn((B, D, D), device=device,
+                                         generator=g))
+    return x @ x.conj().transpose(-1, -2) / D
+
+
+@pytest.mark.parametrize('D,dtype', [(6, torch.complex64), (3, torch.complex64),
+                                     (16, torch.complex64),
+                                     (6, torch.float32)])
+def test_eigh_kernel_matches_plain(cuda, D, dtype):
+    from pb_bss_tpu_torch.ops.eigh import eigh_jacobi, eigh_jacobi_reference
+    a = _hermitian(771, D, dtype, cuda, seed=D)
+    a[:4] = torch.eye(D, dtype=dtype, device=cuda)
+    before = eigh_jacobi.launches
+    w, v = eigh_jacobi(a)
+    torch.cuda.synchronize()
+    assert eigh_jacobi.launches == before + 1
+    w_p, _ = eigh_jacobi_reference(a)
+    assert v.dtype == dtype and w.dtype == torch.float32
+    # two f32 Jacobi runs of the same rotations: within 2e-5 of the
+    # largest eigenvalue; the factorization within 1e-4
+    lam_max = w_p.abs().max(-1, keepdim=True).values
+    assert ((w - w_p).abs() <= 2e-5 * lam_max).all()
+    recon = v @ torch.diag_embed(w).to(dtype) @ v.conj().transpose(-1, -2)
+    assert ((recon - a).abs().amax((-2, -1))
+            <= 1e-4 * a.abs().amax((-2, -1))).all()
+    eye = torch.eye(D, dtype=dtype, device=cuda)
+    assert torch.equal(v[:4], eye.expand(4, D, D))
+    assert torch.equal(w[:4], torch.ones(4, D, device=cuda))
+
+
+@pytest.mark.parametrize('mode', ['from_init', 'model'])
+def test_stream_kernel_one_pass_matches_plain(cuda, mode):
+    from pb_bss_tpu_torch.ops.em_stream import (
+        cacgmm_em_long_reference, e_stats, e_stats_reference)
+    N, D, K, T = 65, 6, 3, 1777
+    y, aff = _unit_norm_mixture(N, D, K, T, cuda)
+    qf = torch.ones_like(aff)
+    if mode == 'from_init':
+        kwargs = dict(affiliation=aff, quadratic_form=qf)
+    else:
+        weight, ev, vec = cacgmm_em_long_reference(y, aff, qf, iterations=1)
+        kwargs = dict(eigenvalues=ev, eigenvectors=vec, weight=weight,
+                      affiliation_eps=1e-10)
+    before = e_stats.launches
+    s_k, a_k = e_stats(y, **kwargs)
+    torch.cuda.synchronize()
+    assert e_stats.launches == before + 1
+    s_p, a_p = e_stats_reference(y, **kwargs)
+    # f32 sums over T in two orders (and, in model mode, two formulas
+    # for the quadratic form): 1e-4 of the largest entry
+    assert (s_k - s_p).abs().max() <= 1e-4 * s_p.abs().max()
+    torch.testing.assert_close(a_k, a_p, rtol=1e-4, atol=0)
+
+
+def test_long_fit_routes_to_the_stream_and_eigh_kernels(cuda):
+    """T=3300 is past the whole-fit gate at D=6, K=3: 'auto' runs one
+    streamed statistics launch and one Jacobi launch per iteration and
+    never the whole-fit kernel."""
+    from pb_bss_tpu_torch.models.cacgmm import CACGMMTrainer
+    from pb_bss_tpu_torch.ops.eigh import eigh_jacobi
+    from pb_bss_tpu_torch.ops.em_stream import e_stats
+    g = torch.Generator(cuda).manual_seed(3)
+    Y = torch.randn((65, 3300, 6), dtype=torch.complex64, device=cuda,
+                    generator=g)
+    before = (cacgmm_em_full.launches, e_stats.launches, eigh_jacobi.launches)
+    model = CACGMMTrainer().fit(Y, num_classes=3, iterations=5)
+    torch.cuda.synchronize()
+    after = (cacgmm_em_full.launches, e_stats.launches, eigh_jacobi.launches)
+    assert after == (before[0], before[1] + 5, before[2] + 5)
+    assert torch.isfinite(model.cacg.covariance_eigenvalues).all()
