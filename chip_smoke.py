@@ -4,7 +4,7 @@
 
 Builds the hand-written CUDA kernels from pb_bss_tpu_torch/csrc (one
 nvcc per source, all at once), holds each against its plain PyTorch
-version on the card, and drives two paths, each with the launch
+version on the card, and drives three paths, each with the launch
 counters reset just before and read just after:
 
 * the short-recording path: ``separate_batch`` of 4.8 s utterances
@@ -15,14 +15,21 @@ counters reset just before and read just after:
   (streamed EM statistics kernel and batched Jacobi kernel, GEV
   kernel), ``separate`` at its defaults and the CLI on one of them, and
   the plain EM loop (``use_fused_em=False``) on the card, whose M-step
-  runs the Jacobi kernel.
+  runs the Jacobi kernel;
+* the rest of the cACGMM trainer: ``CACGMMTrainer.fit`` with
+  frequency-constant weights (the per-iteration EM kernels) on a batch
+  of 8 at the JAX package's benchmark shape, resumed from its model,
+  ``fit_predict`` with the inline Greedy and DHTV aligners on one 4.8 s
+  utterance, ``fit(use_pallas_em=True)`` (the E-step scatter kernel and
+  the Jacobi kernel) and the public E-step kernel ``cacgmm_e_step``.
 
 It checks finiteness and separation quality, and times kernels and
-pipeline with CUDA events. Prints a JSON line of per-kernel results,
-the card's name and power limit, and as the last line
-``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA
-device, outside a checkout of the repository, or when any phase fails.
-Imports nothing of JAX.
+pipeline with CUDA events. Prints a JSON line of per-kernel results
+(with each kernel's least possible time on the card, computed from the
+bytes and operations of this run's inputs), the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``. Exits
+non-zero without a CUDA device, outside a checkout of the repository,
+or when any phase fails. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import importlib.util
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -59,6 +67,25 @@ LONG_PIECES = 13
 # poorly in both packages, so the floors only catch a broken path.
 LONG_MEAN_FLOOR_DB = -11.0
 LONG_SINGLE_FLOOR_DB = -15.5
+
+# quality floors for the frequency-constant fit with an inline aligner
+# on one 4.8 s utterance (20 iterations, masks at the reference channel,
+# no alignment afterwards), SI-SDR of the best estimate per speaker. The
+# port's plain path on the CPU (python -m
+# pb_bss_tpu_torch.testing.inline_quality --device cpu) gives 1.10 and
+# 12.94 dB with Greedy, 6.81 and 14.76 dB with DHTV, and -4.73 and 9.04
+# dB (mean 2.16) for the control, the same fit with no aligner: a
+# mapping that is not applied scores like the control. The floors sit
+# between the control and the aligned fits, and the control is run on
+# the card too, to show that they part the two there.
+INLINE_MEAN_FLOOR_DB = 4.5
+INLINE_SINGLE_FLOOR_DB = -2.0
+
+# published peaks of the H100 SXM (the least time of a kernel is the
+# larger of its bytes over the memory rate and its operations over the
+# float32 rate outside the tensor cores)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOP_PER_S = 67e12
 
 
 def log(*args):
@@ -423,6 +450,167 @@ def check_stream_fit(B, F, D, K, T, seed, iterations=20):
     return agree
 
 
+def fold_inputs(B, F, D, K, T, seed, saliency=False, mask=False):
+    """stream_inputs folded to N = B F bins: y (N, D, T), aff and qf
+    (N, K, T), saliency (N, T), mask (N, K, T). With ``mask`` a class is
+    silenced in every frame of 16 bins (with affiliation_eps=0 its sum
+    there is exactly 0: the 0 * inf hazard at D >= 5)."""
+    y, aff, qf, sal, sam = stream_inputs(B, F, D, K, T, seed, saliency, mask)
+    N = B * F
+    if sam is not None:
+        sam = sam.reshape(N, K, T).clone()
+        sam[5:21, 1] = 0
+    return (y.reshape(N, D, T), aff.reshape(N, K, T), qf.reshape(N, K, T),
+            None if sal is None else sal.reshape(N, T), sam)
+
+
+def state_errors(vec_k, ev_k, vec_p, ev_p):
+    """(max |lambda_k - lambda_p| / lambda_max, max |C_k - C_p|,
+    max |C_p|) of two eigendecompositions, C = V diag(lambda) V^H."""
+    import torch
+    lam_k, lam_p = ev_k.sort(-1).values, ev_p.sort(-1).values
+    rel = ((lam_k - lam_p).abs().max(-1).values
+           / lam_p.abs().max(-1).values.clamp(min=1e-30)).max().item()
+
+    def cov(v, e):
+        return v @ torch.diag_embed(e).to(v.dtype) @ v.conj().transpose(-1, -2)
+    c_k, c_p = cov(vec_k, ev_k), cov(vec_p, ev_p)
+    return rel, (c_k - c_p).abs().max().item(), c_p.abs().max().item()
+
+
+def check_fc(B, F, D, K, T, seed, saliency=False, mask=False, emit=False):
+    """K5's init kernel and one step kernel against their twins (the
+    step from the twin's state, so that both see the same input).
+    Returns {'init': max abs covariance error, 'step': the same}."""
+    import torch
+    from pb_bss_tpu_torch.ops import em_step
+    y, aff, qf, sal, sam = fold_inputs(B, F, D, K, T, seed, saliency, mask)
+    init = dict(sweeps=6 if D <= 8 else 8, eigenvalue_floor=1e-10,
+                saliency=sal)
+    vec_k, ev_k, asum_k = em_step.m_init(y, aff, qf, **init)
+    vec_p, ev_p, asum_p = em_step.m_init_reference(y, aff, qf, **init)
+    weight = asum_p.reshape(B, F, K).sum(1)
+    weight = weight / weight.sum(-1, keepdim=True)
+    step = dict(warm_sweeps=2, eigenvalue_floor=1e-10,
+                affiliation_eps=0. if mask else 1e-10, saliency=sal,
+                source_activity_mask=sam, emit_affiliation=emit)
+    out_k = em_step.em_step(y, ev_p, vec_p, weight, **step)
+    out_p = em_step.em_step_reference(y, ev_p, vec_p, weight, **step)
+    sync()
+    label = (f'B={B} F={F} D={D} K={K} T={T}{" +saliency" if saliency else ""}'
+             f'{" +mask (class silenced, eps 0)" if mask else ""}'
+             f'{" +posterior" if emit else ""}')
+    errors = {}
+    for name, (vk, ek, ak), (vp, ep, ap) in (
+            ('init', (vec_k, ev_k, asum_k), (vec_p, ev_p, asum_p)),
+            ('step', out_k[:3], out_p[:3])):
+        rel, err, scale = state_errors(vk, ek, vp, ep)
+        rel_a = ((ak - ap).abs() / ap.abs().clamp(min=1e-30)).max().item()
+        finite = bool(torch.isfinite(ek).all() and torch.isfinite(vk).all())
+        log(f'K5 {name} {label}: max|lam_k - lam_p| / lam_max {rel:.2e}; '
+            f'max|C_k - C_p| {err:.2e} (max|C| {scale:.2f}); asum rel '
+            f'{rel_a:.2e}; finite {finite}')
+        # two f32 Jacobi runs, two E-step formulas and sums over T in two
+        # orders: 1e-4 of the largest eigenvalue and covariance entry
+        if not (finite and rel <= 1e-4 and err <= 1e-4 * scale
+                and rel_a <= 1e-4):
+            fail(f'K5 {name} mismatch at {label}')
+        errors[name] = err
+    if emit:
+        err_a = (out_k[3] - out_p[3]).abs().max().item()
+        log(f'K5 step {label}: max|posterior_k - posterior_p| {err_a:.2e}')
+        if not err_a <= 2e-3:
+            fail(f'K5 emitted posterior mismatch at {label}')
+    return errors
+
+
+def check_fc_fit(B, F, D, K, T, seed, iterations=20):
+    """The whole frequency-constant EM (K5 init + steps) against its
+    plain twin over ``iterations`` iterations, held by argmax agreement
+    of the final masks; then a 3-iteration resume from the kernel fit's
+    model. Returns the agreement."""
+    import torch
+    from pb_bss_tpu_torch.models.cacgmm import CACGMM
+    from pb_bss_tpu_torch.models.complex_angular_central_gaussian import (
+        ComplexAngularCentralGaussian)
+    from pb_bss_tpu_torch.ops.em_step import (
+        cacgmm_em_fc, cacgmm_em_fc_reference)
+    y, aff, qf = em_inputs(B, F, D, K, T, seed)
+
+    def masks(w, ev, vec):
+        model = CACGMM(weight=w[..., None, :, None],
+                       cacg=ComplexAngularCentralGaussian(
+                           covariance_eigenvectors=vec,
+                           covariance_eigenvalues=ev))
+        return model._predict(y)[0].argmax(-2)
+
+    fits = [fit(y, aff, qf, iterations=iterations)
+            for fit in (cacgmm_em_fc, cacgmm_em_fc_reference)]
+    w, ev, vec = fits[0]
+    resume = dict(first_e_step=True, init_weight=w, init_eigenvalues=ev,
+                  init_eigenvectors=vec, iterations=3)
+    resumed = [fit(y, None, None, **resume)
+               for fit in (cacgmm_em_fc, cacgmm_em_fc_reference)]
+    sync()
+    finite = all(bool(torch.isfinite(x).all()) for x in fits[0] + resumed[0])
+    wsum = (w.sum(-1) - 1).abs().max().item()
+    agree = (masks(*fits[0]) == masks(*fits[1])).float().mean().item()
+    agree_r = (masks(*resumed[0]) == masks(*resumed[1])).float().mean().item()
+    log(f'K5 {iterations} iter B={B} F={F} D={D} K={K} T={T}: finite '
+        f'{finite} weight {tuple(w.shape)} |sum w - 1| {wsum:.2e} argmax '
+        f'agreement {agree:.4f}; resumed 3 iter: {agree_r:.4f}')
+    if not (finite and wsum < 1e-4 and agree > 0.9 and agree_r > 0.9):
+        fail(f'K5 {iterations}-iteration check failed at {(B, F, D, K, T)}')
+    return agree
+
+
+def estep_inputs(F, D, K, T, seed):
+    """The K11 operands: y planes (F, D, T), unitary eigenvector planes,
+    reciprocal eigenvalues in (1, 10], log-determinants, weights."""
+    import torch
+    g = torch.Generator('cuda').manual_seed(seed)
+
+    def cn(*shape):
+        return torch.complex(torch.randn(shape, generator=g, device='cuda'),
+                             torch.randn(shape, generator=g, device='cuda'))
+    y = cn(F, D, T)
+    vec = torch.linalg.qr(cn(F, K, D, D))[0]
+    ev = 0.1 + 0.9 * torch.rand((F, K, D), generator=g, device='cuda')
+    w = torch.rand((F, K), generator=g, device='cuda') + 0.2
+    return (y.real.contiguous(), y.imag.contiguous(), vec.real.contiguous(),
+            vec.imag.contiguous(), 1. / ev, torch.log(ev).sum(-1),
+            w / w.sum(-1, keepdim=True))
+
+
+def check_estep(F, D, K, T, seed):
+    """Both K11 kernels against their twins. Returns (max abs posterior
+    error of the E-step, max abs error of the scatter)."""
+    from pb_bss_tpu_torch.ops.em_estep import (
+        cacgmm_e_step, cacgmm_e_step_reference, cacgmm_em_scatter,
+        cacgmm_em_scatter_reference)
+    args = estep_inputs(F, D, K, T, seed)
+    aff_k, qf_k = cacgmm_e_step(*args)
+    aff_p, qf_p = cacgmm_e_step_reference(*args)
+    s_k = cacgmm_em_scatter(*args)
+    s_p = cacgmm_em_scatter_reference(*args)
+    sync()
+    err_a = (aff_k - aff_p).abs().max().item()
+    rel_q = ((qf_k - qf_p).abs() / qf_p).max().item()
+    scale = max(s_p[0].abs().max().item(), s_p[1].abs().max().item())
+    err_s = max((s_k[i] - s_p[i]).abs().max().item() for i in (0, 1))
+    rel_a = ((s_k[2] - s_p[2]).abs() / s_p[2].abs()).max().item()
+    log(f'K11 F={F} D={D} K={K} T={T}: e_step max|aff| {err_a:.2e}, qf rel '
+        f'{rel_q:.2e}; scatter max|S_k - S_p| {err_s:.2e} (max|S| '
+        f'{scale:.2f}), asum rel {rel_a:.2e}')
+    # the inverse-covariance quadratic form against the projection, and
+    # f32 sums over T in two orders: 1e-4 (relative, or of the largest
+    # scatter entry)
+    if not (err_a <= 1e-4 and rel_q <= 1e-4 and err_s <= 1e-4 * scale
+            and rel_a <= 1e-4):
+        fail(f'K11 mismatch at {(F, D, K, T)}')
+    return err_a, err_s
+
+
 def phase_kernels():
     results = {}
     results['em_bench'] = check_em(8, 513, 6, 3, 300, seed=1)
@@ -447,25 +635,33 @@ def phase_kernels():
     check_stream(1, 33, 3, 2, 777, seed=17, weight_mode='fc',
                  saliency=True)
     check_stream_fit(4, 257, 6, 3, 3753, seed=18)
+    # K5: the bench shape, D=6 with saliency and a mask that silences a
+    # class, B=1 with the posterior the aligner reads, odd shapes
+    results['fc'] = check_fc(8, 513, 6, 3, 300, seed=19)
+    check_fc(2, 129, 6, 3, 304, seed=20, saliency=True, mask=True)
+    check_fc(1, 257, 6, 3, 304, seed=21, emit=True)
+    check_fc(1, 65, 8, 4, 150, seed=22)
+    check_fc(2, 33, 3, 2, 777, seed=23, saliency=True)
+    check_fc_fit(8, 513, 6, 3, 300, seed=24)
+    # K11: the E-step at F=513, T=300, the scatter at the slice shape and
+    # past one shared-memory tile
+    results['e_step'], _ = check_estep(513, 6, 3, 300, seed=25)
+    _, results['scatter'] = check_estep(257, 6, 3, 304, seed=26)
+    check_estep(65, 6, 3, 1100, seed=27)
+    check_estep(33, 4, 2, 37, seed=28)
     return results
 
 
 def phase_guards():
-    """Routes the port has not ported raise on CUDA instead of running
+    """Paths the port has not ported raise on CUDA instead of running
     plain code on the card."""
     import torch
-    from pb_bss_tpu_torch.models.cacgmm import CACGMMTrainer
+    import pb_bss_tpu_torch as P
     g = torch.Generator('cuda').manual_seed(0)
-    y = torch.randn((3, 300, 6), dtype=torch.complex64, device='cuda',
-                    generator=g)
+    obs = torch.randn((6, 8000), device='cuda', generator=g)
     for name, call in (
-            ('frequency-constant weights inside the whole-fit gate (K5)',
-             lambda: CACGMMTrainer().fit(
-                 y, num_classes=3, iterations=1,
-                 weight_constant_axis=(-3, -1))),
-            ('use_pallas_em (K11)',
-             lambda: CACGMMTrainer().fit(
-                 y, num_classes=3, iterations=1, use_pallas_em=True))):
+            ("separate(model='cwmm') (K6)",
+             lambda: P.separate(obs, model='cwmm')),):
         try:
             call()
         except NotImplementedError as e:
@@ -584,11 +780,16 @@ def long_recordings(first_seed, count):
 
 
 def counters():
-    from pb_bss_tpu_torch.ops import em_loop, em_stream, eigh, gev
+    from pb_bss_tpu_torch.ops import (
+        eigh, em_estep, em_loop, em_step, em_stream, gev)
     return {'cacgmm_em_full': em_loop.cacgmm_em_full,
             'gev': gev.gev,
             'eigh_jacobi': eigh.eigh_jacobi,
-            'cacgmm_em_long': em_stream.e_stats}
+            'cacgmm_em_long': em_stream.e_stats,
+            'cacgmm_em_fc_init': em_step.m_init,
+            'cacgmm_em_fc_step': em_step.em_step,
+            'cacgmm_e_step': em_estep.cacgmm_e_step,
+            'cacgmm_em_scatter': em_estep.cacgmm_em_scatter}
 
 
 def reset_counters():
@@ -676,7 +877,159 @@ def phase_long():
     return launches
 
 
-def phase_timing(errors, launches, long_launches):
+def expect_launches(what, got, want):
+    """Fail unless the counters in ``want`` read exactly as given."""
+    log(f'{what}: launches {got}')
+    wrong = {k: got[k] for k, v in want.items() if got[k] != v}
+    if wrong:
+        fail(f'{what}: launches {wrong}, expected '
+             f'{ {k: want[k] for k in wrong} }')
+
+
+def phase_fc_path():
+    """The rest of the cACGMM trainer on the card: frequency-constant
+    weights through K5 (batched, resumed, and with the inline aligners),
+    use_pallas_em through K11's scatter with K1 in the M-step, and the
+    public E-step kernel. Returns the launches of the path's kernels."""
+    import torch
+    from pb_bss_tpu_torch.models.cacgmm import CACGMMTrainer
+    from pb_bss_tpu_torch.ops.em_estep import cacgmm_e_step
+    from pb_bss_tpu_torch.testing.inline_quality import (
+        ALIGNERS, CONTROL, inline_aligner_quality, utterance)
+    fc = dict(weight_constant_axis=(-3, -1))
+    none = {'cacgmm_em_full': 0, 'cacgmm_em_long': 0}
+    path = dict.fromkeys(('cacgmm_em_fc_init', 'cacgmm_em_fc_step',
+                          'cacgmm_em_scatter', 'cacgmm_e_step',
+                          'eigh_jacobi'), 0)
+
+    def add(launches):
+        for k in path:
+            path[k] += launches[k]
+
+    # the JAX package's frequency-constant benchmark configuration
+    y, aff, _ = em_inputs(8, 513, 6, 3, 300, seed=40)
+    Y = y.transpose(-1, -2).contiguous()
+    sync()
+    reset_counters()
+    model = CACGMMTrainer().fit(Y, initialization=aff, iterations=20, **fc)
+    sync()
+    launches = read_counters()
+    add(launches)
+    expect_launches('fc fit B=8 F=513 T=300, 20 it', launches, {
+        'cacgmm_em_fc_init': 1, 'cacgmm_em_fc_step': 19, **none})
+    finite = bool(torch.isfinite(model.cacg.covariance_eigenvalues).all())
+    wsum = (model.weight.sum(-2) - 1).abs().max().item()
+    log(f'  weight {tuple(model.weight.shape)}, |sum w - 1| {wsum:.2e}, '
+        f'finite {finite}')
+    if not (finite and model.weight.shape == (8, 1, 3, 1) and wsum < 1e-4):
+        fail('fc fit at the bench shape is not finite or misshaped')
+
+    reset_counters()
+    resumed = CACGMMTrainer().fit(Y, initialization=model, iterations=5,
+                                  **fc)
+    sync()
+    launches = read_counters()
+    add(launches)
+    expect_launches('fc fit resumed from its model, 5 it', launches, {
+        'cacgmm_em_fc_init': 0, 'cacgmm_em_fc_step': 5, **none})
+    if not bool(torch.isfinite(resumed.cacg.covariance_eigenvalues).all()):
+        fail('resumed fc fit is not finite')
+
+    observation, images = utterance()
+    for name in ALIGNERS + (CONTROL,):
+        sync()
+        reset_counters()
+        scores, affiliation = inline_aligner_quality(
+            observation.cuda(), images, name)
+        sync()
+        launches = read_counters()
+        add(launches)
+        expect_launches(f'fit_predict fc + inline {name}, 4.8 s, 20 it',
+                        launches, {'cacgmm_em_fc_init': 1,
+                                   'cacgmm_em_fc_step': 19, **none})
+        scores = [round(float(v), 2) for v in scores]
+        log(f'  SI-SDR per speaker (dB), masks at the reference channel, '
+            f'no alignment afterwards: {scores}')
+        passed = (sum(scores) / len(scores) >= INLINE_MEAN_FLOOR_DB
+                  and min(scores) >= INLINE_SINGLE_FLOOR_DB)
+        if not bool(torch.isfinite(affiliation).all()):
+            fail(f'fc + inline {name}: non-finite masks')
+        if name == CONTROL and passed:
+            fail('the fc fit without an aligner meets the inline-aligner '
+                 'floors: they would not catch an alignment not applied')
+        if name != CONTROL and not passed:
+            fail(f'fc + inline {name}: quality below the floor '
+                 f'({INLINE_MEAN_FLOOR_DB} dB mean, '
+                 f'{INLINE_SINGLE_FLOOR_DB} dB single)')
+
+    for F, T, seed in ((257, 304, 41), (513, 300, 42)):
+        y, aff, _ = em_inputs(1, F, 6, 3, T, seed)
+        Y = y[0].transpose(-1, -2).contiguous()
+        sync()
+        reset_counters()
+        model = CACGMMTrainer().fit(Y, initialization=aff[0], iterations=20,
+                                    use_pallas_em=True)
+        # the posterior through the public E-step kernel
+        vec = model.cacg.covariance_eigenvectors
+        posterior, _ = cacgmm_e_step(
+            y[0].real.contiguous(), y[0].imag.contiguous(),
+            vec.real.contiguous(), vec.imag.contiguous(),
+            1. / model.cacg.covariance_eigenvalues,
+            model.cacg.log_determinant, model.weight[..., 0])
+        sync()
+        launches = read_counters()
+        add(launches)
+        expect_launches(f'fit(use_pallas_em=True) F={F} T={T}, 20 it, then '
+                        'cacgmm_e_step', launches, {
+                            'cacgmm_em_scatter': 19, 'eigh_jacobi': 20,
+                            'cacgmm_e_step': 1, 'cacgmm_em_fc_step': 0,
+                            **none})
+        agree = (posterior.argmax(-2)
+                 == model.predict(Y).argmax(-2)).float().mean().item()
+        log(f'  finite {bool(torch.isfinite(posterior).all())}, argmax '
+            f'agreement of cacgmm_e_step with predict {agree:.4f}')
+        if not (bool(torch.isfinite(model.cacg.covariance_eigenvalues).all())
+                and agree > 0.99):
+            fail(f'use_pallas_em fit at F={F} is not finite, or the '
+                 'E-step kernel disagrees with predict')
+    return path
+
+
+def bound(bytes_moved, flops):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of the bytes over the memory rate and the float32 operations
+    over the float32 rate."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+# float32 operations of the EM pieces, as the function needs them (a
+# complex multiply-add is 8): a frame's products y_d conj(y_e) over the
+# upper triangle once per frame, shared by the classes, the E-step and
+# the scatter (3 per diagonal entry, 6 per pair); per (frame, class), 4
+# per upper-triangle entry for the quadratic form plus ~10 for the
+# log-pdf and softmax, and 4 per entry for the scatter; a Jacobi rotation
+# updates two rows and two columns of A and two columns of V (10 per
+# entry) after ~30 for its parameters; the warm rotation V^H A V and the
+# inverse covariance are 16 D^3 and 8 D^3 per class.
+def em_flops(frames, K, D, e_step=True, scatter=True):
+    P = D * (D + 1) // 2
+    per_class = (4 * P + 10 if e_step else 0) + (4 * P if scatter else 0)
+    return frames * (3 * D + 6 * (P - D) + K * per_class)
+
+
+def jacobi_flops(matrices, D, sweeps):
+    return matrices * sweeps * D * (D - 1) // 2 * (60 * D + 30)
+
+
+def phase_timing(errors, launches, long_launches, fc_launches):
     import torch
     import pb_bss_tpu_torch as P
     from pb_bss_tpu_torch.ops.eigh import eigh_jacobi, eigh_jacobi_reference
@@ -720,8 +1073,11 @@ def phase_timing(errors, launches, long_launches):
     inputs = [(hermitian_batch(4 * 257 * 3, 6, 500 + i),) for i in range(6)]
     eigh_ms = cuda_time(eigh_jacobi, inputs)
     eigh_plain = cuda_time(eigh_jacobi_reference, inputs[:3])
+    # the library call that computes the same function (timed here,
+    # never called by the port)
+    eigh_library = cuda_time(torch.linalg.eigh, inputs)
     log(f'timing K1 3084 matrices 6x6 c64: kernel {eigh_ms:.4f} ms, plain '
-        f'{eigh_plain:.4f} ms')
+        f'{eigh_plain:.4f} ms, torch.linalg.eigh {eigh_library:.4f} ms')
 
     # K4 at four 60 s recordings: one statistics pass in model mode, and
     # the whole streamed EM (20 iterations) against its plain twin
@@ -745,6 +1101,9 @@ def phase_timing(errors, launches, long_launches):
     log(f'timing cacgmm_em_long B=4 F=257 T=3753, 20 it: kernels '
         f'{long_ms:.3f} ms, plain {long_plain:.3f} ms')
 
+    fc_times = time_fc()
+    estep_times = time_estep()
+
     def e2e(batches, count, label):
         """Host clock around synchronized separate_batch calls, distinct
         recordings per repetition, after one warm-up call."""
@@ -765,32 +1124,228 @@ def phase_timing(errors, launches, long_launches):
     e2e([long_recordings(first, 4)[0].cuda()
          for first in (1000, 2000, 3000)], 4, '60 s recording')
 
-    return [
-        {'name': 'cacgmm_em_full', 'route': 'cuda',
-         'source': 'pb_bss_tpu_torch/csrc/em_loop.cu',
-         'replaces': 'pb_bss_tpu/ops/pallas_em_loop.py:386',
-         'launches': launches['cacgmm_em_full'],
-         'max_abs_err': errors['em_slice'], 'ms': slice_ms,
-         'plain_ms': slice_plain},
-        {'name': 'gev', 'route': 'cuda',
-         'source': 'pb_bss_tpu_torch/csrc/gev.cu',
-         'replaces': 'pb_bss_tpu/ops/pallas_gev.py:176',
-         'launches': launches['gev'],
-         'max_abs_err': errors['gev_slice'], 'ms': gslice_ms,
-         'plain_ms': gslice_plain},
-        {'name': 'eigh_jacobi', 'route': 'cuda',
-         'source': 'pb_bss_tpu_torch/csrc/eigh.cu',
-         'replaces': 'pb_bss_tpu/ops/pallas_eigh.py:124',
-         'launches': long_launches['eigh_jacobi'],
-         'max_abs_err': errors['eigh'], 'ms': eigh_ms,
-         'plain_ms': eigh_plain},
-        {'name': 'cacgmm_em_long', 'route': 'cuda',
-         'source': 'pb_bss_tpu_torch/csrc/em_stream.cu',
-         'replaces': 'pb_bss_tpu/ops/pallas_em_stream.py:248',
-         'launches': long_launches['cacgmm_em_long'],
-         'max_abs_err': errors['stream'], 'ms': stats_ms,
-         'plain_ms': stats_plain},
+    # the least time of each timed call, from the shapes of its inputs
+    D, K = 6, 3
+    N2, T2 = 8 * 257, 304
+    # y, the initial affiliations and quadratic forms in; weight,
+    # eigenvalues, eigenvectors and affiliations out
+    k2_bytes = N2 * D * T2 * 8 + 2 * N2 * K * T2 * 4 \
+        + N2 * K * (4 + 4 * D + 8 * D * D + 4 * T2)
+    k2_flops = 20 * (em_flops(N2 * T2, K, D) + N2 * K * 8 * D ** 3) \
+        + jacobi_flops(N2 * K, D, 6) + 19 * (
+            jacobi_flops(N2 * K, D, 2) + N2 * K * 16 * D ** 3)
+    n3 = 8 * 257 * 3
+    # Cholesky, two triangular solves, the Jacobi, the back-substitution
+    k3_flops = n3 * 8 * (D ** 3 // 3 + D ** 3 + D * D // 2) \
+        + jacobi_flops(n3, D, 6)
+    k3_bytes = n3 * (2 * D * D * 8 + D * 8)
+    n1 = 4 * 257 * 3
+    k1_bytes = n1 * (D * D * 8 + D * 4 + D * D * 8)
+    # y and the model in; the two time chunks' partial sums out
+    k4_bytes = nbytes(stats_in[0][0], model['eigenvalues'],
+                      model['eigenvectors'], model['weight']) \
+        + 2 * N * K * (D * D * 8 + 4)
+    k4_flops = em_flops(N * T, K, D) + N * K * 8 * D ** 3
+    rows = [
+        ('cacgmm_em_full', 'em_loop.cu', 'pallas_em_loop.py:386',
+         launches['cacgmm_em_full'], errors['em_slice'], slice_ms,
+         slice_plain, bound(k2_bytes, k2_flops), None),
+        ('gev', 'gev.cu', 'pallas_gev.py:176', launches['gev'],
+         errors['gev_slice'], gslice_ms, gslice_plain,
+         bound(k3_bytes, k3_flops), None),
+        ('eigh_jacobi', 'eigh.cu', 'pallas_eigh.py:124',
+         long_launches['eigh_jacobi'], errors['eigh'], eigh_ms, eigh_plain,
+         bound(k1_bytes, jacobi_flops(n1, D, 6)), eigh_library),
+        ('cacgmm_em_long', 'em_stream.cu', 'pallas_em_stream.py:248',
+         long_launches['cacgmm_em_long'], errors['stream'], stats_ms,
+         stats_plain, bound(k4_bytes, k4_flops), None),
+        ('cacgmm_em_fc_init', 'em_step.cu', 'pallas_em_step.py:288',
+         fc_launches['cacgmm_em_fc_init'], errors['fc']['init'],
+         *fc_times['init'], None),
+        ('cacgmm_em_fc_step', 'em_step.cu', 'pallas_em_step.py:288',
+         fc_launches['cacgmm_em_fc_step'], errors['fc']['step'],
+         *fc_times['step'], None),
+        ('cacgmm_e_step', 'em_estep.cu', 'pallas_em.py:83',
+         fc_launches['cacgmm_e_step'], errors['e_step'],
+         *estep_times['e_step'], None),
+        ('cacgmm_em_scatter', 'em_estep.cu', 'pallas_em.py:193',
+         fc_launches['cacgmm_em_scatter'], errors['scatter'],
+         *estep_times['scatter'], None),
     ]
+    kernels = []
+    for (name, source, replaces, count, err, ms, plain, (bound_ms, by),
+         library) in rows:
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': f'pb_bss_tpu_torch/csrc/{source}',
+            'replaces': f'pb_bss_tpu/ops/{replaces}', 'launches': count,
+            'max_abs_err': err, 'ms': ms, 'plain_ms': plain,
+            'bound_ms': bound_ms, 'bound_by': by, 'library_ms': library})
+        log(f'bound {name}: {bound_ms:.4f} ms by {by}; kernel {ms:.4f} ms '
+            f'({bound_ms / ms:.3f} of the bound)')
+    return kernels
+
+
+def time_fc():
+    """K5 at the JAX package's frequency-constant benchmark shape (B=8,
+    F=513, D=6, K=3, T=300): each kernel per launch against its twin,
+    the whole fit per 20 iterations, and the port's scan path on the
+    same fit on the card. Returns {kernel: (ms, plain_ms, bound)}."""
+    import torch
+    from pb_bss_tpu_torch.models.cacgmm import CACGMMTrainer
+    from pb_bss_tpu_torch.ops import em_step
+    B, F, D, K, T = 8, 513, 6, 3, 300
+    N = B * F
+    ins = [fold_inputs(B, F, D, K, T, 700 + i) for i in range(6)]
+    states = []
+    for y, aff, qf, _, _ in ins:
+        vec, ev, asum = em_step.m_init(y, aff, qf, sweeps=6,
+                                       eigenvalue_floor=1e-10)
+        w = asum.reshape(B, F, K).sum(1) / (F * T)
+        states.append((y, ev, vec, w))
+    init = dict(sweeps=6, eigenvalue_floor=1e-10)
+    step = dict(warm_sweeps=2, eigenvalue_floor=1e-10, affiliation_eps=1e-10)
+    init_ms = cuda_time(lambda y, a, q, *_: em_step.m_init(y, a, q, **init),
+                        ins)
+    init_plain = cuda_time(lambda y, a, q, *_: em_step.m_init_reference(
+        y, a, q, **init), ins[:3])
+    step_ms = cuda_time(lambda *x: em_step.em_step(*x, **step), states)
+    step_plain = cuda_time(lambda *x: em_step.em_step_reference(*x, **step),
+                           states[:3])
+    log(f'timing K5 B=8 F=513 D=6 K=3 T=300: init kernel {init_ms:.4f} ms '
+        f'(plain {init_plain:.4f}), step kernel {step_ms:.4f} ms (plain '
+        f'{step_plain:.4f})')
+    y, aff, qf = ins[0][:3]
+    init_bytes = nbytes(y, aff, qf) + N * K * (8 * D * D + 4 * D + 4)
+    init_flops = em_flops(N * T, K, D, e_step=False) \
+        + jacobi_flops(N * K, D, 6)
+    y, ev, vec, w = states[0]
+    step_bytes = nbytes(y, ev, vec, w) + N * K * (8 * D * D + 4 * D + 4)
+    step_flops = em_flops(N * T, K, D) + N * K * 24 * D ** 3 \
+        + jacobi_flops(N * K, D, 2)
+
+    fits = [em_inputs(B, F, D, K, T, 800 + i) for i in range(4)]
+    fit_ms = cuda_time(lambda y, a, q: em_step.cacgmm_em_fc(
+        y, a, q, iterations=20), fits)
+    fit_plain = cuda_time(lambda y, a, q: em_step.cacgmm_em_fc_reference(
+        y, a, q, iterations=20), fits[:2])
+    scan_ms = cuda_time(lambda y, a, q: CACGMMTrainer().fit(
+        y.transpose(-1, -2), initialization=a, iterations=20,
+        weight_constant_axis=(-3, -1), use_fused_em=False), fits[:3])
+    log(f'timing cacgmm_em_fc B=8 F=513 T=300, 20 it: kernels {fit_ms:.3f} '
+        f'ms ({20e3 / fit_ms:.1f} iters/s), plain twins {fit_plain:.3f} ms; '
+        f'the scan path on the card (use_fused_em=False) {scan_ms:.3f} ms')
+
+    # the stage split of one fc fit: the launches alone, the torch work
+    # between them, and the inline aligner's share (B=1, F=257, T=304)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        em_step.cacgmm_em_fc(*fits[0], iterations=20)
+        sync()
+    log(f'profile cacgmm_em_fc B=8 F=513 T=300, 20 it: device us (count) '
+        f'by kernel {device_times(prof, "em_fc")}')
+    return {'init': (init_ms, init_plain, bound(init_bytes, init_flops)),
+            'step': (step_ms, step_plain, bound(step_bytes, step_flops))}
+
+
+def device_times(prof, key):
+    """{kernel name: (device us, launches)} of a profile's kernels whose
+    name holds ``key`` ('' for all, summed under 'all kernels')."""
+    out = {}
+    total = [0., 0]
+    for event in prof.key_averages():
+        us = getattr(event, 'device_time_total', None)
+        if us is None:
+            us = getattr(event, 'cuda_time_total', 0)
+        if not us or getattr(event, 'device_type', None) is not None and \
+                'CUDA' not in str(event.device_type):
+            continue
+        if key and key in event.key:
+            name = re.search(r'(\w+)\((?!anonymous)', event.key)
+            out[name.group(1) if name else event.key] = (
+                round(us, 1), event.count)
+        total[0] += us
+        total[1] += event.count
+    if not key:
+        out['all kernels'] = (round(total[0], 1), total[1])
+    return out
+
+
+def time_fc_stages():
+    """Host clock of a 20-iteration fc fit with and without each inline
+    aligner on one 4.8 s utterance (F=257, T=304), and the device time
+    of its K5 launches: the aligner's share of the fit. Then the
+    use_pallas_em fit at the same shape."""
+    import torch
+    from pb_bss_tpu_torch.models.cacgmm import CACGMMTrainer
+    from pb_bss_tpu_torch.permutation_alignment import (
+        DHTVPermutationAlignment, GreedyPermutationAlignment)
+    y, aff, _ = em_inputs(1, 257, 6, 3, 304, 900)
+    Y, aff = y[0].transpose(-1, -2).contiguous(), aff[0]
+    for name, aligner in (('none', None),
+                          ('greedy', GreedyPermutationAlignment('cos')),
+                          ('dhtv', DHTVPermutationAlignment.from_stft_size(
+                              512))):
+        times = []
+        for _ in range(4):
+            sync()
+            t0 = time.perf_counter()
+            CACGMMTrainer().fit(Y, initialization=aff, iterations=20,
+                                weight_constant_axis=(-3, -1),
+                                inline_permutation_aligner=aligner)
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            CACGMMTrainer().fit(Y, initialization=aff, iterations=20,
+                                weight_constant_axis=(-3, -1),
+                                inline_permutation_aligner=aligner)
+            sync()
+        log(f'timing fc fit F=257 T=304, 20 it, inline aligner {name}: ms '
+            f'{[round(t, 3) for t in times[1:]]} (after one warm-up); '
+            f'profiled device us (count) {device_times(prof, "em_fc")} of '
+            f'{device_times(prof, "")}')
+
+    times = []
+    for _ in range(4):
+        sync()
+        t0 = time.perf_counter()
+        CACGMMTrainer().fit(Y, initialization=aff, iterations=20,
+                            use_pallas_em=True)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    log(f'timing fit(use_pallas_em=True) F=257 T=304, 20 it: ms '
+        f'{[round(t, 3) for t in times[1:]]} (after one warm-up)')
+
+
+def time_estep():
+    """K11 per launch against its twins: the E-step at F=513, T=300 and
+    the scatter at the use_pallas_em slice shape F=257, T=304. Returns
+    {kernel: (ms, plain_ms, bound)}."""
+    from pb_bss_tpu_torch.ops import em_estep
+    out = {}
+    D, K = 6, 3
+    for name, fn, ref, F, T in (
+            ('e_step', em_estep.cacgmm_e_step,
+             em_estep.cacgmm_e_step_reference, 513, 300),
+            ('scatter', em_estep.cacgmm_em_scatter,
+             em_estep.cacgmm_em_scatter_reference, 257, 304)):
+        ins = [estep_inputs(F, D, K, T, 1000 + i) for i in range(6)]
+        ms = cuda_time(fn, ins)
+        plain = cuda_time(ref, ins[:3])
+        inverse = F * K * 8 * D ** 3
+        if name == 'e_step':
+            moved = nbytes(*ins[0]) + 2 * F * K * T * 4
+            flops = em_flops(F * T, K, D, scatter=False) + inverse
+        else:
+            moved = nbytes(*ins[0]) + F * K * (2 * D * D + 1) * 4
+            flops = em_flops(F * T, K, D) + inverse
+        log(f'timing K11 {name} F={F} D={D} K={K} T={T}: kernel {ms:.4f} ms, '
+            f'plain {plain:.4f} ms')
+        out[name] = (ms, plain, bound(moved, flops))
+    return out
 
 
 def main():
@@ -814,7 +1369,9 @@ def main():
         phase_guards()
         launches = phase_main_path()
         long_launches = phase_long()
-        kernels = phase_timing(errors, launches, long_launches)
+        fc_launches = phase_fc_path()
+        kernels = phase_timing(errors, launches, long_launches, fc_launches)
+        time_fc_stages()
         sync()
     except SystemExit:
         raise
@@ -824,8 +1381,11 @@ def main():
     if 'jax' in sys.modules:
         fail('jax was imported')
     if any(not math.isfinite(k[f]) for k in kernels
-           for f in ('max_abs_err', 'ms', 'plain_ms')):
+           for f in ('max_abs_err', 'ms', 'plain_ms', 'bound_ms')):
         fail(f'non-finite kernel result: {kernels}')
+    unlaunched = [k['name'] for k in kernels if k['launches'] < 1]
+    if unlaunched:
+        fail(f'kernels never launched on their paths: {unlaunched}')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

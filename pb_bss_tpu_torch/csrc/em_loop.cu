@@ -37,7 +37,7 @@
 #include <cmath>
 #include <cuda_runtime.h>
 
-#include "jacobi.cuh"
+#include "em_common.cuh"
 
 namespace {
 
@@ -112,30 +112,18 @@ cacgmm_em_full_kernel(const float2* __restrict__ y,
     // ---- M-step: S_k = D/max(wsum,tiny) sum_t w y y^H (upper tri) ---
     for (int item = warp; item < K * P; item += nwarps) {
       const int k = item / P;
-      int rem = item % P;
-      int d = 0;
-      while (rem >= D - d) {
-        rem -= D - d;
-        ++d;
-      }
-      const int e = d + rem;
-      float re = 0.f, im = 0.f;
-      for (int t = lane; t < T; t += 32) {
-        const float w = qw[k * T + t];
-        const float2 p = c_mul_conj(ys[d * T + t], ys[e * T + t]);
-        re += w * p.x;
-        im += w * p.y;
-      }
-      re = warp_sum(re);
-      im = warp_sum(im);
+      int d, e;
+      upper_entry(item % P, D, &d, &e);
+      const float2 s = warp_weighted_pair_sum(ys + d * T, ys + e * T,
+                                              qw + k * T, T);
       if (lane == 0) {
         const float scale = float(D) / fmaxf(wsum[k], tiny);
         float2* Sk = S + k * DD;
         if (d == e) {
-          Sk[d * D + d] = make_float2(re * scale, 0.f);
+          Sk[d * D + d] = make_float2(s.x * scale, 0.f);
         } else {
-          Sk[d * D + e] = make_float2(re * scale, im * scale);
-          Sk[e * D + d] = make_float2(re * scale, -im * scale);
+          Sk[d * D + e] = make_float2(s.x * scale, s.y * scale);
+          Sk[e * D + d] = make_float2(s.x * scale, -s.y * scale);
         }
       }
     }
@@ -152,66 +140,24 @@ cacgmm_em_full_kernel(const float2* __restrict__ y,
         warp_set_identity(Vk, D);
         warp_jacobi(Sk, Vk, D, sweeps);
       }
-      float lmax = Sk[0].x;
-      for (int i = 1; i < D; ++i) lmax = fmaxf(lmax, Sk[i * D + i].x);
-      lmax = fmaxf(lmax, tiny);
-      if (lane < D)
-        eig[k * D + lane] =
-            fmaxf(Sk[lane * D + lane].x / lmax, eigenvalue_floor);
-      __syncwarp();
+      warp_floor_eigenvalues(Sk, eig + k * D, D, eigenvalue_floor);
       if (lane == 0) {
         float ld = 0.f;
         for (int i = 0; i < D; ++i) ld += logf(eig[k * D + i]);
         logdet[k] = ld;
       }
-      for (int de = lane; de < DD; de += 32) {
-        const int d = de / D;
-        const int e = de % D;
-        float2 acc = make_float2(0.f, 0.f);
-        for (int i = 0; i < D; ++i)
-          acc = c_add(acc, c_scale(1.f / eig[k * D + i],
-                                   c_mul_conj(Vk[d * D + i], Vk[e * D + i])));
-        Ci[k * DD + de] = acc;
-      }
+      const float* eigk = eig + k * D;
+      warp_inverse_covariance(
+          Vk, [&](int i) { return 1.f / eigk[i]; }, Ci + k * DD, D);
       __syncwarp();
     }
     __syncthreads();
 
     // ---- E-step ------------------------------------------------------
     const float eps = (it == iterations - 1) ? 0.f : affiliation_eps;
-    for (int t = tid; t < T; t += blockDim.x) {
-      float mx = -INFINITY;
-      for (int k = 0; k < K; ++k) {
-        const float2* Cik = Ci + k * DD;
-        float q = 0.f;
-        for (int d = 0; d < D; ++d) {
-          const float2 yd = ys[d * T + t];
-          q += Cik[d * D + d].x * (yd.x * yd.x + yd.y * yd.y);
-          for (int e = d + 1; e < D; ++e) {
-            // 2 Re(Cinv_de conj(y_d) y_e) with p = y_d conj(y_e)
-            const float2 p = c_mul_conj(yd, ys[e * T + t]);
-            q += 2.f * (Cik[d * D + e].x * p.x + Cik[d * D + e].y * p.y);
-          }
-        }
-        q = fmaxf(q, tiny);
-        const float lp = -float(D) * logf(q) - logdet[k];
-        qw[k * T + t] = q;
-        aff[k * T + t] = lp;
-        mx = fmaxf(mx, lp);
-      }
-      float den = 0.f;
-      for (int k = 0; k < K; ++k) {
-        const float num = expf(aff[k * T + t] - mx) * wgt[k];
-        aff[k * T + t] = num;
-        den += num;
-      }
-      den = fmaxf(den, tiny);
-      for (int k = 0; k < K; ++k) {
-        float a = aff[k * T + t] / den;
-        if (eps != 0.f) a = fminf(fmaxf(a, eps), 1.f - eps);
-        aff[k * T + t] = a;
-      }
-    }
+    for (int t = tid; t < T; t += blockDim.x)
+      e_step_frame([&](int d) { return ys[d * T + t]; }, Ci, logdet, wgt,
+                   nullptr, 0, eps, aff + t, qw + t, T, D, K);
     __syncthreads();
   }
 

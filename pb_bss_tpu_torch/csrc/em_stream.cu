@@ -52,7 +52,7 @@
 #include <cmath>
 #include <cuda_runtime.h>
 
-#include "jacobi.cuh"
+#include "em_common.cuh"
 
 namespace {
 
@@ -107,16 +107,9 @@ em_stream_kernel(const float2* __restrict__ y,
     // (bin, class)
     for (int k = warp; k < K; k += nwarps) {
       const float* lk = eigval + (n * K + k) * D;
-      const float2* Vk = eigvec + (n * K + k) * DD;
-      for (int de = lane; de < DD; de += 32) {
-        const int d = de / D;
-        const int e = de % D;
-        float2 acc = make_float2(0.f, 0.f);
-        for (int i = 0; i < D; ++i)
-          acc = c_add(acc, c_scale(1.f / lk[i],
-                                   c_mul_conj(Vk[d * D + i], Vk[e * D + i])));
-        Ci[k * DD + de] = acc;
-      }
+      warp_inverse_covariance(eigvec + (n * K + k) * DD,
+                              [&](int i) { return 1.f / lk[i]; },
+                              Ci + k * DD, D);
       if (lane == 0) {
         float ld = 0.f;
         for (int i = 0; i < D; ++i) ld += logf(lk[i]);
@@ -145,39 +138,9 @@ em_stream_kernel(const float2* __restrict__ y,
           wq[k * kTile + t] = qf0[(n * K + k) * T + g];
         }
       } else {
-        float mx = -INFINITY;
-        for (int k = 0; k < K; ++k) {
-          const float2* Cik = Ci + k * DD;
-          float q = 0.f;
-          for (int d = 0; d < D; ++d) {
-            const float2 yd = ys[d * kTile + t];
-            q += Cik[d * D + d].x * (yd.x * yd.x + yd.y * yd.y);
-            for (int e = d + 1; e < D; ++e) {
-              // 2 Re(Cinv_de conj(y_d) y_e) with p = y_d conj(y_e)
-              const float2 p = c_mul_conj(yd, ys[e * kTile + t]);
-              q += 2.f * (Cik[d * D + e].x * p.x + Cik[d * D + e].y * p.y);
-            }
-          }
-          q = fmaxf(q, tiny);
-          const float lp = -float(D) * logf(q) - logdet[k];
-          wq[k * kTile + t] = q;
-          aff[k * kTile + t] = lp;
-          mx = fmaxf(mx, lp);
-        }
-        float den = 0.f;
-        for (int k = 0; k < K; ++k) {
-          float num = expf(aff[k * kTile + t] - mx) * wgt[k];
-          if (mask != nullptr) num *= mask[(n * K + k) * T + g];
-          aff[k * kTile + t] = num;
-          den += num;
-        }
-        den = fmaxf(den, tiny);
-        for (int k = 0; k < K; ++k) {
-          float a = aff[k * kTile + t] / den;
-          if (affiliation_eps != 0.f)
-            a = fminf(fmaxf(a, affiliation_eps), 1.f - affiliation_eps);
-          aff[k * kTile + t] = a;
-        }
+        e_step_frame([&](int d) { return ys[d * kTile + t]; }, Ci, logdet,
+                     wgt, mask == nullptr ? nullptr : mask + n * K * T + g,
+                     T, affiliation_eps, aff + t, wq + t, kTile, D, K);
       }
       const float s = (sal != nullptr) ? sal[n * T + g] : 1.f;
       for (int k = 0; k < K; ++k) {
@@ -192,33 +155,19 @@ em_stream_kernel(const float2* __restrict__ y,
     // sum -------------------------------------------------------------
     for (int item = warp; item < K * (P + 1); item += nwarps) {
       const int k = item / (P + 1);
-      int rem = item % (P + 1);
-      if (rem == P) {
-        float acc = 0.f;
-        for (int t = lane; t < nt; t += 32) acc += aff[k * kTile + t];
-        acc = warp_sum(acc);
+      const int r = item % (P + 1);
+      if (r == P) {
+        const float acc = warp_frame_sum(aff + k * kTile, nt);
         if (lane == 0) asum[k] += acc;
         continue;
       }
-      const int r = rem;
-      int d = 0;
-      while (rem >= D - d) {
-        rem -= D - d;
-        ++d;
-      }
-      const int e = d + rem;
-      float re = 0.f, im = 0.f;
-      for (int t = lane; t < nt; t += 32) {
-        const float w = wq[k * kTile + t];
-        const float2 p = c_mul_conj(ys[d * kTile + t], ys[e * kTile + t]);
-        re += w * p.x;
-        im += w * p.y;
-      }
-      re = warp_sum(re);
-      im = warp_sum(im);
+      int d, e;
+      upper_entry(r, D, &d, &e);
+      const float2 v = warp_weighted_pair_sum(ys + d * kTile, ys + e * kTile,
+                                              wq + k * kTile, nt);
       if (lane == 0) {
-        S[k * P + r].x += re;
-        S[k * P + r].y += im;
+        S[k * P + r].x += v.x;
+        S[k * P + r].y += v.y;
       }
     }
     __syncthreads();

@@ -7,29 +7,38 @@ iterations), the time-blocked EM for long signals
 between them and the EM kernels.
 
 Routing of ``CACGMMTrainer.fit`` (decision for decision the JAX
-package's, ``pb_bss_tpu/models/cacgmm.py:894-1010``):
+package's, ``pb_bss_tpu/models/cacgmm.py:894-1036``):
 
 1. **whole fit** (:func:`pb_bss_tpu_torch.ops.em_loop.cacgmm_em_full`,
    one launch): per-bin weights and the standard knobs, T inside the
    kernel's gate (:func:`~pb_bss_tpu_torch.ops.em_loop.fits`).
-2. **frequency-constant weights** (``weight_constant_axis=(-3, -1)``)
-   inside the same gate: the JAX package's per-iteration kernel K5,
-   not ported yet (``NotImplementedError``).
+2. **frequency-constant weights** (``weight_constant_axis=(-3, -1)``,
+   :func:`pb_bss_tpu_torch.ops.em_step.cacgmm_em_fc`, one launch per
+   iteration) inside its own gate
+   (:func:`~pb_bss_tpu_torch.ops.em_step.fits`); it hosts the inline
+   permutation aligner between launches for unbatched input.
 3. **streamed** (:func:`pb_bss_tpu_torch.ops.em_stream.cacgmm_em_long`,
    one statistics launch per iteration, no T limit): either weight mode
-   past the gate, saliency and source-activity masks included.
+   past the gates, saliency and source-activity masks included, no
+   aligner.
 4. **time-blocked** (``_fit_em_t_blocked``): standard knobs with
    ``t_block`` an int, or ``'auto'`` past ``T_BLOCK_AUTO_THRESHOLD``
    frames when no kernel route is taken.
 5. **scan**: the plain loop (its eigh launches the batched Jacobi
-   kernel on CUDA, :mod:`pb_bss_tpu_torch.ops.eigh`).
+   kernel on CUDA, :mod:`pb_bss_tpu_torch.ops.eigh`), with the inline
+   aligner after each E-step when one is given. Under
+   ``use_pallas_em=True`` each E-step and scatter after the first
+   M-step is one launch of
+   :func:`pb_bss_tpu_torch.ops.em_estep.cacgmm_em_scatter`.
 
 ``use_fused_em='auto'`` takes routes 1-3 only on the accelerator (CUDA
 tensors, :func:`_on_accelerator`), for complex64 (F, N, D) /
-(B, F, N, D) input with D <= 16, under the JAX eligibility predicates;
-a frequency-constant fit resumed from a model with per-bin weights
-stays on the scan path. ``use_fused_em=True`` forces routes 1-3 on any
-device (the kernels' plain twins on the CPU); ``False`` skips them.
+(B, F, N, D) input with D <= 16, under the JAX eligibility predicates,
+and never with ``use_pallas_em``; a frequency-constant fit resumed from
+a model with per-bin weights stays on the scan path, and so does a fit
+with an aligner past route 2's gate. ``use_fused_em=True`` forces
+routes 1-3 on any device (the kernels' plain twins on the CPU);
+``False`` skips them.
 """
 from __future__ import annotations
 
@@ -39,7 +48,7 @@ import numpy as np
 import torch
 
 from .._dtypes import real_dtype as _real_dtype, tiny as _tiny
-from ..ops import em_loop, em_stream
+from ..ops import em_estep, em_loop, em_step, em_stream
 from .base import Model, force_hermitian, modelclass
 from .complex_angular_central_gaussian import (
     ComplexAngularCentralGaussian,
@@ -47,14 +56,13 @@ from .complex_angular_central_gaussian import (
     normalize_observation,
 )
 from .mixture_model_utils import (
+    apply_inline_permutation_alignment,
     estimate_mixture_weight,
     log_pdf_to_affiliation,
 )
 from ._precision import full_fp32
 
 __all__ = ['CACGMM', 'CACGMMTrainer']
-
-_ROADMAP = 'ROADMAP queue 2'
 
 T_BLOCK_AUTO_THRESHOLD = 8192
 T_BLOCK_AUTO = 2048
@@ -109,10 +117,16 @@ def _m_step(y, quadratic_form, affiliation, saliency, *, hermitize,
 def _fit_em(y, model, affiliation, quadratic_form, saliency,
             source_activity_mask, *, iterations, weight_constant_axis,
             hermitize, covariance_norm, eigenvalue_floor, affiliation_eps,
-            first_e_step, eigh_sweeps=None):
+            first_e_step, aligner=None, use_pallas_em=False,
+            eigh_sweeps=None):
     """The plain EM loop. Without ``first_e_step`` it starts from the
     given affiliations with one M-step; otherwise from ``model`` with
-    an E-step."""
+    an E-step. An inline ``aligner`` permutes each E-step's posterior
+    and quadratic forms before the M-step. ``use_pallas_em`` runs each
+    E-step and scatter as one launch of
+    :func:`pb_bss_tpu_torch.ops.em_estep.cacgmm_em_scatter` (unbatched
+    input, no saliency, mask or aligner, per-bin weights; checked by
+    the caller)."""
     def m_step(aff, qf):
         return _m_step(
             y, qf, aff, saliency, hermitize=hermitize,
@@ -121,16 +135,49 @@ def _fit_em(y, model, affiliation, quadratic_form, saliency,
             weight_constant_axis=weight_constant_axis,
             eigh_sweeps=eigh_sweeps)
 
+    def e_then_m(model):
+        aff, qf, _ = model._predict(
+            y, source_activity_mask=source_activity_mask,
+            affiliation_eps=affiliation_eps)
+        if aligner is not None:
+            aff, qf = apply_inline_permutation_alignment(
+                aff, quadratic_form=qf,
+                weight_constant_axis=weight_constant_axis, aligner=aligner)
+        return m_step(aff, qf)
+
+    def e_then_m_fused(model):
+        # the E-step and scatter in one launch; the (F, K, T) posterior
+        # never reaches device memory
+        cacg = model.cacg
+        vectors = cacg.covariance_eigenvectors
+        weight = torch.broadcast_to(
+            model.weight[..., 0], (F, model.weight.shape[-2]))
+        s_re, s_im, aff_sum = em_estep.cacgmm_em_scatter(
+            y_re, y_im, vectors.real, vectors.imag,
+            1.0 / cacg.covariance_eigenvalues, cacg.log_determinant, weight)
+        covariance = torch.complex(s_re, s_im) / torch.clamp(
+            aff_sum, min=_tiny(s_re))[..., None, None]
+        if hermitize:
+            covariance = force_hermitian(covariance)
+        return CACGMM(
+            weight=(aff_sum / T)[..., None],
+            cacg=ComplexAngularCentralGaussian.from_covariance(
+                covariance, eigenvalue_floor=eigenvalue_floor,
+                covariance_norm=covariance_norm, eigh_sweeps=eigh_sweeps))
+
+    step = e_then_m
+    if use_pallas_em:
+        F, D, T = y.shape
+        y_re, y_im = y.real.contiguous(), y.imag.contiguous()
+        step = e_then_m_fused
+
     if not first_e_step:
         model = m_step(affiliation, quadratic_form)
         n_steps = iterations - 1
     else:
         n_steps = iterations
     for _ in range(n_steps):
-        affiliation, quadratic_form, _ = model._predict(
-            y, source_activity_mask=source_activity_mask,
-            affiliation_eps=affiliation_eps)
-        model = m_step(affiliation, quadratic_form)
+        model = step(model)
     return model
 
 
@@ -237,10 +284,15 @@ def _per_bin_knobs(aligner, weight_constant_axis, hermitize,
             and hermitize and covariance_norm == 'eigenvalue')
 
 
-def _fc_knobs(aligner, weight_constant_axis, hermitize, covariance_norm):
-    """Knobs of the frequency-constant-weight kernels (K5, not ported
-    yet, and the streamed kernel's 'fc' mode)."""
-    return (weight_constant_axis in ((-3, -1), (-1, -3))
+def _fc_knobs(aligner, weight_constant_axis, hermitize, covariance_norm,
+              *, allow_aligner=False):
+    """Knobs of the frequency-constant-weight kernels (the per-iteration
+    kernels of :mod:`~pb_bss_tpu_torch.ops.em_step` and the streamed
+    kernel's 'fc' mode). Only the per-iteration route hosts an inline
+    aligner (``allow_aligner``, unbatched input); the streamed one does
+    not."""
+    return ((aligner is None or allow_aligner)
+            and weight_constant_axis in ((-3, -1), (-1, -3))
             and hermitize and covariance_norm == 'eigenvalue')
 
 
@@ -277,15 +329,15 @@ def _fused_em_eligible(y, num_classes, aligner, weight_constant_axis,
 
 def _fused_em_fc_eligible(y, num_classes, aligner, weight_constant_axis,
                           hermitize, covariance_norm, model):
-    """Route the fit to the frequency-constant per-iteration kernel
-    (K5)? Until K5 brings its own gate, "short enough" is the whole-fit
-    kernel's gate."""
+    """Route the fit to the frequency-constant per-iteration kernels?
+    A model init must carry a frequency-constant weight; an inline
+    aligner is hosted for unbatched input."""
     return (_on_accelerator(y) and y.ndim in (3, 4)
             and y.dtype == torch.complex64
             and _fc_knobs(aligner, weight_constant_axis, hermitize,
-                          covariance_norm)
+                          covariance_norm, allow_aligner=y.ndim == 3)
             and (model is None or _fc_init_weight(model, y.ndim) is not None)
-            and em_loop.fits(y.shape[-2], num_classes, y.shape[-1]))
+            and em_step.fits(y.shape[-2], num_classes, y.shape[-1]))
 
 
 def _stream_feasible(y, num_classes):
@@ -340,14 +392,51 @@ def _fit_fused(y, model, affiliation, quadratic_form, *, iterations,
     return fitted
 
 
-def _fit_fused_fc(y, model, affiliation, quadratic_form, **kwargs):
-    """Frequency-constant-weight route inside the whole-fit gate: the
-    JAX package's per-iteration kernel, not ported yet."""
-    raise NotImplementedError(
-        'frequency-constant mixture weights on signals inside the '
-        'whole-fit gate run on the JAX per-iteration EM kernel '
-        f'pallas_em_step.cacgmm_em_fc ({_ROADMAP} K5), which is not '
-        'ported to CUDA yet')
+def _fit_fused_fc(y, model, affiliation, quadratic_form, *, iterations,
+                  eigenvalue_floor, affiliation_eps, eigh_sweeps,
+                  saliency=None, source_activity_mask=None,
+                  return_affiliation=False, aligner=None):
+    """Frequency-constant-weight route: one kernel launch per EM
+    iteration (E-step, M-statistics, warm Jacobi), the global weight
+    reduced over bins between launches, and the inline aligner there
+    too (:func:`pb_bss_tpu_torch.ops.em_step.cacgmm_em_fc`)."""
+    rdtype = _real_dtype(y)
+    *independent, D, T = y.shape
+    K = (affiliation.shape[-2] if affiliation is not None
+         else model.weight.shape[-2])
+    if saliency is not None:
+        saliency = torch.broadcast_to(
+            torch.as_tensor(saliency, dtype=rdtype, device=y.device),
+            (*independent, T))
+    if source_activity_mask is not None:
+        source_activity_mask = torch.broadcast_to(
+            source_activity_mask.to(rdtype), (*independent, K, T))
+    common = dict(
+        iterations=int(iterations),
+        sweeps=eigh_sweeps if eigh_sweeps is not None else (
+            6 if D <= 8 else 8),
+        warm_sweeps=2, eigenvalue_floor=float(eigenvalue_floor),
+        affiliation_eps=float(affiliation_eps), saliency=saliency,
+        source_activity_mask=source_activity_mask, aligner=aligner)
+    if model is not None:
+        w, eigenvalues, eigenvectors = em_step.cacgmm_em_fc(
+            y, None, None, first_e_step=True,
+            init_weight=_fc_init_weight(model, y.ndim),
+            init_eigenvalues=model.cacg.covariance_eigenvalues,
+            init_eigenvectors=model.cacg.covariance_eigenvectors, **common)
+    else:
+        w, eigenvalues, eigenvectors = em_step.cacgmm_em_fc(
+            y, affiliation, quadratic_form, **common)
+    fitted = CACGMM(
+        weight=w[..., None, :, None],  # estimate_mixture_weight's shape
+        cacg=ComplexAngularCentralGaussian(
+            covariance_eigenvectors=eigenvectors,
+            covariance_eigenvalues=eigenvalues))
+    if return_affiliation:
+        affiliation, _, _ = fitted._predict(
+            y, source_activity_mask=source_activity_mask)
+        return fitted, affiliation
+    return fitted
 
 
 def _fit_fused_stream(y, model, affiliation, quadratic_form, *,
@@ -439,22 +528,19 @@ class CACGMMTrainer:
                 ``T_BLOCK_AUTO_THRESHOLD`` when no kernel route is taken
                 and the knobs are standard; an int forces that block
                 length; ``None`` disables.
-            use_pallas_em / inline_permutation_aligner: JAX knobs whose
-                code paths are not ported yet; a non-default value
-                raises ``NotImplementedError``.
+            inline_permutation_aligner: an aligner of
+                :mod:`pb_bss_tpu_torch.permutation_alignment` run on each
+                E-step's posterior before the M-step (frequency-constant
+                weights only).
+            use_pallas_em: run each E-step and M-step scatter as one
+                launch of the E-step kernel
+                (:func:`pb_bss_tpu_torch.ops.em_estep.cacgmm_em_scatter`);
+                requires (F, N, D) input without saliency, mask or
+                aligner, per-bin weights and ``affiliation_eps <= 1e-9``.
         """
         assert xor(initialization is None, num_classes is None), (
             'Provide either `initialization` or `num_classes` — not '
             'both and not neither.')
-        if use_pallas_em:
-            raise NotImplementedError(
-                'use_pallas_em (the JAX E-step kernels pallas_em.'
-                f'cacgmm_e_step / cacgmm_em_scatter, {_ROADMAP} K11) is '
-                'not ported yet')
-        if inline_permutation_aligner is not None:
-            raise NotImplementedError(
-                'the inline permutation aligner is not ported yet '
-                '(ROADMAP queue 1, the cACGMM slice)')
         assert y.is_complex(), y.dtype
         assert y.shape[-1] > 1, y.shape
         assert iterations > 0, iterations
@@ -509,9 +595,9 @@ class CACGMMTrainer:
         aligner = inline_permutation_aligner
         knobs = (aligner, weight_constant_axis, hermitize, covariance_norm)
         per_bin = _per_bin_knobs(*knobs)
-        fc = _fc_knobs(*knobs)
+        fc = _fc_knobs(*knobs, allow_aligner=y.ndim == 3)
         if use_fused_em == 'auto':
-            use_fused_em = (
+            use_fused_em = not use_pallas_em and (
                 _fused_em_eligible(y, num_classes, *knobs)
                 or _fused_em_fc_eligible(y, num_classes, *knobs, model)
                 or _fused_em_stream_eligible(y, num_classes, *knobs, model))
@@ -521,9 +607,10 @@ class CACGMMTrainer:
                 'observations', y.shape)
             assert per_bin or fc, (
                 'use_fused_em=True requires weight_constant_axis=(-1,) or '
-                "(-3, -1), hermitize=True and covariance_norm='eigenvalue'"
-                f'; got {weight_constant_axis=}, {hermitize=}, '
-                f'{covariance_norm=}')
+                "(-3, -1), hermitize=True and covariance_norm='eigenvalue' "
+                '(an inline aligner is supported only with (-3, -1) and '
+                f'unbatched (F, N, D) input); got {aligner=}, '
+                f'{weight_constant_axis=}, {hermitize=}, {covariance_norm=}')
             fused_kwargs = dict(
                 iterations=int(iterations),
                 eigenvalue_floor=float(eigenvalue_floor),
@@ -532,18 +619,20 @@ class CACGMMTrainer:
                 saliency=saliency,
                 source_activity_mask=source_activity_mask,
                 return_affiliation=_return_affiliation)
-            short = em_loop.fits(D, num_classes, num_observations)
             fc_init_ok = (model is None
                           or _fc_init_weight(model, y.ndim) is not None)
-            if per_bin and short:
+            if per_bin and em_loop.fits(D, num_classes, num_observations):
                 # short T: the whole fit in one kernel launch
                 return _fit_fused(y, model, affiliation, quadratic_form,
                                   **fused_kwargs)
-            if fc and short and fc_init_ok:
+            if (fc and fc_init_ok
+                    and em_step.fits(D, num_classes, num_observations)):
+                # frequency-constant weights: one launch per iteration,
+                # the weight (and the inline aligner) between launches
                 return _fit_fused_fc(y, model, affiliation, quadratic_form,
-                                     **fused_kwargs)
+                                     aligner=aligner, **fused_kwargs)
             assert (_stream_feasible(y, num_classes)
-                    and (per_bin or fc_init_ok)), (
+                    and (per_bin or fc_init_ok) and aligner is None), (
                 'no fused-kernel variant feasible for this shape', y.shape)
             # long T: one streamed statistics launch per iteration
             return _fit_fused_stream(
@@ -554,7 +643,7 @@ class CACGMMTrainer:
                     and per_bin)
         if t_block == 'auto':
             t_block = (T_BLOCK_AUTO
-                       if standard
+                       if standard and not use_pallas_em
                        and num_observations > T_BLOCK_AUTO_THRESHOLD
                        else None)
         if t_block is not None:
@@ -575,6 +664,17 @@ class CACGMMTrainer:
                     fitted, y, t_block=int(t_block))
             return fitted
 
+        if use_pallas_em:
+            assert y.ndim == 3, (
+                'use_pallas_em requires (F, N, D) observations', y.shape)
+            assert saliency is None and source_activity_mask is None
+            assert aligner is None
+            assert weight_constant_axis in ((-1,), -1), weight_constant_axis
+            assert affiliation_eps == 0 or affiliation_eps <= 1e-9, (
+                'the fused kernel does not clip affiliations',
+                affiliation_eps)
+            weight_constant_axis = (-1,)
+
         fitted = _fit_em(
             y, model, affiliation, quadratic_form, saliency,
             source_activity_mask, iterations=int(iterations),
@@ -582,7 +682,8 @@ class CACGMMTrainer:
             hermitize=bool(hermitize), covariance_norm=covariance_norm,
             eigenvalue_floor=float(eigenvalue_floor),
             affiliation_eps=float(affiliation_eps),
-            first_e_step=model is not None, eigh_sweeps=eigh_sweeps)
+            first_e_step=model is not None, aligner=aligner,
+            use_pallas_em=bool(use_pallas_em), eigh_sweeps=eigh_sweeps)
         if _return_affiliation:
             affiliation, _, _ = fitted._predict(
                 y, source_activity_mask=source_activity_mask)
@@ -592,7 +693,8 @@ class CACGMMTrainer:
     def fit_predict(self, y, initialization=None, num_classes=None,
                     iterations=100, **kwargs):
         """Fit, then return the posterior affiliations for ``y`` (from
-        the kernel's final E-step on the whole-fit route)."""
+        the kernel's final E-step on the whole-fit route, from the
+        fitted model on the others)."""
         _, affiliation = self.fit(
             y, initialization, num_classes, iterations,
             _return_affiliation=True, **kwargs)

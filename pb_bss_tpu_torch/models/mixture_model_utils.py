@@ -6,7 +6,8 @@ import torch
 
 from .._dtypes import tiny as _tiny
 
-__all__ = ['log_pdf_to_affiliation', 'estimate_mixture_weight']
+__all__ = ['log_pdf_to_affiliation', 'estimate_mixture_weight',
+           'apply_inline_permutation_alignment']
 
 
 def log_pdf_to_affiliation(weight, log_pdf, source_activity_mask=None,
@@ -60,3 +61,35 @@ def estimate_mixture_weight(affiliation, saliency=None,
     norm = masked.abs().sum(-2, keepdim=True)
     norm = torch.where(norm == 0, torch.full_like(norm, 1e-10), norm)
     return masked / norm
+
+
+def apply_inline_permutation_alignment(affiliation, *, quadratic_form=None,
+                                       weight_constant_axis, aligner):
+    """Run a permutation aligner inside the EM loop: the mapping of the
+    (F, K, T) posterior permutes the posterior (and the quadratic form)
+    along the class axis before the M-step.
+
+    affiliation: (F, K, T); the aligner works on (K, F, T).
+    """
+    assert affiliation.ndim == 3, (
+        'Inline permutation alignment requires (F, K, T) affiliations, '
+        f'got {tuple(affiliation.shape)}.'
+    )
+    assert weight_constant_axis in ((-3,), (-3, -1), -3), (
+        'Inline permutation alignment exists to reduce the mismatch '
+        'between frequency-INDEPENDENT mixture weights and the '
+        'per-frequency observation model, so it requires a '
+        'frequency-constant weight_constant_axis ((-3,) or (-3, -1)); '
+        f'got {weight_constant_axis}. With per-bin weights the model '
+        'is invariant under per-bin class relabeling — fit without '
+        'the inline aligner and align the result instead (reference '
+        'mixture_model_utils.py:264-306 enforces the same).'
+    )
+    a_kft = affiliation.transpose(0, 1)
+    mapping = aligner.calculate_mapping(a_kft)
+    affiliation = aligner.apply_mapping(a_kft, mapping).transpose(0, 1)
+    if quadratic_form is None:
+        return affiliation
+    quadratic_form = aligner.apply_mapping(
+        quadratic_form.transpose(0, 1), mapping).transpose(0, 1)
+    return affiliation, quadratic_form

@@ -20,12 +20,15 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ['CSRC', 'BUILD_DIR', 'KERNELS', 'nvcc_command', 'load',
-           'build_all']
+__all__ = ['CSRC', 'BUILD_DIR', 'KERNELS', 'SMEM_LIMIT', 'nvcc_command',
+           'load', 'build_all']
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = CSRC.parent / '_kernels'
-_HEADERS = ('jacobi.cuh',)
+_HEADERS = ('jacobi.cuh', 'em_common.cuh')
+# bytes of shared memory one block may opt into on the H100 (sm_90), the
+# budget of every kernel's shape gate
+SMEM_LIMIT = 232448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +50,16 @@ KERNELS = {
         'em_stream_launch': (
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
              _I, _F, _P], _I),
+    },
+    'em_step': {
+        'em_fc_init_launch': (
+            [_P] * 7 + [_I] * 5 + [_F, _P], _I),
+        'em_fc_step_launch': (
+            [_P] * 10 + [_I] * 6 + [_F, _F, _P], _I),
+    },
+    'em_estep': {
+        'em_e_step_launch': ([_P] * 9 + [_I] * 4 + [_P], _I),
+        'em_scatter_launch': ([_P] * 10 + [_I] * 4 + [_P], _I),
     },
 }
 

@@ -29,13 +29,12 @@ from __future__ import annotations
 
 import torch
 
+from ._build import SMEM_LIMIT
 from .linalg import sort_ascending
 
 __all__ = ['cacgmm_em_full', 'cacgmm_em_full_reference', 'smem_bytes',
            'max_frames', 'fits']
 
-# bytes of shared memory one block may opt into on the H100 (sm_90)
-SMEM_LIMIT = 232448
 
 
 def smem_bytes(D, K, T):

@@ -31,13 +31,12 @@ from __future__ import annotations
 import torch
 
 from .._dtypes import tiny as _tiny
+from ._build import SMEM_LIMIT
 from .eigh import default_sweeps, eigh_jacobi, eigh_jacobi_reference
 
 __all__ = ['cacgmm_em_long', 'cacgmm_em_long_reference', 'e_stats',
            'e_stats_reference', 'smem_bytes', 'fits']
 
-# bytes of shared memory one block may opt into on the H100 (sm_90)
-SMEM_LIMIT = 232448
 TILE = 512  # frames per shared-memory tile (kTile in csrc/em_stream.cu)
 # CTAs a pass aims for: 132 SMs x ~5 resident CTAs, about three waves
 _TARGET_CTAS = 2048

@@ -5,10 +5,9 @@ the JAX package's pins (tests/test_models/test_cacgmm_routing.py).
 The accelerator predicate and the five route entry points are
 monkeypatched, so the real trainer code runs right up to the dispatch
 on the CPU and nothing is computed. T=3200 is past the whole-fit
-kernel's gate at D=6, K=3 (3178 frames; the JAX pins use T=2000, past
-their own, smaller gate). Routes whose JAX counterpart involves the
-inline permutation aligner are not ported and raise
-``NotImplementedError``.
+kernel's gate at D=6, K=3 (3178 frames) and the frequency-constant
+kernels' (3190 frames); the JAX pins use T=2000, past their own, smaller
+gates.
 """
 import numpy as np
 import pytest
@@ -92,18 +91,25 @@ def test_long_fc_routes_stream(route_of):
                     t_block=None) == 'stream'
 
 
-@pytest.mark.parametrize('weight_constant_axis,batch', [
-    ((-3, -1), None),  # JAX: the fc step kernel hosts the aligner
-    ((-1,), None),     # JAX: the scan path
-    ((-3, -1), 2),     # JAX: the scan path (batched input)
-], ids=['fc', 'per_bin', 'batched_fc'])
-def test_inline_aligner_routes_raise(route_of, weight_constant_axis, batch):
+def test_fc_inline_aligner_routes_step_kernel(route_of):
     aligner = DHTVPermutationAlignment.from_stft_size(512)
-    with pytest.raises(NotImplementedError, match='inline permutation'):
-        CACGMMTrainer().fit(
-            _y(300, batch=batch), num_classes=K, iterations=3,
-            weight_constant_axis=weight_constant_axis,
-            inline_permutation_aligner=aligner, t_block=None)
+    assert route_of(_y(300), weight_constant_axis=(-3, -1),
+                    inline_permutation_aligner=aligner) == 'fc'
+
+
+def test_per_bin_inline_aligner_falls_back_to_scan(route_of):
+    aligner = DHTVPermutationAlignment.from_stft_size(512)
+    assert route_of(_y(300), inline_permutation_aligner=aligner,
+                    t_block=None) == 'scan'
+
+
+def test_batched_fc_aligner_falls_back_to_scan(route_of):
+    # the frequency-constant route hosts the aligner only for unbatched
+    # input
+    aligner = DHTVPermutationAlignment.from_stft_size(512)
+    assert route_of(_y(300, batch=2), weight_constant_axis=(-3, -1),
+                    inline_permutation_aligner=aligner,
+                    t_block=None) == 'scan'
 
 
 def test_c128_falls_back_to_scan(route_of):
@@ -129,16 +135,43 @@ def test_batched_long_routes_stream(route_of):
     assert route_of(_y(LONG, batch=2)) == 'stream'
 
 
-def test_per_bin_inline_aligner_is_not_ported():
-    """The JAX package rejects the inline aligner with per-bin weights
-    when it runs the fit; the port rejects every inline aligner before
-    that, because the aligner is not ported."""
+def test_per_bin_inline_aligner_rejected_like_reference():
+    """Inline alignment needs frequency-constant weight axes: with
+    per-bin weights the model is invariant under per-bin class
+    relabeling. Running the combination (not just routing it) raises
+    with that explanation, as in the JAX package."""
     y = _y(40)[..., :3]
     aligner = DHTVPermutationAlignment.from_stft_size(512)
-    with pytest.raises(NotImplementedError, match='inline permutation'):
+    with pytest.raises(AssertionError,
+                       match='frequency-constant weight_constant'):
         CACGMMTrainer().fit(y, num_classes=2, iterations=2,
                             inline_permutation_aligner=aligner,
                             t_block=None)
+
+
+@pytest.mark.parametrize('use_fused_em', ['auto', True])
+def test_fc_aligner_past_the_step_gate_routes_scan(route_of, use_fused_em):
+    """An fc fit with an inline aligner past the frequency-constant
+    kernels' gate: the streamed kernel has no aligner hook, so 'auto'
+    takes the scan path and use_fused_em=True finds no kernel variant
+    (JAX cacgmm.py:316-334, 968-973)."""
+    aligner = DHTVPermutationAlignment.from_stft_size(512)
+    kwargs = dict(weight_constant_axis=(-3, -1), t_block=None,
+                  inline_permutation_aligner=aligner,
+                  use_fused_em=use_fused_em)
+    if use_fused_em == 'auto':
+        assert route_of(_y(LONG), **kwargs) == 'scan'
+    else:
+        with pytest.raises(AssertionError, match='no fused-kernel variant'):
+            route_of(_y(LONG), **kwargs)
+
+
+def test_fc_step_gate_is_its_own(route_of):
+    """T=3185 is past the whole-fit kernel's gate (3178) and inside the
+    frequency-constant kernels' (3190)."""
+    assert route_of(_y(3185), t_block=None) == 'stream'
+    assert route_of(_y(3185), weight_constant_axis=(-3, -1),
+                    t_block=None) == 'fc'
 
 
 # ---- repairs against the JAX dispatch ----------------------------------

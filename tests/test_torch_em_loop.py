@@ -241,15 +241,33 @@ def test_kernel_gate():
     assert em_loop.smem_bytes(6, 3, 304) < 48 * 1024
 
 
-@pytest.mark.parametrize('kwargs,match', [
-    (dict(use_fused_em=True, weight_constant_axis=(-3, -1)), 'K5'),
-    (dict(use_pallas_em=True), 'K11'),
-])
-def test_unported_routes_raise(kwargs, match):
+@pytest.mark.parametrize('kwargs', [
+    dict(use_fused_em=True, weight_constant_axis=(-3, -1)),
+    dict(use_pallas_em=True),
+], ids=['fc_route', 'use_pallas_em'])
+def test_kernel_routes_run_their_twins_like_the_scan_path(kwargs):
+    """The frequency-constant route (K5's plain twins) and the
+    use_pallas_em route (K11's scatter twin) on the CPU launch nothing
+    and agree with the port's scan path over one M-step, E-step and
+    M-step (two f32 formulas of the same statistics; K5 warm-starts its
+    Jacobi, whose rounding later E-steps amplify in ambiguous bins)."""
+    from pb_bss_tpu_torch.ops import em_estep, em_step
     y, aff0, _ = _mixture(F=3, T=20)
     Y = torch.as_tensor(y).transpose(-1, -2)
-    with pytest.raises(NotImplementedError, match=match):
-        CACGMMTrainer().fit(Y, num_classes=3, iterations=1, **kwargs)
+    common = dict(initialization=torch.as_tensor(aff0), iterations=2,
+                  affiliation_eps=0,
+                  weight_constant_axis=kwargs.get('weight_constant_axis',
+                                                  (-1,)))
+    before = (em_step.m_init.launches, em_step.em_step.launches,
+              em_estep.cacgmm_em_scatter.launches)
+    out = CACGMMTrainer().fit(Y, **{**common, **kwargs})
+    scan = CACGMMTrainer().fit(Y, use_fused_em=False, **common)
+    assert (em_step.m_init.launches, em_step.em_step.launches,
+            em_estep.cacgmm_em_scatter.launches) == before
+    torch.testing.assert_close(out.weight, scan.weight, atol=1e-6, rtol=0)
+    torch.testing.assert_close(out.cacg.covariance_eigenvalues,
+                               scan.cacg.covariance_eigenvalues, atol=1e-5,
+                               rtol=0)
 
 
 def test_past_the_gate_runs_the_streamed_twin(monkeypatch):

@@ -128,11 +128,12 @@ def _init(shape, seed=42):
 
 @pytest.fixture
 def stream_route(monkeypatch):
-    """Send use_fused_em=True past the whole-fit gate whatever T, so
-    that these small shapes take the streamed route (the JAX stream
-    suite picks T past its own, smaller gate instead); count the
-    streamed fits."""
+    """Send use_fused_em=True past the whole-fit and the
+    frequency-constant gates whatever T, so that these small shapes take
+    the streamed route (the JAX stream suite picks T past its own,
+    smaller gates instead); count the streamed fits."""
     monkeypatch.setattr(mc.em_loop, 'fits', lambda *args: False)
+    monkeypatch.setattr(mc.em_step, 'fits', lambda *args: False)
     calls = []
     real = mc._fit_fused_stream
 

@@ -156,3 +156,126 @@ def test_long_fit_routes_to_the_stream_and_eigh_kernels(cuda):
     after = (cacgmm_em_full.launches, e_stats.launches, eigh_jacobi.launches)
     assert after == (before[0], before[1] + 5, before[2] + 5)
     assert torch.isfinite(model.cacg.covariance_eigenvalues).all()
+
+
+def _lam_close(ev_k, ev_p, rel):
+    """Eigenvalues within ``rel`` of each matrix's largest."""
+    lam_max = ev_p.abs().max(-1, keepdim=True).values
+    return bool(((ev_k - ev_p).abs() <= rel * lam_max).all())
+
+
+def _covariance(vec, ev):
+    return vec @ torch.diag_embed(ev).to(vec.dtype) \
+        @ vec.conj().transpose(-1, -2)
+
+
+@pytest.mark.parametrize('extras', [False, True], ids=['plain', 'sal+mask'])
+def test_fc_kernels_one_step_match_plain(cuda, extras):
+    """K5's init and step kernels against their twins, one launch each,
+    at D=6; with saliency and a mask that silences a class in some bins
+    (the 0 * inf hazard at D >= 5)."""
+    from pb_bss_tpu_torch.ops import em_step
+    B, F, D, K, T = 2, 33, 6, 3, 304
+    y, aff = _unit_norm_mixture(B * F, D, K, T, cuda)
+    qf = torch.ones_like(aff)
+    g = torch.Generator(cuda).manual_seed(5)
+    sal = mask = None
+    if extras:
+        sal = 0.2 + 0.8 * torch.rand((B * F, T), device=cuda, generator=g)
+        mask = torch.ones((B * F, K, T), device=cuda)
+        mask[3:9, 1] = 0
+    before = (em_step.m_init.launches, em_step.em_step.launches)
+    init = dict(sweeps=6, eigenvalue_floor=1e-10, saliency=sal)
+    vec_k, ev_k, asum_k = em_step.m_init(y, aff, qf, **init)
+    vec_p, ev_p, asum_p = em_step.m_init_reference(y, aff, qf, **init)
+    weight = asum_p.reshape(B, F, K).sum(1)
+    weight = weight / weight.sum(-1, keepdim=True)
+    step = dict(warm_sweeps=2, eigenvalue_floor=1e-10,
+                affiliation_eps=0. if extras else 1e-10, saliency=sal,
+                source_activity_mask=mask, emit_affiliation=True)
+    out_k = em_step.em_step(y, ev_p, vec_p, weight, **step)
+    out_p = em_step.em_step_reference(y, ev_p, vec_p, weight, **step)
+    torch.cuda.synchronize()
+    assert (em_step.m_init.launches, em_step.em_step.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(asum_k, asum_p, rtol=1e-4, atol=0)
+    torch.testing.assert_close(out_k[2], out_p[2], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(out_k[3], out_p[3], atol=2e-3, rtol=0)
+    for (vk, ek), (vp, ep) in (((vec_k, ev_k), (vec_p, ev_p)),
+                               ((out_k[0], out_k[1]), (out_p[0], out_p[1]))):
+        assert bool(torch.isfinite(ek).all() and torch.isfinite(vk).all())
+        # two f32 Jacobi runs and two E-step formulas: 1e-4 of the
+        # largest eigenvalue and covariance entry
+        assert _lam_close(ek.sort(-1).values, ep.sort(-1).values, 1e-4)
+        ck, cp = _covariance(vk, ek), _covariance(vp, ep)
+        assert (ck - cp).abs().max() <= 1e-4 * cp.abs().max()
+
+
+def test_fc_fit_routes_to_the_step_kernels(cuda):
+    """'auto' with frequency-constant weights inside K5's gate: one init
+    launch and one step launch per further iteration, no plain twin."""
+    from pb_bss_tpu_torch.models.cacgmm import CACGMMTrainer
+    from pb_bss_tpu_torch.ops import em_step
+    from pb_bss_tpu_torch.permutation_alignment import (
+        GreedyPermutationAlignment)
+    g = torch.Generator(cuda).manual_seed(6)
+    Y = torch.randn((65, 200, 6), dtype=torch.complex64, device=cuda,
+                    generator=g)
+    for aligner in (None, GreedyPermutationAlignment('cos')):
+        before = (em_step.m_init.launches, em_step.em_step.launches)
+        model = CACGMMTrainer().fit(
+            Y, num_classes=3, iterations=5, weight_constant_axis=(-3, -1),
+            inline_permutation_aligner=aligner)
+        torch.cuda.synchronize()
+        assert (em_step.m_init.launches, em_step.em_step.launches) == (
+            before[0] + 1, before[1] + 4)
+        assert model.weight.shape == (1, 3, 1)
+        assert torch.isfinite(model.cacg.covariance_eigenvalues).all()
+
+
+@pytest.mark.parametrize('T', [304, 1100])
+def test_e_step_kernels_match_plain(cuda, T):
+    from pb_bss_tpu_torch.ops import em_estep
+    F, D, K = 65, 6, 3
+    g = torch.Generator(cuda).manual_seed(7)
+    y = torch.randn((F, D, T), dtype=torch.complex64, device=cuda,
+                    generator=g)
+    a = torch.randn((F, K, D, D), dtype=torch.complex64, device=cuda,
+                    generator=g)
+    vec = torch.linalg.qr(a)[0]
+    ev = 0.1 + 0.9 * torch.rand((F, K, D), device=cuda, generator=g)
+    args = (y.real.contiguous(), y.imag.contiguous(), vec.real.contiguous(),
+            vec.imag.contiguous(), 1. / ev, torch.log(ev).sum(-1),
+            torch.full((F, K), 1. / K, device=cuda))
+    before = (em_estep.cacgmm_e_step.launches,
+              em_estep.cacgmm_em_scatter.launches)
+    aff_k, qf_k = em_estep.cacgmm_e_step(*args)
+    s_k = em_estep.cacgmm_em_scatter(*args)
+    torch.cuda.synchronize()
+    assert (em_estep.cacgmm_e_step.launches,
+            em_estep.cacgmm_em_scatter.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    aff_p, qf_p = em_estep.cacgmm_e_step_reference(*args)
+    s_p = em_estep.cacgmm_em_scatter_reference(*args)
+    # the inverse-covariance quadratic form against the projection
+    torch.testing.assert_close(qf_k, qf_p, rtol=1e-4, atol=0)
+    torch.testing.assert_close(aff_k, aff_p, atol=1e-4, rtol=0)
+    for k, p in zip(s_k[:2], s_p[:2]):
+        assert (k - p).abs().max() <= 1e-4 * s_p[0].abs().max()
+    torch.testing.assert_close(s_k[2], s_p[2], rtol=1e-4, atol=0)
+
+
+def test_use_pallas_em_routes_to_the_scatter_kernel(cuda):
+    from pb_bss_tpu_torch.models.cacgmm import CACGMMTrainer
+    from pb_bss_tpu_torch.ops import em_estep
+    from pb_bss_tpu_torch.ops.eigh import eigh_jacobi
+    g = torch.Generator(cuda).manual_seed(8)
+    Y = torch.randn((65, 304, 6), dtype=torch.complex64, device=cuda,
+                    generator=g)
+    before = (em_estep.cacgmm_em_scatter.launches, eigh_jacobi.launches)
+    model = CACGMMTrainer().fit(Y, num_classes=3, iterations=5,
+                                use_pallas_em=True)
+    torch.cuda.synchronize()
+    assert (em_estep.cacgmm_em_scatter.launches,
+            eigh_jacobi.launches) == (before[0] + 4, before[1] + 5)
+    assert torch.isfinite(model.cacg.covariance_eigenvalues).all()
