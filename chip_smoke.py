@@ -4,7 +4,7 @@
 
 Builds the hand-written CUDA kernels from pb_bss_tpu_torch/csrc (one
 nvcc per source, all at once), holds each against its plain PyTorch
-version on the card, and drives three paths, each with the launch
+version on the card, and drives four paths, each with the launch
 counters reset just before and read just after:
 
 * the short-recording path: ``separate_batch`` of 4.8 s utterances
@@ -21,7 +21,12 @@ counters reset just before and read just after:
   of 8 at the JAX package's benchmark shape, resumed from its model,
   ``fit_predict`` with the inline Greedy and DHTV aligners on one 4.8 s
   utterance, ``fit(use_pallas_em=True)`` (the E-step scatter kernel and
-  the Jacobi kernel) and the public E-step kernel ``cacgmm_e_step``.
+  the Jacobi kernel) and the public E-step kernel ``cacgmm_e_step``;
+* the complex Watson mixture: ``separate_batch(model='cwmm')`` of the
+  4.8 s utterances and of the 60 s recordings (whole-fit Watson EM
+  kernel, GEV kernel), ``CWMMTrainer.fit`` at T=4000 and with
+  frequency-constant weights (streamed Watson statistics kernel, Jacobi
+  kernel).
 
 It checks finiteness and separation quality, and times kernels and
 pipeline with CUDA events. Prints a JSON line of per-kernel results
@@ -67,6 +72,16 @@ LONG_PIECES = 13
 # poorly in both packages, so the floors only catch a broken path.
 LONG_MEAN_FLOOR_DB = -11.0
 LONG_SINGLE_FLOOR_DB = -15.5
+
+# quality floors for separate_batch(8 utterances, 20 iterations,
+# 'gev+ban', model='cwmm'), the same metric as the cACGMM floors. The
+# port's plain path on the CPU gives per-speaker batch means of 7.75 and
+# 8.63 dB and a worst single estimate of 3.34 dB (JAX's separate(model=
+# 'cwmm'): 7.86, 9.15 and 3.23 dB; tests/test_torch_pipeline.py::
+# test_cwmm_quality_on_the_smoke_utterances, slow tier, prints both); EM
+# trajectories on the card differ, hence the margins.
+CWMM_MEAN_FLOOR_DB = 4.5
+CWMM_SINGLE_FLOOR_DB = -3.0
 
 # quality floors for the frequency-constant fit with an inline aligner
 # on one 4.8 s utterance (20 iterations, masks at the reference channel,
@@ -202,46 +217,60 @@ def phase_build():
                 log(f'  ptxas {name}: {line.strip()}')
 
 
-def check_em(B, F, D, K, T, seed):
+def check_em(B, F, D, K, T, seed, extras=False):
     """K2 against its plain twin: one iteration tightly, 20 iterations
-    by structure. Returns the one-iteration max abs affiliation error."""
+    by structure. With ``extras``: saliency and a source-activity mask
+    that silences a class in 16 bins, affiliation_eps=0 (its sum is then
+    exactly 0 there: the 0 * inf hazard at D >= 5). Returns the
+    one-iteration max abs affiliation error."""
     import torch
     from pb_bss_tpu_torch.ops.em_loop import (
         cacgmm_em_full, cacgmm_em_full_reference)
-    y, aff, qf = em_inputs(B, F, D, K, T, seed)
+    if extras:
+        y, aff, qf, sal, sam = fold_inputs(B, F, D, K, T, seed,
+                                           saliency=True, mask=True)
+        kw = dict(saliency=sal, source_activity_mask=sam,
+                  affiliation_eps=0.)
+    else:
+        y, aff, qf = em_inputs(B, F, D, K, T, seed)
+        kw = {}
     sweeps = 6 if D <= 8 else 8
     out_k = cacgmm_em_full(y, aff, qf, iterations=1, sweeps=sweeps,
-                           warm_sweeps=2)
+                           warm_sweeps=2, **kw)
     out_p = cacgmm_em_full_reference(y, aff, qf, iterations=1,
-                                     sweeps=sweeps)
+                                     sweeps=sweeps, **kw)
     sync()
     err_w = (out_k[0] - out_p[0]).abs().max().item()
     err_e = (out_k[1] - out_p[1]).abs().max().item()
     err_a = (out_k[3] - out_p[3]).abs().max().item()
     overlap = torch.einsum('...de,...de->...e', out_k[2].conj(),
                            out_p[2]).abs().min().item()
-    log(f'K2 1 iter  B={B} F={F} D={D} K={K} T={T}: weight {err_w:.2e} '
+    label = (f'B={B} F={F} D={D} K={K} T={T}'
+             f'{" +saliency +mask (class silenced, eps 0)" if extras else ""}')
+    log(f'K2 1 iter  {label}: weight {err_w:.2e} '
         f'eig {err_e:.2e} aff {err_a:.2e} min|v_k^H v_p| {overlap:.6f}')
     # one cold iteration: weights are means of the same affiliations;
     # eigenvalues and affiliations differ by f32 rounding of two
     # Jacobi/E-step orderings
     if not (err_w < 1e-5 and err_e < 1e-4 and err_a < 2e-3):
-        fail(f'K2 one-iteration mismatch at {(B, F, D, K, T)}')
+        fail(f'K2 one-iteration mismatch at {label}')
+    if extras and not bool((out_k[3][sam == 0] == 0).all()):
+        fail(f'K2 posterior not gated by the mask at {label}')
 
     out_k = cacgmm_em_full(y, aff, qf, iterations=20, sweeps=sweeps,
-                           warm_sweeps=2)
+                           warm_sweeps=2, **kw)
     out_p = cacgmm_em_full_reference(y, aff, qf, iterations=20,
-                                     sweeps=sweeps)
+                                     sweeps=sweeps, **kw)
     sync()
     finite = all(bool(torch.isfinite(x).all()) for x in out_k)
     wsum = (out_k[0].sum(-1) - 1).abs().max().item()
     agree = (out_k[3].argmax(-2) == out_p[3].argmax(-2)).float().mean()
-    log(f'K2 20 iter B={B} F={F} D={D} K={K} T={T}: finite {finite} '
+    log(f'K2 20 iter {label}: finite {finite} '
         f'|sum w - 1| {wsum:.2e} argmax agreement {agree.item():.4f}')
     # trajectories diverge after many iterations (f32 rounding in
     # ambiguous bins), so the masks are held by agreement, not equality
     if not (finite and wsum < 1e-4 and agree.item() > 0.9):
-        fail(f'K2 20-iteration check failed at {(B, F, D, K, T)}')
+        fail(f'K2 20-iteration check failed at {label}')
     return err_a
 
 
@@ -611,6 +640,166 @@ def check_estep(F, D, K, T, seed):
     return err_a, err_s
 
 
+def watson_inputs(B, F, D, K, T, seed, saliency=False, silence=False):
+    """em_inputs' y and affiliations folded to N = B F bins, (N, D, T)
+    and (N, K, T), with optional saliency (N, T). With ``silence`` a
+    class's initial affiliations are 0 in 16 bins, so its sums there
+    are exactly 0 (the 0 * inf hazard at D >= 5)."""
+    import torch
+    y, aff, _ = em_inputs(B, F, D, K, T, seed)
+    N = B * F
+    y, aff = y.reshape(N, D, T), aff.reshape(N, K, T).clone()
+    sal = None
+    if saliency:
+        g = torch.Generator('cuda').manual_seed(seed + 1)
+        sal = 0.2 + 0.8 * torch.rand((N, T), generator=g, device='cuda')
+    if silence:
+        aff[5:21, 1] = 0
+        aff = aff / aff.sum(-2, keepdim=True)
+    return y, aff, sal
+
+
+def watson_errors(out, ref):
+    """(max |weight_k - weight_p|, min |<m_k, m_p>|, max |kappa_k -
+    kappa_p| / max(kappa_p, 1)) of two Watson states (weight, mode,
+    kappa, ...): modes carry an arbitrary phase per (bin, class)."""
+    import torch
+    err_w = (out[0] - ref[0]).abs().max().item()
+    align = torch.einsum('...d,...d->...', out[1].conj(),
+                         ref[1]).abs().min().item()
+    rel_k = ((out[2] - ref[2]).abs()
+             / ref[2].abs().clamp(min=1.)).max().item()
+    return err_w, align, rel_k
+
+
+def check_cwmm(B, F, D, K, T, seed, saliency=False, silence=False,
+               iterations=20):
+    """K6 against its plain twin: one (cold) iteration tightly, then
+    ``iterations`` (the kernel's Jacobi warm-started) by the argmax of
+    the posteriors. Returns the one-iteration max abs affiliation
+    error."""
+    import torch
+    from pb_bss_tpu_torch.ops.cwmm_loop import (
+        cwmm_em_full, cwmm_em_full_reference)
+    y, aff, sal = watson_inputs(B, F, D, K, T, seed, saliency, silence)
+    label = (f'B={B} F={F} D={D} K={K} T={T}'
+             f'{" +saliency" if saliency else ""}'
+             f'{" +class silenced in 16 bins" if silence else ""}')
+    out_k = cwmm_em_full(y, aff, iterations=1, warm_sweeps=2, saliency=sal)
+    out_p = cwmm_em_full_reference(y, aff, iterations=1, saliency=sal)
+    sync()
+    err_w, align, rel_k = watson_errors(out_k, out_p)
+    err_a = (out_k[3] - out_p[3]).abs().max().item()
+    log(f'K6 1 iter  {label}: aff {err_a:.2e} weight {err_w:.2e} '
+        f'min|m_k^H m_p| {align:.6f} kappa rel {rel_k:.2e}')
+    # one cold iteration: the same statistics in two summation orders and
+    # two f32 Jacobi runs; kappa through the table's slope
+    if not (err_w < 1e-5 and align > 1 - 1e-3 and rel_k < 1e-3
+            and err_a < 2e-3):
+        fail(f'K6 one-iteration mismatch at {label}')
+    out_k = cwmm_em_full(y, aff, iterations=iterations, warm_sweeps=2,
+                         saliency=sal)
+    out_p = cwmm_em_full_reference(y, aff, iterations=iterations,
+                                   saliency=sal)
+    sync()
+    finite = all(bool(torch.isfinite(x).all()) for x in out_k)
+    wsum = (out_k[0].sum(-1) - 1).abs().max().item()
+    agree = (out_k[3].argmax(-2) == out_p[3].argmax(-2)).float().mean().item()
+    silenced = (out_k[0][5:21, 1].abs().max().item() if silence else 0.)
+    log(f'K6 {iterations} iter {label}: finite {finite} |sum w - 1| '
+        f'{wsum:.2e} argmax agreement {agree:.4f}'
+        f'{f"; silenced weight {silenced:.1e}" if silence else ""}')
+    if not (finite and wsum < 1e-4 and agree > 0.9 and silenced == 0.):
+        fail(f'K6 {iterations}-iteration check failed at {label}')
+    return err_a
+
+
+def check_watson_stream(B, F, D, K, T, seed, weight_mode='per_bin',
+                        saliency=False):
+    """One K7 statistics pass in each mode (from-init, then step from the
+    plain path's first M-step) against its plain twin. Returns the max
+    abs error of the scatter sums."""
+    import torch
+    from pb_bss_tpu_torch.models.complex_watson import ComplexWatson
+    from pb_bss_tpu_torch.ops.mm_stream import (
+        cwmm_em_long_reference, mm_stats, mm_stats_reference)
+    y, aff, sal = watson_inputs(B, F, D, K, T, seed, saliency)
+    N = B * F
+    weight, mode, kappa = cwmm_em_long_reference(
+        y.reshape(B, F, D, T), aff.reshape(B, F, K, T), iterations=1,
+        weight_mode=weight_mode,
+        saliency=None if sal is None else sal.reshape(B, F, T))
+    kappa = kappa.reshape(N, K)
+    modes = {
+        'from_init': dict(affiliation=aff),
+        'step': dict(mode=mode.reshape(N, K, D), concentration=kappa,
+                     log_norm=ComplexWatson.log_norm_tran_vu(kappa, D),
+                     weight=weight.reshape(-1, K),
+                     bins_per_weight=1 if weight_mode == 'per_bin' else F)}
+    worst = 0.
+    for name, kwargs in modes.items():
+        s_k, a_k = mm_stats(y, saliency=sal, **kwargs)
+        s_p, a_p = mm_stats_reference(y, saliency=sal, **kwargs)
+        sync()
+        err = (s_k - s_p).abs().max().item()
+        scale = s_p.abs().max().item()
+        rel_a = ((a_k - a_p).abs() / a_p.abs().clamp(min=1e-30)).max().item()
+        herm = (s_k - s_k.conj().transpose(-1, -2)).abs().max().item()
+        log(f'K7 {name} B={B} F={F} D={D} K={K} T={T} {weight_mode}'
+            f'{" +saliency" if saliency else ""}: max|S_k - S_p| {err:.2e} '
+            f'(max|S| {scale:.1f}); asum rel {rel_a:.2e}; |S - S^H| '
+            f'{herm:.1e}')
+        # f32 sums over thousands of frames in two orders, and (step
+        # mode) the E-step's rank-1 form in two orders: 1e-4 of the
+        # largest entry
+        if not (err <= 1e-4 * scale and rel_a <= 1e-4 and herm == 0.
+                and bool(torch.isfinite(s_k).all())):
+            fail(f'K7 {name} mismatch at {(B, F, D, K, T, weight_mode)}')
+        worst = max(worst, err)
+    return worst
+
+
+def check_watson_stream_fit(B, F, D, K, T, seed, iterations=10,
+                            weight_mode='per_bin'):
+    """The whole streamed Watson EM (K7 + K1 + finish) against its plain
+    twin over ``iterations`` iterations, held by the argmax agreement of
+    the final posteriors (trajectories part in ambiguous bins). Returns
+    (max |weight_k - weight_p|, min |<m_k, m_p>|, kappa rel) after one
+    iteration."""
+    import torch
+    from pb_bss_tpu_torch.models.complex_watson import ComplexWatson
+    from pb_bss_tpu_torch.models.cwmm import CWMM
+    from pb_bss_tpu_torch.ops.mm_stream import (
+        cwmm_em_long, cwmm_em_long_reference)
+    y, aff, _ = em_inputs(B, F, D, K, T, seed)
+    one = [fit(y, aff, iterations=1, weight_mode=weight_mode)
+           for fit in (cwmm_em_long, cwmm_em_long_reference)]
+    errors = watson_errors(*one)
+    masks = []
+    for fit in (cwmm_em_long, cwmm_em_long_reference):
+        weight, mode, kappa = fit(y, aff, iterations=iterations,
+                                  weight_mode=weight_mode)
+        w = weight[..., None] if weight_mode == 'per_bin' \
+            else weight[..., None, :, None]
+        model = CWMM(weight=w, complex_watson=ComplexWatson(
+            mode=mode, concentration=kappa))
+        masks.append(model._predict(y.transpose(-1, -2)).argmax(-2))
+        if fit is cwmm_em_long:
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (weight, mode, kappa))
+            wsum = (weight.sum(-1) - 1).abs().max().item()
+    sync()
+    agree = (masks[0] == masks[1]).float().mean().item()
+    log(f'K7 fit B={B} F={F} D={D} K={K} T={T} {weight_mode}: 1 iter weight '
+        f'{errors[0]:.2e} min|m_k^H m_p| {errors[1]:.6f} kappa rel '
+        f'{errors[2]:.2e}; {iterations} iter finite {finite} |sum w - 1| '
+        f'{wsum:.2e} argmax agreement {agree:.4f}')
+    if not (errors[0] < 1e-5 and errors[1] > 1 - 1e-3 and errors[2] < 1e-3
+            and finite and wsum < 1e-4 and agree > 0.9):
+        fail(f'K7 fit check failed at {(B, F, D, K, T, weight_mode)}')
+    return errors
+
+
 def phase_kernels():
     results = {}
     results['em_bench'] = check_em(8, 513, 6, 3, 300, seed=1)
@@ -649,6 +838,24 @@ def phase_kernels():
     _, results['scatter'] = check_estep(257, 6, 3, 304, seed=26)
     check_estep(65, 6, 3, 1100, seed=27)
     check_estep(33, 4, 2, 37, seed=28)
+    # K2 with saliency and a mask that silences a class in 16 bins
+    results['em_extras'] = check_em(2, 129, 6, 3, 304, seed=29, extras=True)
+    # K6: the bench and CWMM config-2 shape, the slice shape, saliency with
+    # a class silenced in 16 bins, odd shapes
+    results['cwmm_bench'] = check_cwmm(8, 513, 6, 3, 300, seed=50)
+    results['cwmm_slice'] = check_cwmm(8, 257, 6, 3, 304, seed=51)
+    check_cwmm(2, 129, 6, 3, 304, seed=52, saliency=True, silence=True)
+    check_cwmm(1, 65, 3, 2, 777, seed=53)
+    check_cwmm(1, 65, 8, 4, 150, seed=54)
+    # K7: the long-T config (one recording, F=513, T=4000), fc weights at
+    # the bench shape, saliency at an odd T; the whole streamed fit
+    results['watson_stream'] = check_watson_stream(1, 513, 6, 3, 4000,
+                                                   seed=55)
+    check_watson_stream(8, 513, 6, 3, 300, seed=56, weight_mode='fc')
+    check_watson_stream(2, 65, 6, 3, 1001, seed=57, saliency=True)
+    check_watson_stream_fit(1, 513, 6, 3, 4000, seed=58)
+    check_watson_stream_fit(8, 513, 6, 3, 300, seed=59, weight_mode='fc',
+                            iterations=20)
     return results
 
 
@@ -660,8 +867,8 @@ def phase_guards():
     g = torch.Generator('cuda').manual_seed(0)
     obs = torch.randn((6, 8000), device='cuda', generator=g)
     for name, call in (
-            ("separate(model='cwmm') (K6)",
-             lambda: P.separate(obs, model='cwmm')),):
+            ("separate(model='cbmm') (K9)",
+             lambda: P.separate(obs, model='cbmm')),):
         try:
             call()
         except NotImplementedError as e:
@@ -781,8 +988,11 @@ def long_recordings(first_seed, count):
 
 def counters():
     from pb_bss_tpu_torch.ops import (
-        eigh, em_estep, em_loop, em_step, em_stream, gev)
+        cwmm_loop, eigh, em_estep, em_loop, em_step, em_stream, gev,
+        mm_stream)
     return {'cacgmm_em_full': em_loop.cacgmm_em_full,
+            'cwmm_em_full': cwmm_loop.cwmm_em_full,
+            'cwmm_em_long': mm_stream.mm_stats,
             'gev': gev.gev,
             'eigh_jacobi': eigh.eigh_jacobi,
             'cacgmm_em_long': em_stream.e_stats,
@@ -884,6 +1094,101 @@ def expect_launches(what, got, want):
     if wrong:
         fail(f'{what}: launches {wrong}, expected '
              f'{ {k: want[k] for k in wrong} }')
+
+
+def phase_cwmm():
+    """The complex Watson mixture on the card: separate_batch(model=
+    'cwmm') of the 4.8 s utterances and of the 60 s recordings, both
+    inside the whole-fit Watson kernel's gate (K6 once, K3 twice);
+    CWMMTrainer.fit at the long-T config (F=513, T=4000, 10 iterations:
+    K7 1 from-init + 9 step passes, K1 in every M-step) and with
+    frequency-constant weights at the bench shape (K7 1 + 19, K1 20).
+    Returns the launches of the path's kernels."""
+    import torch
+    import pb_bss_tpu_torch as P
+    from pb_bss_tpu_torch.evaluation import si_sdr_stft
+    none = {'cacgmm_em_full': 0, 'cacgmm_em_long': 0}
+
+    obs, images = load_utterances(range(8))
+    obs = obs.cuda()
+    sync()
+    reset_counters()
+    out = P.separate_batch(obs, num_classes=3, iterations=20,
+                           beamformer='gev+ban', model='cwmm')
+    sync()
+    launches = read_counters()
+    expect_launches(f"separate_batch(8 x {tuple(obs.shape[1:])}, 'gev+ban', "
+                    "20 it, model='cwmm')", launches,
+                    {'cwmm_em_full': 1, 'cwmm_em_long': 0, 'gev': 2, **none})
+    path = {'cwmm_em_full': launches['cwmm_em_full']}
+    if not bool(torch.isfinite(out).all()):
+        fail("separate_batch(model='cwmm') output is not finite")
+    scores = si_sdr_stft(images[:, :, None],
+                         out.cpu().double()[:, None]).max(-1).values
+    log('cwmm per-frequency SI-SDR (dB), best estimate per speaker:',
+        [[round(v, 2) for v in row] for row in scores.tolist()])
+    means = scores.mean(0)
+    log('cwmm batch mean per speaker:', [round(v, 2) for v in means.tolist()])
+    if not (bool((means >= CWMM_MEAN_FLOOR_DB).all())
+            and bool((scores >= CWMM_SINGLE_FLOOR_DB).all())):
+        fail(f'cwmm separation quality below the floor ({CWMM_MEAN_FLOOR_DB}'
+             f' dB mean, {CWMM_SINGLE_FLOOR_DB} dB single)')
+
+    obs, images = long_recordings(1000, 4)
+    obs = obs.cuda()
+    sync()
+    reset_counters()
+    t0 = time.perf_counter()
+    out = P.separate_batch(obs, num_classes=3, iterations=20,
+                           beamformer='gev+ban', model='cwmm')
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    route = ('whole fit (K6)' if launches['cwmm_em_full']
+             else 'streamed (K7)')
+    log(f"cwmm long path separate_batch(4 x {tuple(obs.shape[1:])}, "
+        f"'gev+ban', 20 it): route {route}; {1e3 * seconds:.1f} ms host "
+        'clock (the first call of this shape)')
+    expect_launches('cwmm long path', launches,
+                    {'cwmm_em_full': 1, 'cwmm_em_long': 0, 'gev': 2, **none})
+    if not bool(torch.isfinite(out).all()):
+        fail("separate_batch(model='cwmm') on 60 s is not finite")
+    scores = si_sdr_stft(images[:, :, None],
+                         out.cpu().double()[:, None]).max(-1).values
+    log('cwmm long path batch mean per speaker:',
+        [round(v, 2) for v in scores.mean(0).tolist()])
+
+    from pb_bss_tpu_torch.models.cwmm import CWMMTrainer
+    for label, (B, F, T), iterations, kwargs in (
+            ('T=4000 (long-T config)', (1, 513, 4000), 10, {}),
+            ('fc B=8 F=513 T=300', (8, 513, 300), 20,
+             dict(weight_constant_axis=(-3, -1)))):
+        y, aff, _ = em_inputs(B, F, 6, 3, T, seed=60)
+        Y = y.transpose(-1, -2).contiguous()
+        if B == 1:
+            Y, aff = Y[0], aff[0]
+        sync()
+        reset_counters()
+        model = CWMMTrainer().fit(Y, initialization=aff,
+                                  iterations=iterations, **kwargs)
+        sync()
+        launches = read_counters()
+        expect_launches(f'CWMMTrainer.fit {label}, {iterations} it',
+                        launches, {'cwmm_em_long': iterations,
+                                   'eigh_jacobi': iterations,
+                                   'cwmm_em_full': 0, **none})
+        path['cwmm_em_long'] = path.get('cwmm_em_long', 0) \
+            + launches['cwmm_em_long']
+        wsum = (model.weight.sum(-2) - 1).abs().max().item()
+        finite = bool(torch.isfinite(model.complex_watson.concentration)
+                      .all() and torch.isfinite(model.weight).all())
+        log(f'  weight {tuple(model.weight.shape)}, |sum w - 1| {wsum:.2e}, '
+            f'finite {finite}, kappa range '
+            f'[{model.complex_watson.concentration.min().item():.3g}, '
+            f'{model.complex_watson.concentration.max().item():.3g}]')
+        if not (finite and wsum < 1e-4):
+            fail(f'CWMMTrainer.fit {label} is not finite or not normalized')
+    return path
 
 
 def phase_fc_path():
@@ -1029,7 +1334,19 @@ def jacobi_flops(matrices, D, sweeps):
     return matrices * sweeps * D * (D - 1) // 2 * (60 * D + 30)
 
 
-def phase_timing(errors, launches, long_launches, fc_launches):
+# float32 operations of the Watson EM pieces, counted as em_flops counts:
+# the products y_d conj(y_e) once per frame, shared by the classes and the
+# scatter; per (frame, class) the rank-1 form <y, m> (8 per channel), its
+# squared magnitude and kappa q - log Z (~5), the softmax (~10), and 4 per
+# upper-triangle entry for the scatter.
+def cwmm_flops(frames, K, D, e_step=True, scatter=True):
+    P = D * (D + 1) // 2
+    per_class = (8 * D + 15 if e_step else 0) + (4 * P if scatter else 0)
+    return frames * ((3 * D + 6 * (P - D) if scatter else 0) + K * per_class)
+
+
+def phase_timing(errors, launches, long_launches, fc_launches,
+                 cwmm_launches):
     import torch
     import pb_bss_tpu_torch as P
     from pb_bss_tpu_torch.ops.eigh import eigh_jacobi, eigh_jacobi_reference
@@ -1103,26 +1420,33 @@ def phase_timing(errors, launches, long_launches, fc_launches):
 
     fc_times = time_fc()
     estep_times = time_estep()
+    cwmm_times = time_cwmm()
 
-    def e2e(batches, count, label):
+    def e2e(batches, count, label, model='cacgmm'):
         """Host clock around synchronized separate_batch calls, distinct
         recordings per repetition, after one warm-up call."""
-        P.separate_batch(batches[0], iterations=20, beamformer='gev+ban')
+        P.separate_batch(batches[0], iterations=20, beamformer='gev+ban',
+                         model=model)
         sync()
         times = []
         for obs in batches[1:]:
             t0 = time.perf_counter()
-            P.separate_batch(obs, iterations=20, beamformer='gev+ban')
+            P.separate_batch(obs, iterations=20, beamformer='gev+ban',
+                             model=model)
             sync()
             times.append(time.perf_counter() - t0)
         per_utt = [1e3 * t / count for t in times]
-        log(f'timing e2e separate_batch({count}, gev+ban, 20 it): ms per '
-            f'{label} {[round(t, 2) for t in per_utt]}')
+        log(f"timing e2e separate_batch({count}, gev+ban, 20 it, "
+            f"model='{model}'): ms per {label} "
+            f'{[round(t, 2) for t in per_utt]}')
 
-    e2e([load_utterances(range(8 * r, 8 * r + 8))[0].cuda()
-         for r in range(1, 5)], 8, 'utterance (4.8 s)')
+    short = [load_utterances(range(8 * r, 8 * r + 8))[0].cuda()
+             for r in range(1, 5)]
+    e2e(short, 8, 'utterance (4.8 s)')
     e2e([long_recordings(first, 4)[0].cuda()
          for first in (1000, 2000, 3000)], 4, '60 s recording')
+    e2e(short, 8, 'utterance (4.8 s)', model='cwmm')
+    profile_cwmm(short[1], long_recordings(2000, 4)[0].cuda())
 
     # the least time of each timed call, from the shapes of its inputs
     D, K = 6, 3
@@ -1171,6 +1495,12 @@ def phase_timing(errors, launches, long_launches, fc_launches):
         ('cacgmm_em_scatter', 'em_estep.cu', 'pallas_em.py:193',
          fc_launches['cacgmm_em_scatter'], errors['scatter'],
          *estep_times['scatter'], None),
+        ('cwmm_em_full', 'cwmm_loop.cu', 'pallas_cwmm_loop.py:296',
+         cwmm_launches['cwmm_em_full'], errors['cwmm_slice'],
+         *cwmm_times['cwmm_em_full'], None),
+        ('cwmm_em_long', 'mm_stream.cu', 'pallas_mm_stream.py:252',
+         cwmm_launches['cwmm_em_long'], errors['watson_stream'],
+         *cwmm_times['cwmm_em_long'], None),
     ]
     kernels = []
     for (name, source, replaces, count, err, ms, plain, (bound_ms, by),
@@ -1320,6 +1650,106 @@ def time_fc_stages():
         f'{[round(t, 3) for t in times[1:]]} (after one warm-up)')
 
 
+def time_cwmm():
+    """K6 per 20-iteration fit at the slice shape (B=8, F=257, T=304) and
+    at the bench shape (B=8, F=513, T=300), K7 per statistics pass at the
+    long-T config (F=513, T=4000, step mode), and K2 with saliency and a
+    source-activity mask at the slice shape, each against its twin.
+    Returns {kernel: (ms, plain_ms, bound)}."""
+    from pb_bss_tpu_torch.models.complex_watson import ComplexWatson
+    from pb_bss_tpu_torch.ops.cwmm_loop import (
+        cwmm_em_full, cwmm_em_full_reference)
+    from pb_bss_tpu_torch.ops.em_loop import (
+        cacgmm_em_full, cacgmm_em_full_reference)
+    from pb_bss_tpu_torch.ops.mm_stream import (
+        cwmm_em_long_reference, mm_stats, mm_stats_reference)
+    D, K = 6, 3
+    out = {}
+
+    def fits(B, F, T, seed):
+        ins = [watson_inputs(B, F, D, K, T, seed + i)[:2] for i in range(6)]
+        ms = cuda_time(lambda y, a: cwmm_em_full(
+            y, a, iterations=20, warm_sweeps=2), ins)
+        # the twin's 20-iteration fit takes seconds here: two timed
+        # calls, no warm-up (phase_kernels ran it already)
+        plain = cuda_time(lambda y, a: cwmm_em_full_reference(
+            y, a, iterations=20), ins[:2], warmup=0)
+        log(f'timing K6 B={B} F={F} D={D} K={K} T={T}, 20 it: kernel '
+            f'{ms:.3f} ms ({20e3 / ms:.1f} iters/s), plain {plain:.3f} ms')
+        return ms, plain, ins[0]
+
+    ms, plain, (y, a) = fits(8, 257, 304, 1100)
+    N, T = y.shape[0], y.shape[-1]
+    k6_bytes = nbytes(y, a) + N * K * (4 + 8 * D + 4 + 4 * T)
+    k6_flops = 20 * cwmm_flops(N * T, K, D) + jacobi_flops(N * K, D, 6) \
+        + 19 * (jacobi_flops(N * K, D, 2) + N * K * 16 * D ** 3)
+    out['cwmm_em_full'] = (ms, plain, bound(k6_bytes, k6_flops))
+    fits(8, 513, 300, 1200)
+
+    # K2 with saliency and a mask at the slice shape, 20 iterations
+    ins = [fold_inputs(8, 257, D, K, 304, 1300 + i, saliency=True,
+                       mask=True) for i in range(6)]
+    kw = dict(iterations=20, sweeps=6)
+    ms2 = cuda_time(lambda y, a, q, s, m: cacgmm_em_full(
+        y, a, q, warm_sweeps=2, saliency=s, source_activity_mask=m, **kw),
+        ins)
+    plain2 = cuda_time(lambda y, a, q, s, m: cacgmm_em_full_reference(
+        y, a, q, saliency=s, source_activity_mask=m, **kw), ins[:2],
+        warmup=0)
+    log(f'timing K2 +saliency +mask B=8 F=257 D={D} K={K} T=304, 20 it: '
+        f'kernel {ms2:.3f} ms, plain {plain2:.3f} ms')
+
+    # K7: one step-mode pass at F=513, T=4000 from the twin's first M-step
+    states = []
+    for i in range(5):
+        y, aff, _ = watson_inputs(1, 513, D, K, 4000, 1400 + i)
+        N, _, T = y.shape
+        weight, mode, kappa = cwmm_em_long_reference(y, aff, iterations=1)
+        kappa = kappa.reshape(N, K)
+        states.append((y, mode.reshape(N, K, D), kappa,
+                       ComplexWatson.log_norm_tran_vu(kappa, D),
+                       weight.reshape(N, K)))
+
+    def step(stats):
+        return lambda y, m, k, z, w: stats(y, mode=m, concentration=k,
+                                           log_norm=z, weight=w)
+    ms7 = cuda_time(step(mm_stats), states)
+    plain7 = cuda_time(step(mm_stats_reference), states[:3])
+    log(f'timing K7 statistics pass N={N} D={D} K={K} T={T} (step mode): '
+        f'kernel {ms7:.4f} ms, plain {plain7:.4f} ms')
+    P = D * (D + 1) // 2
+    # y and the model in; the upper-triangle sums and asum out
+    k7_bytes = nbytes(*states[0]) + N * K * (8 * P + 4)
+    out['cwmm_em_long'] = (ms7, plain7,
+                           bound(k7_bytes, cwmm_flops(N * T, K, D)))
+    return out
+
+
+def profile_cwmm(short, long):
+    """Device time by kernel, wall time and the device's idle share of
+    one separate_batch(model='cwmm') call on 8 x 4.8 s and on 4 x 60 s
+    (after the e2e warm-up of the same shapes)."""
+    import torch
+    import pb_bss_tpu_torch as P
+    for label, obs in (('8 x 4.8 s', short), ('4 x 60 s', long)):
+        P.separate_batch(obs, iterations=20, beamformer='gev+ban',
+                         model='cwmm')
+        sync()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            P.separate_batch(obs, iterations=20, beamformer='gev+ban',
+                             model='cwmm')
+            sync()
+            wall = 1e3 * (time.perf_counter() - t0)
+        busy = device_times(prof, '')['all kernels'][0] / 1e3
+        log(f"profile separate_batch({label}, model='cwmm'): wall {wall:.2f} "
+            f'ms (profiled), device busy {busy:.2f} ms, idle share '
+            f'{1 - busy / wall:.3f}; device us (count) of the EM kernels '
+            f'{device_times(prof, "cwmm")}, GEV {device_times(prof, "gev")}')
+
+
 def time_estep():
     """K11 per launch against its twins: the E-step at F=513, T=300 and
     the scatter at the use_pallas_em slice shape F=257, T=304. Returns
@@ -1348,6 +1778,15 @@ def time_estep():
     return out
 
 
+def timed(phase, *args):
+    """Run one phase, synchronize, and log its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    sync()
+    log(f'{phase.__name__}: {time.perf_counter() - t0:.1f} s')
+    return out
+
+
 def main():
     try:
         import torch
@@ -1362,17 +1801,17 @@ def main():
             fail('pb_bss_tpu_torch not found: run from a checkout of the '
                  'repository')
     try:
-        card = phase_device()
-        phase_build()
-        errors = phase_kernels()
-        sync()
-        phase_guards()
-        launches = phase_main_path()
-        long_launches = phase_long()
-        fc_launches = phase_fc_path()
-        kernels = phase_timing(errors, launches, long_launches, fc_launches)
-        time_fc_stages()
-        sync()
+        card = timed(phase_device)
+        timed(phase_build)
+        errors = timed(phase_kernels)
+        timed(phase_guards)
+        launches = timed(phase_main_path)
+        long_launches = timed(phase_long)
+        fc_launches = timed(phase_fc_path)
+        cwmm_launches = timed(phase_cwmm)
+        kernels = timed(phase_timing, errors, launches, long_launches,
+                        fc_launches, cwmm_launches)
+        timed(time_fc_stages)
     except SystemExit:
         raise
     except Exception:

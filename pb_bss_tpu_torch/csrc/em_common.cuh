@@ -1,7 +1,8 @@
 // The cACGMM E-step and M-step scatter pieces shared by the EM kernels:
 // the whole-fit EM (em_loop.cu), the streamed statistics (em_stream.cu),
-// the frequency-constant-weight step (em_step.cu) and the opt-in E-step
-// kernels (em_estep.cu).
+// the frequency-constant-weight step (em_step.cu), the opt-in E-step
+// kernels (em_estep.cu) and, for the statistics and the mixture weight,
+// the whole-fit Watson EM (cwmm_loop.cu).
 //
 // Replaces what the JAX package's Pallas kernels write out again in each
 // kernel (pb_bss_tpu/ops/pallas_em_loop.py, pallas_em_stream.py,
@@ -125,6 +126,70 @@ __device__ __forceinline__ float warp_frame_sum(const float* a, int nt) {
   float acc = 0.f;
   for (int t = lane; t < nt; t += 32) acc += a[t];
   return warp_sum(acc);
+}
+
+// The M-step statistics of one bin held in shared memory, by the whole
+// block: asum_k = sum_t aff[k, t] (aff already saliency-weighted), then
+// the K D(D+1)/2 upper-triangle sums of wq y y^H (a warp per sum),
+// written Hermitian into S as num * sum / max(asum_k, tiny). num is D
+// for the cACG covariance and 1 for the Watson scatter. It is a
+// division, never the sum times num / max(asum, tiny): at D >= 5 that
+// factor overflows to inf when a class's sum is 0 in a real bin (a
+// source-activity mask with affiliation_eps=0 silences a class there),
+// and 0 * inf would poison the scatter; the division gives 0 / tiny = 0,
+// as the scan path does. asum_out (may be null) receives the K sums.
+// Starts and ends with the block synchronized.
+__device__ void m_stats(const float2* ys, const float* aff, const float* wq,
+                        float2* S, float* asum, float* asum_out, int D,
+                        int K, int T, float num) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int DD = D * D;
+  const int P = D * (D + 1) / 2;
+  for (int k = warp; k < K; k += nwarps) {
+    const float acc = warp_frame_sum(aff + k * T, T);
+    if (lane == 0) {
+      asum[k] = acc;
+      if (asum_out != nullptr) asum_out[k] = acc;
+    }
+  }
+  __syncthreads();
+  for (int item = warp; item < K * P; item += nwarps) {
+    const int k = item / P;
+    int d, e;
+    upper_entry(item % P, D, &d, &e);
+    const float2 s = warp_weighted_pair_sum(ys + d * T, ys + e * T,
+                                            wq + k * T, T);
+    if (lane == 0) {
+      const float den = fmaxf(asum[k], FLT_MIN);
+      const float re = num * s.x / den;
+      const float im = num * s.y / den;
+      float2* Sk = S + k * DD;
+      if (d == e) {
+        Sk[d * D + d] = make_float2(re, 0.f);
+      } else {
+        Sk[d * D + e] = make_float2(re, im);
+        Sk[e * D + d] = make_float2(re, -im);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The mixture weight of class k from the K affiliation sums of a bin
+// (or an utterance): with saliency, the sums L1-normalized over classes
+// (a zero norm divides by 1e-10, estimate_mixture_weight's 'where'
+// style); without, the mean over `count` frames.
+__device__ __forceinline__ float mixture_weight(const float* asum, int k,
+                                                int K, bool saliency,
+                                                float count) {
+  if (!saliency) return asum[k] / count;
+  float norm = 0.f;
+  for (int j = 0; j < K; ++j) norm += asum[j];
+  if (norm == 0.f) norm = 1e-10f;
+  return asum[k] / norm;
 }
 
 // Eigenvalue max-normalization and floor of one class after its Jacobi

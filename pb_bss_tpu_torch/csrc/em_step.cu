@@ -32,11 +32,8 @@
 //     asum.
 //
 // The guard ladder: the covariance is D sum / max(asum, tiny), a
-// division, never the sum times D / max(asum, tiny). At D >= 5 that
-// factor overflows to inf when a class's sum is 0 in a real bin (a
-// source-activity mask with affiliation_eps=0 silences a class there),
-// and 0 * inf would poison the scatter. The division gives 0 / tiny = 0,
-// as the scan path does. There is no padding (exact loop bounds, one CTA
+// division (m_stats, em_common.cuh), so a class silenced in a real bin
+// stays finite at D >= 5. There is no padding (exact loop bounds, one CTA
 // per real bin), so no padded lane feeds the weight reduction.
 //
 // What bounds it on the H100: y is read from device memory once per
@@ -67,48 +64,6 @@ constexpr int kThreads = 256;
 inline size_t step_smem_bytes(int D, int K, int T) {
   return sizeof(float2) * (size_t(D) * T + 3 * size_t(K) * D * D) +
          sizeof(float) * (2 * size_t(K) * T + size_t(K) * D + 3 * K);
-}
-
-// Shared M-step of both kernels: asum_k = sum_t a (aff, already
-// saliency-weighted), the scatter S_k = D sum_t w y y^H / max(asum_k,
-// tiny) written Hermitian into S (w = a / max(q, 10 tiny) in wq).
-__device__ void m_stats(const float2* ys, const float* aff, const float* wq,
-                        float2* S, float* asum, float* asum_out, int D,
-                        int K, int T) {
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int nwarps = blockDim.x >> 5;
-  const int DD = D * D;
-  const int P = D * (D + 1) / 2;
-  for (int k = warp; k < K; k += nwarps) {
-    const float acc = warp_frame_sum(aff + k * T, T);
-    if (lane == 0) {
-      asum[k] = acc;
-      asum_out[k] = acc;
-    }
-  }
-  __syncthreads();
-  for (int item = warp; item < K * P; item += nwarps) {
-    const int k = item / P;
-    int d, e;
-    upper_entry(item % P, D, &d, &e);
-    const float2 s = warp_weighted_pair_sum(ys + d * T, ys + e * T,
-                                            wq + k * T, T);
-    if (lane == 0) {
-      const float den = fmaxf(asum[k], FLT_MIN);
-      const float re = float(D) * s.x / den;
-      const float im = float(D) * s.y / den;
-      float2* Sk = S + k * DD;
-      if (d == e) {
-        Sk[d * D + d] = make_float2(re, 0.f);
-      } else {
-        Sk[d * D + e] = make_float2(re, im);
-        Sk[e * D + d] = make_float2(re, -im);
-      }
-    }
-  }
-  __syncthreads();
 }
 
 __device__ void load_y(const float2* __restrict__ y, float2* ys, size_t n,
@@ -160,7 +115,7 @@ em_fc_init_kernel(const float2* __restrict__ y,
   }
   __syncthreads();
 
-  m_stats(ys, aff, wq, S, asum, asum_out + n * K, D, K, T);
+  m_stats(ys, aff, wq, S, asum, asum_out + n * K, D, K, T, float(D));
 
   for (int k = warp; k < K; k += nwarps) {
     warp_set_identity(V + k * DD, D);
@@ -235,7 +190,7 @@ em_fc_step_kernel(const float2* __restrict__ y,
   }
   __syncthreads();
 
-  m_stats(ys, aff, wq, S, asum, asum_out + n * K, D, K, T);
+  m_stats(ys, aff, wq, S, asum, asum_out + n * K, D, K, T, float(D));
 
   // ---- Jacobi warm-started from the previous eigenbasis -------------
   for (int k = warp; k < K; k += nwarps) {

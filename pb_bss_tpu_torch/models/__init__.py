@@ -4,3 +4,5 @@ from .complex_angular_central_gaussian import (  # noqa: F401
     ComplexAngularCentralGaussian,
     ComplexAngularCentralGaussianTrainer,
 )
+from .complex_watson import ComplexWatson, ComplexWatsonTrainer  # noqa: F401
+from .cwmm import CWMM, CWMMTrainer  # noqa: F401

@@ -10,8 +10,10 @@ Routing of ``CACGMMTrainer.fit`` (decision for decision the JAX
 package's, ``pb_bss_tpu/models/cacgmm.py:894-1036``):
 
 1. **whole fit** (:func:`pb_bss_tpu_torch.ops.em_loop.cacgmm_em_full`,
-   one launch): per-bin weights and the standard knobs, T inside the
-   kernel's gate (:func:`~pb_bss_tpu_torch.ops.em_loop.fits`).
+   one launch): per-bin weights and the standard knobs, saliency and
+   source-activity masks included, T inside the kernel's gate
+   (:func:`~pb_bss_tpu_torch.ops.em_loop.fits`, which those two extras
+   shrink).
 2. **frequency-constant weights** (``weight_constant_axis=(-3, -1)``,
    :func:`pb_bss_tpu_torch.ops.em_step.cacgmm_em_fc`, one launch per
    iteration) inside its own gate
@@ -318,13 +320,17 @@ def _fc_init_weight(model, y_ndim):
 
 
 def _fused_em_eligible(y, num_classes, aligner, weight_constant_axis,
-                       hermitize, covariance_norm):
-    """Route the fit to the whole-fit kernel?"""
+                       hermitize, covariance_norm, has_sal=False,
+                       has_mask=False):
+    """Route the fit to the whole-fit kernel? Saliency and the
+    source-activity mask live in its shared memory, so they shrink its
+    gate (the JAX package's ``choose_tile_f(has_sal, has_mask)``)."""
     return (_on_accelerator(y) and y.ndim in (3, 4)
             and y.dtype == torch.complex64
             and _per_bin_knobs(aligner, weight_constant_axis, hermitize,
                                covariance_norm)
-            and em_loop.fits(y.shape[-2], num_classes, y.shape[-1]))
+            and em_loop.fits(y.shape[-2], num_classes, y.shape[-1],
+                             has_sal, has_mask))
 
 
 def _fused_em_fc_eligible(y, num_classes, aligner, weight_constant_axis,
@@ -596,9 +602,11 @@ class CACGMMTrainer:
         knobs = (aligner, weight_constant_axis, hermitize, covariance_norm)
         per_bin = _per_bin_knobs(*knobs)
         fc = _fc_knobs(*knobs, allow_aligner=y.ndim == 3)
+        extras = dict(has_sal=saliency is not None,
+                      has_mask=source_activity_mask is not None)
         if use_fused_em == 'auto':
             use_fused_em = not use_pallas_em and (
-                _fused_em_eligible(y, num_classes, *knobs)
+                _fused_em_eligible(y, num_classes, *knobs, **extras)
                 or _fused_em_fc_eligible(y, num_classes, *knobs, model)
                 or _fused_em_stream_eligible(y, num_classes, *knobs, model))
         if use_fused_em:
@@ -621,7 +629,8 @@ class CACGMMTrainer:
                 return_affiliation=_return_affiliation)
             fc_init_ok = (model is None
                           or _fc_init_weight(model, y.ndim) is not None)
-            if per_bin and em_loop.fits(D, num_classes, num_observations):
+            if per_bin and em_loop.fits(D, num_classes, num_observations,
+                                        **extras):
                 # short T: the whole fit in one kernel launch
                 return _fit_fused(y, model, affiliation, quadratic_form,
                                   **fused_kwargs)

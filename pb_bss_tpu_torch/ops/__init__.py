@@ -1,7 +1,8 @@
 """Small-matrix linear algebra and the hand-written CUDA kernels
 (``em_loop``: whole-fit cACGMM EM, ``em_stream``: streamed EM
 statistics, ``em_step``: frequency-constant-weight EM steps,
-``em_estep``: the opt-in E-step kernels, ``eigh``: batched Jacobi,
-``gev``: fused GEV beamformer). The kernels are built on first use
-(``_build``), never at import."""
+``em_estep``: the opt-in E-step kernels, ``cwmm_loop``: whole-fit
+complex Watson mixture EM, ``mm_stream``: streamed Watson statistics,
+``eigh``: batched Jacobi, ``gev``: fused GEV beamformer). The kernels
+are built on first use (``_build``), never at import."""
 from . import linalg  # noqa: F401

@@ -25,7 +25,7 @@ __all__ = ['CSRC', 'BUILD_DIR', 'KERNELS', 'SMEM_LIMIT', 'nvcc_command',
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = CSRC.parent / '_kernels'
-_HEADERS = ('jacobi.cuh', 'em_common.cuh')
+_HEADERS = ('jacobi.cuh', 'em_common.cuh', 'watson.cuh')
 # bytes of shared memory one block may opt into on the H100 (sm_90), the
 # budget of every kernel's shape gate
 SMEM_LIMIT = 232448
@@ -37,8 +37,7 @@ _F = ctypes.c_float
 KERNELS = {
     'em_loop': {
         'cacgmm_em_full_launch': (
-            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-             _F, _P], _I),
+            [_P] * 9 + [_I] * 7 + [_F, _F, _P], _I),
     },
     'gev': {
         'gev_launch': ([_P, _P, _P, _I, _I, _I, _P], _I),
@@ -60,6 +59,13 @@ KERNELS = {
     'em_estep': {
         'em_e_step_launch': ([_P] * 9 + [_I] * 4 + [_P], _I),
         'em_scatter_launch': ([_P] * 10 + [_I] * 4 + [_P], _I),
+    },
+    'cwmm_loop': {
+        'cwmm_em_full_launch': (
+            [_P] * 8 + [_I] * 7 + [_F, _F, _I, _F, _F, _P], _I),
+    },
+    'mm_stream': {
+        'mm_stream_launch': ([_P] * 9 + [_I] * 7 + [_P], _I),
     },
 }
 

@@ -7,8 +7,9 @@ observations resident in shared memory: Hermitian M-step scatter,
 warm-started complex Jacobi (cold ``sweeps`` in iteration 0, then
 ``warm_sweeps`` from the previous eigenbasis), eigenvalue
 max-normalization and floor, inverse-covariance E-step and max-shift
-softmax. The final E-step is unclipped, so the returned affiliation
-equals ``predict`` on the returned model.
+softmax, with saliency weighting the statistics and the source-activity
+mask gating the E-step numerators. The final E-step is unclipped, so the
+returned affiliation equals ``predict`` on the returned model.
 
 What bounds it on the H100: the observations are read from device
 memory once per fit, so the kernel is bound by fp32 FMAs and the
@@ -18,8 +19,10 @@ working set of a bin in shared memory to get there.
 Gate (:func:`fits`): D <= 16 (a warp owns a D x D Jacobi) and the
 bin's working set, :func:`smem_bytes`, within the 227 KB of shared
 memory a block may opt into on the H100 — T <= 3178 frames at D=6,
-K=3 (:func:`max_frames`). It replaces the JAX package's VMEM tile
-budget (``pallas_em_loop.choose_tile_f``), which stops near 600 frames.
+K=3 (:func:`max_frames`), 2600 with saliency and a source-activity mask,
+which live in shared memory too. It replaces the JAX package's VMEM tile
+budget (``pallas_em_loop.choose_tile_f``), which stops near 600 frames
+and counts the same two extras.
 
 On a CPU tensor the wrapper runs the plain PyTorch twin,
 :func:`cacgmm_em_full_reference`. On a CUDA tensor it launches the
@@ -37,20 +40,23 @@ __all__ = ['cacgmm_em_full', 'cacgmm_em_full_reference', 'smem_bytes',
 
 
 
-def smem_bytes(D, K, T):
-    """Shared memory one bin's CTA needs (csrc/em_loop.cu)."""
-    return 8 * (D * T + 4 * K * D * D) + 4 * (2 * K * T + K * D + 3 * K)
+def smem_bytes(D, K, T, has_sal=False, has_mask=False):
+    """Shared memory one bin's CTA needs (csrc/em_loop.cu); saliency
+    adds T floats, the source-activity mask K T."""
+    return 8 * (D * T + 4 * K * D * D) + 4 * (
+        2 * K * T + K * D + 3 * K + has_sal * T + has_mask * K * T)
 
 
-def max_frames(D, K):
-    """Longest T the kernel takes at (D, K)."""
+def max_frames(D, K, has_sal=False, has_mask=False):
+    """Longest T the kernel takes at (D, K) with the given extras."""
     return (SMEM_LIMIT - 8 * 4 * K * D * D - 4 * (K * D + 3 * K)) \
-        // (8 * D + 8 * K)
+        // (8 * D + 8 * K + 4 * has_sal + 4 * K * has_mask)
 
 
-def fits(D, K, T):
-    """Does the whole-fit kernel take this shape?"""
-    return D <= 16 and smem_bytes(D, K, T) <= SMEM_LIMIT
+def fits(D, K, T, has_sal=False, has_mask=False):
+    """Does the whole-fit kernel take this shape (with saliency
+    ``has_sal`` and a source-activity mask ``has_mask``)?"""
+    return D <= 16 and smem_bytes(D, K, T, has_sal, has_mask) <= SMEM_LIMIT
 
 
 def cacgmm_em_full_reference(y, affiliation, quadratic_form, *,
@@ -98,8 +104,11 @@ def cacgmm_em_full(y, affiliation, quadratic_form, *, iterations,
         quadratic_form: (..., F, K, T) initial quadratic forms.
         warm_sweeps: Jacobi sweeps of the warm-started iterations
             (None: every iteration cold with ``sweeps``).
-        saliency / source_activity_mask: plain path only; the kernel
-            raises ``NotImplementedError`` for them.
+        saliency: optional (..., F, T) frame weights of the M-step
+            statistics; the mixture weight is then L1-normalized over
+            classes.
+        source_activity_mask: optional (..., F, K, T) 0/1 (bool or
+            float) gate of the E-step numerators.
     Returns:
         (weight (..., F, K), eigenvalues (..., F, K, D) ascending,
         eigenvectors (..., F, K, D, D) complex64, affiliation
@@ -115,10 +124,6 @@ def cacgmm_em_full(y, affiliation, quadratic_form, *, iterations,
             source_activity_mask=source_activity_mask)
     if y.device.type != 'cuda':
         raise ValueError(f'unsupported device {y.device}')
-    if saliency is not None or source_activity_mask is not None:
-        raise NotImplementedError(
-            'saliency and source_activity_mask are not implemented in '
-            'the CUDA whole-fit EM kernel yet (ROADMAP queue 2 K2)')
     if y.dtype != torch.complex64 or y.ndim not in (3, 4):
         raise ValueError(
             f'y must be complex64 (F, D, T) or (B, F, D, T), got '
@@ -131,16 +136,28 @@ def cacgmm_em_full(y, affiliation, quadratic_form, *, iterations,
             raise ValueError(
                 f'{name} must be {(*lead, K, T)} on {y.device}, got '
                 f'{tuple(x.shape)} on {x.device}')
-    if not fits(D, K, T):
+    has_sal = saliency is not None
+    has_mask = source_activity_mask is not None
+    if not fits(D, K, T, has_sal, has_mask):
         raise ValueError(
             f'(D={D}, K={K}, T={T}) is outside the whole-fit kernel gate '
-            f'(D <= 16, T <= {max_frames(D, K)})')
+            f'(D <= 16, T <= {max_frames(D, K, has_sal, has_mask)})')
     N = 1
     for n in lead:
         N *= n
+
+    def fold(x, *trailing):
+        if x is None:
+            return None
+        x = torch.broadcast_to(torch.as_tensor(x, device=y.device),
+                               (*lead, *trailing))
+        return x.reshape(N, *trailing).to(torch.float32).contiguous()
+
     y_ = y.resolve_conj().reshape(N, D, T).contiguous()
-    a_ = affiliation.reshape(N, K, T).to(torch.float32).contiguous()
-    q_ = quadratic_form.reshape(N, K, T).to(torch.float32).contiguous()
+    a_ = fold(affiliation, K, T)
+    q_ = fold(quadratic_form, K, T)
+    sal_ = fold(saliency, T)
+    mask_ = fold(source_activity_mask, K, T)
     weight = torch.empty((N, K), dtype=torch.float32, device=y.device)
     eig = torch.empty((N, K, D), dtype=torch.float32, device=y.device)
     vec = torch.empty((N, K, D, D), dtype=torch.complex64, device=y.device)
@@ -148,7 +165,9 @@ def cacgmm_em_full(y, affiliation, quadratic_form, *, iterations,
     if N:
         from ._build import load
         err = load('em_loop').cacgmm_em_full_launch(
-            y_.data_ptr(), a_.data_ptr(), q_.data_ptr(), weight.data_ptr(),
+            y_.data_ptr(), a_.data_ptr(), q_.data_ptr(),
+            0 if sal_ is None else sal_.data_ptr(),
+            0 if mask_ is None else mask_.data_ptr(), weight.data_ptr(),
             eig.data_ptr(), vec.data_ptr(), aff.data_ptr(), N, D, K, T,
             int(iterations), int(sweeps),
             -1 if warm_sweeps is None else int(warm_sweeps),

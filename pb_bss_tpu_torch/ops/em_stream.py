@@ -35,7 +35,7 @@ from ._build import SMEM_LIMIT
 from .eigh import default_sweeps, eigh_jacobi, eigh_jacobi_reference
 
 __all__ = ['cacgmm_em_long', 'cacgmm_em_long_reference', 'e_stats',
-           'e_stats_reference', 'smem_bytes', 'fits']
+           'e_stats_reference', 'mixture_weight', 'smem_bytes', 'fits']
 
 TILE = 512  # frames per shared-memory tile (kTile in csrc/em_stream.cu)
 # CTAs a pass aims for: 132 SMs x ~5 resident CTAs, about three waves
@@ -190,6 +190,25 @@ def e_stats(y, *, affiliation=None, quadratic_form=None, eigenvalues=None,
 e_stats.launches = 0
 
 
+def mixture_weight(asum, *, weight_mode, lead, frames, saliency):
+    """The mixture weight from the (N, K) affiliation sums of the N bins
+    of ``lead`` = (F,) or (B, F), each of ``frames`` frames: (N, K) per
+    bin, or (K,) / (B, K) frequency-constant (``weight_mode='fc'``).
+    With ``saliency`` the sums are L1-normalized over classes ('where'
+    eps style of estimate_mixture_weight), else averaged."""
+    F = lead[-1]
+    if weight_mode == 'per_bin':
+        sums, count = asum, frames
+    else:
+        sums = asum.reshape(-1, F, asum.shape[-1]).sum(1)
+        sums, count = (sums if len(lead) == 2 else sums[0]), F * frames
+    if saliency:
+        denom = sums.sum(-1, keepdim=True)
+        denom = torch.where(denom == 0, torch.full_like(denom, 1e-10), denom)
+        return sums / denom
+    return sums / count
+
+
 def _em_long(stats, eigh, y, affiliation, quadratic_form, *, iterations,
              sweeps=None, eigenvalue_floor=1e-10, affiliation_eps=1e-10,
              weight_mode='per_bin', saliency=None,
@@ -234,20 +253,8 @@ def _em_long(stats, eigh, y, affiliation, quadratic_form, *, iterations,
         return eigenvalues, eigenvectors
 
     def weight_of(asum):
-        """(N, K) per bin, or (K,) / (B, K) frequency-constant."""
-        if weight_mode == 'per_bin':
-            sums, count = asum, T
-        else:
-            sums = asum.reshape(B, F, K).sum(1)
-            sums, count = (sums if len(lead) == 2 else sums[0]), F * T
-        if saliency is not None:
-            # saliency-weighted sums, L1-normalized over classes ('where'
-            # eps style of estimate_mixture_weight)
-            denom = sums.sum(-1, keepdim=True)
-            denom = torch.where(denom == 0, torch.full_like(denom, 1e-10),
-                                denom)
-            return sums / denom
-        return sums / count
+        return mixture_weight(asum, weight_mode=weight_mode, lead=lead,
+                              frames=T, saliency=saliency is not None)
 
     def per_bin(weight):
         if weight_mode == 'per_bin':

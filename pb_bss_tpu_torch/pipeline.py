@@ -1,12 +1,14 @@
 """High-level separation pipeline.
 
-The standard recipe — STFT -> cACGMM EM -> DHTV permutation alignment
--> mask-based extraction or GEV beamforming -> iSTFT — as
+The standard recipe — STFT -> spatial mixture model EM (cACGMM, or
+the complex Watson mixture with ``model='cwmm'``) -> DHTV permutation
+alignment -> mask-based extraction or GEV beamforming -> iSTFT — as
 :func:`separate` (one utterance) and :func:`separate_batch` (a leading
 batch axis through every stage). Counterpart of ``pb_bss_tpu.pipeline``.
 On the card the EM runs one whole-fit launch for recordings inside its
 gate and the streamed route (one statistics launch per iteration) for
-longer ones, such as a minute at 8 kHz.
+longer ones, such as a minute at 8 kHz (past the cACGMM kernel's gate;
+the Watson whole-fit kernel still takes a minute at D=6, K=3).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from .extraction.beamformer import (
 )
 from .extraction.beamformer_wrapper import get_bf_vector
 from .models.cacgmm import CACGMMTrainer
+from .models.cwmm import CWMMTrainer
 from .permutation_alignment import DHTVPermutationAlignment
 from .transform import istft, stft
 from .transform.stft_module import stft_frames
@@ -36,11 +39,10 @@ def _check_options(beamformer, model, mesh, refine):
                 f'refine={refine!r}, beamformer={beamformer!r}')
         raise NotImplementedError(
             "refine='fca' is not ported yet (ROADMAP queue 1, FCA)")
-    if model in ('cwmm', 'cbmm'):
+    if model == 'cbmm':
         raise NotImplementedError(
-            f'model={model!r} is not ported yet (ROADMAP queue 1, '
-            'CWMM/CBMM)')
-    if model != 'cacgmm':
+            "model='cbmm' is not ported yet (ROADMAP queue 1, CBMM)")
+    if model not in ('cacgmm', 'cwmm'):
         raise ValueError(model)
     if mesh is not None:
         raise NotImplementedError(
@@ -60,15 +62,19 @@ def _random_affiliation(generator, shape, dtype, device):
 
 
 def _separate(observations, initialization, *, iterations, stft_size,
-              stft_shift, beamformer, reference_channel, eigh_sweeps):
+              stft_shift, beamformer, reference_channel, eigh_sweeps, model):
     """observations (B, D, N), initialization (B, F, K, T) ->
     (B, K, N)."""
     num_samples = observations.shape[-1]
     Observation = stft(observations, stft_size, stft_shift)  # (B, D, T, F)
     Y = Observation.permute(0, 3, 2, 1)  # (B, F, T, D)
-    _, affiliation = CACGMMTrainer().fit_predict_model(
-        Y, initialization=initialization, iterations=iterations,
-        eigh_sweeps=eigh_sweeps)  # (B, F, K, T)
+    if model == 'cwmm':
+        affiliation = CWMMTrainer().fit_predict(
+            Y, initialization=initialization, iterations=iterations)
+    else:
+        _, affiliation = CACGMMTrainer().fit_predict_model(
+            Y, initialization=initialization, iterations=iterations,
+            eigh_sweeps=eigh_sweeps)  # (B, F, K, T)
     pa = DHTVPermutationAlignment.from_stft_size(stft_size)
     masks = pa(affiliation.transpose(1, 2))  # (B, K, F, T)
 
@@ -114,8 +120,11 @@ def separate(observation, *, num_classes=3, iterations=80, stft_size=512,
         generator: ``torch.Generator`` for the EM initialization
             (default: one seeded 0 on the observation's device).
         eigh_sweeps: optional Jacobi sweeps of the EM eigh.
-        model / mesh / refine / refine_iterations: JAX options whose
-            paths are not ported yet (``NotImplementedError``).
+        model: the spatial mixture model: ``'cacgmm'`` (default) or
+            ``'cwmm'`` (complex Watson); ``'cbmm'`` is not ported yet
+            (``NotImplementedError``).
+        mesh / refine / refine_iterations: JAX options whose paths are
+            not ported yet (``NotImplementedError``).
     Returns:
         (num_classes, num_samples) separated time signals (global class
         order is arbitrary).
@@ -133,7 +142,8 @@ def separate(observation, *, num_classes=3, iterations=80, stft_size=512,
     return _separate(
         observation[None], init[None], iterations=iterations,
         stft_size=stft_size, stft_shift=stft_shift, beamformer=beamformer,
-        reference_channel=reference_channel, eigh_sweeps=eigh_sweeps)[0]
+        reference_channel=reference_channel, eigh_sweeps=eigh_sweeps,
+        model=model)[0]
 
 
 def utterance_generators(generator, batch, device):
@@ -173,4 +183,5 @@ def separate_batch(observations, *, num_classes=3, iterations=80,
     return _separate(
         observations, init, iterations=iterations, stft_size=stft_size,
         stft_shift=stft_shift, beamformer=beamformer,
-        reference_channel=reference_channel, eigh_sweeps=eigh_sweeps)
+        reference_channel=reference_channel, eigh_sweeps=eigh_sweeps,
+        model=model)

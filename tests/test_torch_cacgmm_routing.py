@@ -166,6 +166,24 @@ def test_fc_aligner_past_the_step_gate_routes_scan(route_of, use_fused_em):
             route_of(_y(LONG), **kwargs)
 
 
+def test_saliency_and_mask_shrink_the_whole_fit_gate(route_of):
+    """Saliency and a source-activity mask live in the whole-fit kernel's
+    shared memory (T <= 2600 at D=6, K=3 with both): a T inside the
+    reduced gate takes the whole fit, one frame past it the stream, as
+    the JAX router does (choose_tile_f(has_sal, has_mask))."""
+    from pb_bss_tpu_torch.ops import em_loop
+    T_max = em_loop.max_frames(D, K, has_sal=True, has_mask=True)
+    assert T_max == 2600 < em_loop.max_frames(D, K)
+
+    def extras(T):
+        return dict(saliency=torch.ones(F, T),
+                    source_activity_mask=torch.ones((F, K, T), dtype=bool),
+                    t_block=None)
+    assert route_of(_y(T_max), **extras(T_max)) == 'whole'
+    assert route_of(_y(T_max + 1), **extras(T_max + 1)) == 'stream'
+    assert route_of(_y(T_max + 1), t_block=None) == 'whole'
+
+
 def test_fc_step_gate_is_its_own(route_of):
     """T=3185 is past the whole-fit kernel's gate (3178) and inside the
     frequency-constant kernels' (3190)."""

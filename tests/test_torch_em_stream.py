@@ -132,8 +132,8 @@ def stream_route(monkeypatch):
     frequency-constant gates whatever T, so that these small shapes take
     the streamed route (the JAX stream suite picks T past its own,
     smaller gates instead); count the streamed fits."""
-    monkeypatch.setattr(mc.em_loop, 'fits', lambda *args: False)
-    monkeypatch.setattr(mc.em_step, 'fits', lambda *args: False)
+    monkeypatch.setattr(mc.em_loop, 'fits', lambda *args, **kwargs: False)
+    monkeypatch.setattr(mc.em_step, 'fits', lambda *args, **kwargs: False)
     calls = []
     real = mc._fit_fused_stream
 

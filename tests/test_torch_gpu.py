@@ -279,3 +279,160 @@ def test_use_pallas_em_routes_to_the_scatter_kernel(cuda):
     assert (em_estep.cacgmm_em_scatter.launches,
             eigh_jacobi.launches) == (before[0] + 4, before[1] + 5)
     assert torch.isfinite(model.cacg.covariance_eigenvalues).all()
+
+
+def test_em_kernel_with_saliency_and_mask_matches_plain(cuda):
+    """K2 with saliency and a source-activity mask that silences a class
+    in some bins (affiliation_eps=0: its sum is exactly 0 there, the
+    0 * inf hazard at D >= 5), one iteration, against its twin."""
+    F, D, K, T = 33, 6, 3, 304
+    y, aff = _unit_norm_mixture(F, D, K, T, cuda)
+    qf = torch.ones_like(aff)
+    g = torch.Generator(cuda).manual_seed(9)
+    sal = 0.2 + 0.8 * torch.rand((F, T), device=cuda, generator=g)
+    mask = torch.ones((F, K, T), device=cuda, dtype=torch.bool)
+    mask[3:9, 1] = False
+    kwargs = dict(saliency=sal, source_activity_mask=mask,
+                  affiliation_eps=0.)
+    before = cacgmm_em_full.launches
+    out = cacgmm_em_full(y, aff, qf, iterations=1, warm_sweeps=2, **kwargs)
+    torch.cuda.synchronize()
+    assert cacgmm_em_full.launches == before + 1
+    ref = cacgmm_em_full_reference(y, aff, qf, iterations=1, **kwargs)
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+    torch.testing.assert_close(out[0], ref[0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(out[1], ref[1], atol=1e-4, rtol=0)
+    torch.testing.assert_close(out[3], ref[3], atol=2e-3, rtol=0)
+    assert bool((out[3][3:9, 1] == 0).all())
+
+
+def test_trainer_with_saliency_and_mask_launches_the_whole_fit(cuda):
+    """fit(saliency=..., source_activity_mask=...) at T=304 runs K2 once
+    on the card (it raised NotImplementedError before the kernel took the
+    two extras) and agrees with the twin: one iteration tightly (both
+    Jacobis cold), three by the argmax of the posteriors (the kernel's
+    later Jacobis are warm-started)."""
+    from pb_bss_tpu_torch.models.cacgmm import CACGMMTrainer
+    g = torch.Generator(cuda).manual_seed(10)
+    Y = torch.randn((65, 304, 6), dtype=torch.complex64, device=cuda,
+                    generator=g)
+    aff = torch.rand((65, 3, 304), device=cuda, generator=g)
+    aff = aff / aff.sum(-2, keepdim=True)
+    sal = 0.2 + 0.8 * torch.rand((65, 304), device=cuda, generator=g)
+    mask = torch.rand((65, 3, 304), device=cuda, generator=g) > 0.2
+    mask[:, 0] |= ~mask.any(1)
+    kwargs = dict(initialization=aff, saliency=sal,
+                  source_activity_mask=mask)
+    for iterations in (1, 3):
+        before = cacgmm_em_full.launches
+        model, posterior = CACGMMTrainer().fit_predict_model(
+            Y, iterations=iterations, **kwargs)
+        torch.cuda.synchronize()
+        assert cacgmm_em_full.launches == before + 1
+        twin, twin_posterior = CACGMMTrainer().fit_predict_model(
+            Y.cpu(), iterations=iterations, use_fused_em=True,
+            **{k: v.cpu() for k, v in kwargs.items()})
+        assert bool((posterior[~mask] == 0).all())
+        if iterations == 1:
+            torch.testing.assert_close(model.weight.cpu(), twin.weight,
+                                       atol=1e-5, rtol=0)
+            torch.testing.assert_close(posterior.cpu(), twin_posterior,
+                                       atol=2e-3, rtol=0)
+        agree = (posterior.argmax(-2).cpu() == twin_posterior.argmax(-2))
+        assert agree.float().mean() > 0.99
+
+
+def _watson_close(out, ref, *, weight, kappa_rtol, overlap, aff=None):
+    torch.testing.assert_close(out[0], ref[0], atol=weight, rtol=0)
+    torch.testing.assert_close(out[2], ref[2], rtol=kappa_rtol, atol=1e-3)
+    inner = torch.einsum('...d,...d->...', out[1].conj(), ref[1]).abs()
+    assert inner.min() > 1 - overlap, inner.min()
+    if aff is not None:
+        torch.testing.assert_close(out[3], ref[3], atol=aff, rtol=0)
+
+
+@pytest.mark.parametrize('D,K,T,saliency', [
+    (6, 3, 304, False), (6, 3, 304, True), (3, 2, 777, False),
+    (8, 4, 150, False), (16, 3, 100, False)])
+def test_watson_whole_fit_kernel_matches_plain(cuda, D, K, T, saliency):
+    """K6 against its twin: one (cold) iteration tightly; 20 iterations
+    (warm Jacobi in the kernel) by the argmax of the posteriors."""
+    from pb_bss_tpu_torch.ops.cwmm_loop import (
+        cwmm_em_full, cwmm_em_full_reference)
+    y, aff = _unit_norm_mixture(33, D, K, T, cuda)
+    sal = None
+    if saliency:
+        g = torch.Generator(cuda).manual_seed(11)
+        sal = 0.2 + 0.8 * torch.rand((33, T), device=cuda, generator=g)
+    before = cwmm_em_full.launches
+    out = cwmm_em_full(y, aff, iterations=1, warm_sweeps=2, saliency=sal)
+    torch.cuda.synchronize()
+    assert cwmm_em_full.launches == before + 1
+    ref = cwmm_em_full_reference(y, aff, iterations=1, saliency=sal)
+    # one cold iteration: f32 rounding of two Jacobi and E-step orderings;
+    # kappa through the steep table
+    _watson_close(out, ref, weight=1e-5, kappa_rtol=1e-3, overlap=1e-4,
+                  aff=2e-3)
+    out = cwmm_em_full(y, aff, iterations=20, warm_sweeps=2, saliency=sal)
+    ref = cwmm_em_full_reference(y, aff, iterations=20, saliency=sal)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+    agree = (out[3].argmax(-2) == ref[3].argmax(-2)).float().mean()
+    assert agree > 0.9, agree
+
+
+@pytest.mark.parametrize('mode', ['from_init', 'step', 'step_fc'])
+def test_watson_stream_kernel_one_pass_matches_plain(cuda, mode):
+    from pb_bss_tpu_torch.models.complex_watson import ComplexWatson
+    from pb_bss_tpu_torch.ops.mm_stream import mm_stats, mm_stats_reference
+    N, D, K, T = 66, 6, 3, 1777
+    y, aff = _unit_norm_mixture(N, D, K, T, cuda)
+    g = torch.Generator(cuda).manual_seed(12)
+    sal = 0.2 + 0.8 * torch.rand((N, T), device=cuda, generator=g)
+    if mode == 'from_init':
+        kwargs = dict(affiliation=aff)
+    else:
+        m = torch.randn((N, K, D), dtype=torch.complex64, device=cuda,
+                        generator=g)
+        m = m / torch.linalg.vector_norm(m, dim=-1, keepdim=True)
+        kappa = 1. + 30. * torch.rand((N, K), device=cuda, generator=g)
+        rows = 2 if mode == 'step_fc' else N
+        weight = torch.rand((rows, K), device=cuda, generator=g) + 0.2
+        kwargs = dict(mode=m, concentration=kappa,
+                      log_norm=ComplexWatson.log_norm_tran_vu(kappa, D),
+                      weight=weight / weight.sum(-1, keepdim=True),
+                      bins_per_weight=N // rows)
+    before = mm_stats.launches
+    s_k, a_k = mm_stats(y, saliency=sal, **kwargs)
+    torch.cuda.synchronize()
+    assert mm_stats.launches == before + 1
+    s_p, a_p = mm_stats_reference(y, saliency=sal, **kwargs)
+    # f32 sums over T in two orders: 1e-4 of the largest entry
+    assert (s_k - s_p).abs().max() <= 1e-4 * s_p.abs().max()
+    assert torch.equal(s_k, s_k.conj().transpose(-1, -2))
+    torch.testing.assert_close(a_k, a_p, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize('route', ['whole', 'fc', 'long'])
+def test_cwmm_trainer_routes_to_the_watson_kernels(cuda, route):
+    """'auto' on a CUDA tensor: per-bin weights inside K6's gate launch
+    K6 once; frequency-constant weights, or T past the gate, launch K7
+    once per iteration with K1 in every M-step finish."""
+    from pb_bss_tpu_torch.models.cwmm import CWMMTrainer
+    from pb_bss_tpu_torch.ops.cwmm_loop import cwmm_em_full
+    from pb_bss_tpu_torch.ops.eigh import eigh_jacobi
+    from pb_bss_tpu_torch.ops.mm_stream import mm_stats
+    T = 3900 if route == 'long' else 300
+    g = torch.Generator(cuda).manual_seed(13)
+    Y = torch.randn((65, T, 6), dtype=torch.complex64, device=cuda,
+                    generator=g)
+    kwargs = dict(weight_constant_axis=(-3, -1)) if route == 'fc' else {}
+    before = (cwmm_em_full.launches, mm_stats.launches, eigh_jacobi.launches)
+    model, posterior = CWMMTrainer().fit(
+        Y, num_classes=3, iterations=5, _return_affiliation=True, **kwargs)
+    torch.cuda.synchronize()
+    after = (cwmm_em_full.launches, mm_stats.launches, eigh_jacobi.launches)
+    want = (1, 0, 0) if route == 'whole' else (0, 5, 5)
+    assert tuple(a - b for a, b in zip(after, before)) == want
+    assert torch.isfinite(model.complex_watson.concentration).all()
+    assert torch.isfinite(posterior).all()

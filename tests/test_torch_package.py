@@ -24,8 +24,10 @@ from pb_bss_tpu_torch import (cli, permutation_alignment, pipeline)
 from pb_bss_tpu_torch.evaluation import module_si_sdr
 from pb_bss_tpu_torch.extraction import beamformer, beamformer_wrapper
 from pb_bss_tpu_torch.models import (
-    base, cacgmm, complex_angular_central_gaussian, mixture_model_utils)
-from pb_bss_tpu_torch.ops import _build, em_loop, gev, linalg
+    base, cacgmm, complex_angular_central_gaussian, complex_watson, cwmm,
+    mixture_model_utils)
+from pb_bss_tpu_torch.ops import (
+    _build, cwmm_loop, em_loop, gev, linalg, mm_stream)
 from pb_bss_tpu_torch.testing import dummy_data
 from pb_bss_tpu_torch.transform import stft_module
 assert 'jax' not in sys.modules, 'jax was imported'
@@ -42,8 +44,14 @@ assert out[3].shape == (4, 3, 20)
 a = torch.randn((5, 6, 6), dtype=torch.complex64, generator=g)
 phi = a @ a.conj().transpose(-1, -2)
 assert gev.gev(phi, phi + torch.eye(6)).shape == (5, 6)
+out = cwmm_loop.cwmm_em_full(y, aff, iterations=2)
+assert out[3].shape == (4, 3, 20)
+out = mm_stream.cwmm_em_long(y, aff, iterations=2)
+assert out[1].shape == (4, 3, 6)
 assert em_loop.cacgmm_em_full.launches == 0
 assert gev.gev.launches == 0
+assert cwmm_loop.cwmm_em_full.launches == 0
+assert mm_stream.mm_stats.launches == 0
 print('ok')
 '''
 

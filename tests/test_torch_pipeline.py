@@ -52,21 +52,51 @@ def test_separate_quality_matches_jax(scenario, beamformer, metric):
     assert (ours > 5.0).all(), ours
 
 
-def test_separate_batch_equals_separate_per_utterance(scenario):
-    observation, _ = scenario
+@pytest.mark.parametrize('beamformer,metric', [
+    (None, si_sdr), ('gev+ban', si_sdr_stft)])
+def test_separate_cwmm_quality_matches_jax(scenario, beamformer, metric):
+    """model='cwmm': the complex Watson mixture in place of the cACGMM,
+    held like the cACGMM path by the best estimate per speaker."""
+    observation, images = scenario
+    out = separate(torch.as_tensor(observation), iterations=ITERATIONS,
+                   beamformer=beamformer, model='cwmm')
+    assert out.shape == (3, NUM_SAMPLES) and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    ref = np.array(jax_separate(jnp.asarray(observation),
+                                iterations=ITERATIONS, beamformer=beamformer,
+                                model='cwmm'))
+    ours = metric(images[:, None], out[None].double()).max(-1).values
+    theirs = metric(images[:, None],
+                    torch.as_tensor(ref)[None].double()).max(-1).values
+    # measured within 1.1 dB of each other here; different random
+    # initializations, so allow 3 dB
+    assert ((ours - theirs).abs() < 3.0).all(), (ours, theirs)
+    assert (ours > 5.0).all(), ours
+
+
+def _check_batch_equals_single(observation, model):
     observations = torch.stack([
         torch.as_tensor(observation[:, :8000]),
         torch.as_tensor(observation[:, 8000:])])
     batched = separate_batch(observations, iterations=5,
-                             beamformer='gev+ban')
+                             beamformer='gev+ban', model=model)
     generators = utterance_generators(torch.Generator().manual_seed(0), 2,
                                       'cpu')
     for i in range(2):
         single = separate(observations[i], iterations=5,
-                          beamformer='gev+ban', generator=generators[i])
+                          beamformer='gev+ban', generator=generators[i],
+                          model=model)
         # same initialization; batched vs unbatched f32 products only
         torch.testing.assert_close(batched[i], single, atol=1e-4,
                                    rtol=1e-3)
+
+
+def test_separate_batch_equals_separate_per_utterance(scenario):
+    _check_batch_equals_single(scenario[0], 'cacgmm')
+
+
+def test_separate_batch_cwmm_equals_separate_per_utterance(scenario):
+    _check_batch_equals_single(scenario[0], 'cwmm')
 
 
 def test_cpu_run_launches_no_kernel(scenario):
@@ -79,7 +109,7 @@ def test_cpu_run_launches_no_kernel(scenario):
 
 def test_unported_options_raise(scenario):
     observation = torch.as_tensor(scenario[0][:, :2000])
-    for kwargs in (dict(model='cwmm'), dict(refine='fca'),
+    for kwargs in (dict(model='cbmm'), dict(refine='fca'),
                    dict(beamformer='mvdr_souden')):
         with pytest.raises(NotImplementedError):
             separate(observation, iterations=1, **kwargs)
@@ -106,3 +136,36 @@ def test_cli_refuses_a_missing_gpu(scenario, tmp_path, monkeypatch):
     wavfile.write(wav, 8000, np.zeros((100, 6), np.int16))
     with pytest.raises(SystemExit, match='no CUDA device'):
         cli.main([str(wav)])
+
+
+@pytest.mark.slow
+def test_cwmm_quality_on_the_smoke_utterances(capsys):
+    """The numbers behind chip_smoke.py's CWMM floors: separate_batch(
+    model='cwmm') of the smoke's eight 4.8 s utterances (20 iterations,
+    'gev+ban') on the CPU, beside JAX's separate(model='cwmm') on each.
+    Per-frequency SI-SDR of the best estimate per speaker."""
+    from pb_bss_tpu_torch.testing import low_reverberation_data as data_of
+    data = [data_of(seed=s) for s in range(8)]
+    observations = np.stack([d['observation'] for d in data]).astype(
+        np.float32)
+    images = torch.as_tensor(np.stack([d['speech_image'][:, 0]
+                                       for d in data]))
+    ours = separate_batch(torch.as_tensor(observations), iterations=20,
+                          beamformer='gev+ban', model='cwmm')
+    theirs = torch.stack([torch.as_tensor(np.array(jax_separate(
+        jnp.asarray(o), iterations=20, beamformer='gev+ban', model='cwmm')))
+        for o in observations])
+    scores = {name: si_sdr_stft(images[:, :, None],
+                                out.double()[:, None]).max(-1).values
+              for name, out in (('port', ours), ('jax', theirs))}
+    with capsys.disabled():
+        for name, s in scores.items():
+            print(f'\n{name}: per speaker {s.numpy().round(2).tolist()}; '
+                  f'batch means {s.mean(0).numpy().round(2).tolist()}; '
+                  f'worst {s.min().item():.2f} dB')
+    assert ((scores['port'].mean(0) - scores['jax'].mean(0)).abs()
+            < 3.0).all()
+    # chip_smoke.py's floors (CWMM_MEAN_FLOOR_DB, CWMM_SINGLE_FLOOR_DB)
+    # sit below the port's numbers here
+    assert (scores['port'].mean(0) >= 4.5).all()
+    assert (scores['port'] >= -3.0).all()
