@@ -26,7 +26,13 @@ counters reset just before and read just after:
   4.8 s utterances and of the 60 s recordings (whole-fit Watson EM
   kernel, GEV kernel), ``CWMMTrainer.fit`` at T=4000 and with
   frequency-constant weights (streamed Watson statistics kernel, Jacobi
-  kernel).
+  kernel);
+* the complex Bingham mixture: ``separate_batch(model='cbmm')`` of the
+  4.8 s utterances (whole-fit Bingham EM kernel, GEV kernel), the
+  warm-start recipe from cACGMM posteriors and its control,
+  ``CBMMTrainer.fit`` at T=4000 and with frequency-constant weights
+  (streamed Bingham statistics, Jacobi and chord-solve kernels) and its
+  scan path with an inline aligner (Jacobi and chord-solve kernels).
 
 It checks finiteness and separation quality, and times kernels and
 pipeline with CUDA events. Prints a JSON line of per-kernel results
@@ -800,6 +806,369 @@ def check_watson_stream_fit(B, F, D, K, T, seed, iterations=10,
     return errors
 
 
+def bingham_moments(B, D, seed):
+    """(B, D) sorted, spaced float32 moments (unit trace) on the card."""
+    import numpy as np
+    import torch
+    from pb_bss_tpu_torch.models.complex_bingham import (
+        _remove_duplicate_eigenvalues)
+    rng = np.random.default_rng(seed)
+    s = np.sort(rng.dirichlet(np.full(D, 0.7), size=B), -1)
+    return _remove_duplicate_eigenvalues(
+        torch.as_tensor(s, dtype=torch.float32, device='cuda'))[1]
+
+
+def bingham_residual(lam, s):
+    """max_d |grad log Z(lam) - s| per problem (the twin's cascade)."""
+    from pb_bss_tpu_torch.ops.bingham import grad_cascade
+    return (grad_cascade(lam)[0] - s).abs().max(-1).values
+
+
+def check_bingham(B, D, seed, max_concentration=math.inf):
+    """K8 against its twin: a cold solve (three launches from -1/s) and a
+    warm one (one 16-step launch from the twin's cold solution perturbed
+    by 5%), held by the residual |grad log Z - s| (the chord fixed point
+    whatever the finite-difference Jacobian's ulps) and the solutions
+    outside the saturated tail. Returns the warm solve's max abs
+    eigenvalue error where |lambda| < 300."""
+    import torch
+    from pb_bss_tpu_torch.models.complex_bingham import find_eigenvalues
+    from pb_bss_tpu_torch.ops.bingham import (
+        bingham_chord_solve, bingham_chord_solve_reference)
+    s = bingham_moments(B, D, seed)
+    g = torch.Generator('cuda').manual_seed(seed)
+    kw = dict(max_concentration=max_concentration)
+    cold_k = find_eigenvalues(s, use_pallas=True, **kw)
+    cold_p = find_eigenvalues(s, _chord=bingham_chord_solve_reference, **kw)
+    x0 = cold_p * (1 + 0.05 * torch.randn((B, 1), device='cuda',
+                                          generator=g))
+    x0 = torch.sort(torch.cat([x0[:, :-1], torch.zeros_like(x0[:, :1])],
+                              -1), -1).values
+    warm_k = find_eigenvalues(s, warm_start=x0, iterations=16,
+                              use_pallas=True, **kw)
+    warm_p = find_eigenvalues(s, warm_start=x0, iterations=16,
+                              _chord=bingham_chord_solve_reference, **kw)
+    sync()
+    label = (f'B={B} D={D}'
+             f'{f" max_concentration={max_concentration:g}" if math.isfinite(max_concentration) else ""}')
+    worst = 0.
+    for name, k, p in (('cold', cold_k, cold_p), ('warm', warm_k, warm_p)):
+        r_k, r_p = bingham_residual(k, s), bingham_residual(p, s)
+        well = p.abs().max(-1).values < 300
+        err = (k - p)[well].abs().max().item() if bool(well.any()) else 0.
+        rel = ((k - p).abs() / (1 + p.abs())).max(-1).values
+        ordered = bool((torch.diff(k, dim=-1) >= 0).all())
+        log(f'K8 {name} {label}: residual median/max kernel '
+            f'{r_k.median().item():.2e}/{r_k.max().item():.2e} twin '
+            f'{r_p.median().item():.2e}/{r_p.max().item():.2e}; '
+            f'rel err median {rel.median().item():.2e}; max|lam_k - lam_p| '
+            f'(|lam| < 300) {err:.2e}; ascending {ordered}')
+        if not bool(torch.isfinite(k).all()) or not ordered:
+            fail(f'K8 {name} at {label}: non-finite or unordered output')
+        if math.isfinite(max_concentration):
+            # clipped solutions: the floor binds, the residual does not
+            # vanish; the kernel and the twin clip alike
+            if not (k.min().item() >= -max_concentration - 1e-2
+                    and rel.median().item() < 1e-3):
+                fail(f'K8 {name} bounded mismatch at {label}')
+        elif not (r_k.median() < 2 * max(r_p.median().item(), 1e-5)
+                  and r_k.max() < 3 * max(r_p.max().item(), 1e-3)
+                  and rel.median().item() < 1e-3):
+            fail(f'K8 {name} residual or solution mismatch at {label}')
+        if name == 'warm':
+            worst = err
+    return worst
+
+
+def bingham_state_errors(out, ref):
+    """(max |weight_k - weight_p|, max |lam_k - lam_p| / (1 + |lam_p|)
+    where |lam_p| < 300, the median of that ratio over all, min |v_k^H
+    v_p| over eigenvector columns) of two Bingham states (weight,
+    eigenvalues, eigenvectors, ...) over the classes with weight. A moment
+    <~ 1e-3 leaves its eigenvalue exponentially flat (saturated, |lambda|
+    in the hundreds or thousands), where two f32 solves part by rounding;
+    a silenced class has zero moments and no solution at all. Eigenvector
+    columns carry an arbitrary phase."""
+    import torch
+    err_w = (out[0] - ref[0]).abs().max().item()
+    live = ref[0] > 0
+    rel = ((out[1] - ref[1]).abs() / (1 + ref[1].abs()))[live]
+    well = (ref[1].abs() < 300)[live]
+    align = torch.einsum('...dk,...dk->...k', out[2].conj(),
+                         ref[2]).abs().min().item()
+    return (err_w, rel[well].max().item(), rel.median().item(), align)
+
+
+def cbmm_step_errors(out, ref):
+    """The errors of one K9 iteration against the twin's: (weight, lam rel
+    where |lam| < 300, lam rel median, min |v_k^H v_p|, max / mean |aff
+    diff|, share of frames whose posterior parts by more than 0.1)."""
+    err_w, rel, rel_median, align = bingham_state_errors(out, ref)
+    d = (out[4] - ref[4]).abs()
+    return (err_w, rel, rel_median, align, d.max().item(), d.mean().item(),
+            (d > 0.1).float().mean().item())
+
+
+def cbmm_step_agrees(errors):
+    """The cold first iteration of the kernel and of the twin from the same
+    affiliations: the same statistics in two summation orders, two f32 Jacobi runs, the
+    same chord rounds whose finite-difference Jacobians differ by ulps
+    (FMA contraction). The posteriors follow the eigenvalues
+    exponentially, so they are held tightly on average and loosely frame
+    by frame."""
+    err_w, rel, rel_median, align, _, mean_a, far = errors
+    return (err_w < 1e-5 and rel < 5e-2 and rel_median < 1e-3
+            and align > 1 - 1e-3 and mean_a < 5e-3 and far < 1e-3)
+
+
+def fmt_step(errors):
+    return ('weight {:.2e} lam rel (|lam| < 300) {:.2e}, median {:.2e}; '
+            'min|v_k^H v_p| {:.6f} aff max {:.2e} mean {:.2e}, share > 0.1 '
+            '{:.1e}').format(*errors)
+
+
+def fit_disagreement(a, b):
+    """Share of frames whose posterior argmax differs between two fits."""
+    return (a[4].argmax(-2) != b[4].argmax(-2)).float().mean().item()
+
+
+def step_parts(a, b):
+    """(mean |aff_a - aff_b|, share of frames whose argmax differs)."""
+    return (a[4] - b[4]).abs().mean().item(), fit_disagreement(a, b)
+
+
+def check_cbmm(B, F, D, K, T, seed, saliency=False, silence=False,
+               max_concentration=math.inf, iterations=20, control=False):
+    """K9 against its twin (:func:`cbmm_em_step_reference` per iteration).
+
+    1. The cold first iteration: the weights, the eigenvalues, the
+       phase-aligned eigenvectors (a missed swap in the sort network shows
+       here) and the posteriors.
+    2. The warm iterations, one at a time: the kernel is deterministic, so
+       its fit of n iterations is the state (posterior, eigenvalues,
+       eigenvectors) its iteration n + 1 starts from. The twin's warm step
+       from that state (the rotation into the previous eigenbasis,
+       ``warm_sweeps`` sweeps, one chord round from the previous
+       eigenvalues) is held against the kernel's fit of n + 1 iterations,
+       at n = 1 and n = iterations - 1: the weights to 1e-5, the
+       eigenvalues to 1e-3 relative at the median, and the posteriors by
+       their mean |diff| and the share of frames whose argmax differs:
+       at most 2.5e-3 and 4e-3 (five times the cold iteration's parity at
+       the slice shape) plus four times what the same twin step gives on
+       y (1 + 2^-22), an ulp-level change of the input (the sensitivity
+       of the step itself, large at D=8, K=4, T=150). A few (bin, class)
+       problems with saturated eigenvalues (|lambda| in the thousands,
+       set by moments <~ 1e-3) or nearly equal moments part by rounding
+       alone, so no maximum is held. The control, the same step with no
+       sweep after the rotation (the eigenvectors frozen: a wrong warm
+       M-step), must exceed those limits at n = 1, where the basis moves
+       most.
+    3. The whole fit of ``iterations``: the same saturation makes the EM
+       itself sensitive to rounding, so two fits part with the
+       iterations. The twin on y (1 + 2^-22) measures that: the kernel may
+       part from the twin by at most twice as many frames (argmax of the
+       posteriors) plus 1%. With ``control``, the twin whose warm steps
+       freeze the eigenvectors must part by more.
+    4. The kernel's last, unclipped E-step is CBMM.predict of the model it
+       returns, and a silenced class keeps weight 0.
+
+    Returns the first iteration's max abs affiliation error."""
+    import torch
+    from pb_bss_tpu_torch.models.cbmm import CBMM
+    from pb_bss_tpu_torch.models.complex_bingham import ComplexBingham
+    from pb_bss_tpu_torch.ops.cbmm_loop import (
+        cbmm_em_full, cbmm_em_full_reference, cbmm_em_step_reference)
+    y, aff, sal = watson_inputs(B, F, D, K, T, seed, saliency, silence)
+    kw = dict(saliency=sal, max_concentration=max_concentration)
+    label = (f'B={B} F={F} D={D} K={K} T={T}'
+             f'{" +saliency" if saliency else ""}'
+             f'{" +class silenced in 16 bins" if silence else ""}'
+             f'{f" mc={max_concentration:g}" if math.isfinite(max_concentration) else ""}')
+    fits = {n: cbmm_em_full(y, aff, iterations=n, **kw)
+            for n in (1, 2, iterations - 1, iterations)}
+    errors = cbmm_step_errors(
+        fits[1], cbmm_em_step_reference(y, aff, None, **kw))
+    sync()
+    log(f'K9 1 iter  {label}: {fmt_step(errors)}')
+    if not (cbmm_step_agrees(errors)
+            and all(bool(torch.isfinite(x).all()) for x in fits[1])):
+        fail(f'K9 one-iteration mismatch at {label}')
+    err_a = errors[4]
+    for n in (1, iterations - 1):
+        start = fits[n]
+
+        def step(y_, warm_sweeps=2):
+            return cbmm_em_step_reference(y_, start[4], start[1:3],
+                                          warm_sweeps=warm_sweeps, **kw)
+        twin = step(y)
+        errors = cbmm_step_errors(fits[n + 1], twin)
+        parts = step_parts(fits[n + 1], twin)
+        rounding = step_parts(step(y * (1 + 2 ** -22)), twin)
+        frozen = step_parts(step(y, 0), twin)
+        limit = (4 * rounding[0] + 2.5e-3, 4 * rounding[1] + 4e-3)
+        sync()
+        log(f'K9 warm step {n} -> {n + 1} {label}: {fmt_step(errors)}; '
+            f'posteriors mean |diff| / argmax parted: kernel {parts[0]:.2e}'
+            f' / {parts[1]:.2e}, twin on y (1 + 2^-22) {rounding[0]:.2e} / '
+            f'{rounding[1]:.2e} (limits {limit[0]:.2e} / {limit[1]:.2e}), '
+            f'control (no sweep) {frozen[0]:.2e} / {frozen[1]:.2e}')
+        if not (errors[0] < 1e-5 and errors[2] < 1e-3
+                and parts[0] <= limit[0] and parts[1] <= limit[1]):
+            fail(f'K9 warm step {n} -> {n + 1} mismatch at {label}')
+        if n == 1 and frozen[0] <= limit[0] and frozen[1] <= limit[1]:
+            fail(f'K9 warm step {n} -> {n + 1} at {label}: the control '
+                 'stays within the limits, which would not catch a wrong '
+                 'warm M-step')
+    out_k = fits[iterations]
+    out_p = cbmm_em_full_reference(y, aff, iterations=iterations, **kw)
+    nudged = cbmm_em_full_reference(y * (1 + 2 ** -22), aff,
+                                    iterations=iterations, **kw)
+    parted = fit_disagreement(out_k, out_p)
+    rounding = fit_disagreement(nudged, out_p)
+    limit = 2 * rounding + 0.01
+    finite = all(bool(torch.isfinite(x).all()) for x in out_k)
+    wsum = (out_k[0].sum(-1) - 1).abs().max().item()
+    silenced = (out_k[0][5:21, 1].abs().max().item() if silence else 0.)
+    model = CBMM(weight=out_k[0][..., None], complex_bingham=ComplexBingham(
+        covariance_eigenvectors=out_k[2], covariance_eigenvalues=out_k[1]))
+    predicted = model._predict(y.transpose(-1, -2))
+    own = (predicted.argmax(-2) == out_k[4].argmax(-2)).float().mean().item()
+    own_err = (predicted - out_k[4]).abs().mean().item()
+    frozen = None
+    if control:
+        frozen = fit_disagreement(cbmm_em_full_reference(
+            y, aff, iterations=iterations, warm_sweeps=0, **kw), out_p)
+    sync()
+    log(f'K9 {iterations} iter {label}: finite {finite} |sum w - 1| '
+        f'{wsum:.2e}; frames whose argmax parts from the twin: kernel '
+        f'{parted:.4f}, twin on y (1 + 2^-22) {rounding:.4f} (limit '
+        f'{limit:.4f})'
+        f'{f", control (frozen eigenvectors) {frozen:.4f}" if control else ""}'
+        f'; argmax agreement with predict {own:.4f} (mean |diff| '
+        f'{own_err:.1e})'
+        f'{f"; silenced weight {silenced:.1e}" if silence else ""}')
+    # predict in PyTorch against the kernel's E-step: the same model, the
+    # quadratic forms and log norms in two f32 orders (the log norm of the
+    # model re-spaces and max-shifts the eigenvalues)
+    if not (finite and wsum < 1e-4 and own > 0.99 and own_err < 2e-3
+            and silenced == 0. and parted <= limit):
+        fail(f'K9 {iterations}-iteration check failed at {label}')
+    if control and frozen <= limit:
+        fail(f'K9 {iterations}-iteration check at {label}: the control '
+             'stays within the limit, which would not catch a wrong warm '
+             'M-step')
+    return err_a
+
+
+def check_cbmm_conditioned(N, D, K, T, seed, iterations=20):
+    """K9 against its twin over ``iterations`` on isotropic observations,
+    whose moments stay near 1/D and whose eigenvalues stay well inside the
+    domain (|lambda| < ~50), so the fit is not sensitive to rounding and
+    the kernel must follow the twin over all the iterations (argmax
+    agreement 0.999 over 20 iterations; measured on one H100)."""
+    import torch
+    from pb_bss_tpu_torch.ops.cbmm_loop import (
+        cbmm_em_full, cbmm_em_full_reference)
+    g = torch.Generator('cuda').manual_seed(seed)
+    y = torch.randn((N, D, T), dtype=torch.complex64, device='cuda',
+                    generator=g)
+    y = y / torch.linalg.vector_norm(y, dim=-2, keepdim=True)
+    aff = torch.rand((N, K, T), device='cuda', generator=g)
+    aff = aff / aff.sum(-2, keepdim=True)
+    out_k = cbmm_em_full(y, aff, iterations=iterations)
+    out_p = cbmm_em_full_reference(y, aff, iterations=iterations)
+    sync()
+    agree = (out_k[4].argmax(-2) == out_p[4].argmax(-2)).float().mean().item()
+    err_w = (out_k[0] - out_p[0]).abs().max().item()
+    mean_a = (out_k[4] - out_p[4]).abs().mean().item()
+    log(f'K9 {iterations} iter isotropic N={N} D={D} K={K} T={T}: argmax '
+        f'agreement {agree:.4f}; max|w_k - w_p| {err_w:.2e}; mean|aff_k - '
+        f'aff_p| {mean_a:.2e}')
+    if not (agree > 0.99 and err_w < 1e-2 and mean_a < 2e-3):
+        fail(f'K9 warm iterations part from the twin at {(N, D, K, T)}')
+
+
+def check_bingham_stream(B, F, D, K, T, seed, weight_mode='per_bin',
+                         saliency=False):
+    """One Bingham K7 statistics pass in each mode (from-init, then step
+    with the posterior clip from the twin's first M-step) against its
+    plain twin. Returns the max abs error of the scatter sums."""
+    import torch
+    from pb_bss_tpu_torch.models.complex_bingham import ComplexBingham
+    from pb_bss_tpu_torch.ops.mm_stream import (
+        cbmm_em_long_reference, mm_stats, mm_stats_reference)
+    y, aff, sal = watson_inputs(B, F, D, K, T, seed, saliency)
+    N = B * F
+    weight, lam, vec = cbmm_em_long_reference(
+        y.reshape(B, F, D, T), aff.reshape(B, F, K, T), iterations=1,
+        weight_mode=weight_mode,
+        saliency=None if sal is None else sal.reshape(B, F, T))
+    lam, vec = lam.reshape(N, K, D), vec.reshape(N, K, D, D)
+    log_c = ComplexBingham(covariance_eigenvectors=vec,
+                           covariance_eigenvalues=lam).log_norm()
+    modes = {
+        'from_init': dict(affiliation=aff),
+        'step': dict(eigenvectors=vec, eigenvalues=lam, log_norm=log_c,
+                     weight=weight.reshape(-1, K), affiliation_eps=1e-3,
+                     bins_per_weight=1 if weight_mode == 'per_bin' else F)}
+    worst = 0.
+    for name, kwargs in modes.items():
+        s_k, a_k = mm_stats(y, saliency=sal, **kwargs)
+        s_p, a_p = mm_stats_reference(y, saliency=sal, **kwargs)
+        sync()
+        err = (s_k - s_p).abs().max().item()
+        scale = s_p.abs().max().item()
+        rel_a = ((a_k - a_p).abs() / a_p.abs().clamp(min=1e-30)).max().item()
+        herm = (s_k - s_k.conj().transpose(-1, -2)).abs().max().item()
+        log(f'K7 bingham {name} B={B} F={F} D={D} K={K} T={T} {weight_mode}'
+            f'{" +saliency" if saliency else ""}: max|S_k - S_p| {err:.2e} '
+            f'(max|S| {scale:.1f}); asum rel {rel_a:.2e}; |S - S^H| '
+            f'{herm:.1e}')
+        # f32 sums over thousands of frames in two orders, and (step
+        # mode) the full quadratic form against the twin's V^H-free
+        # product: 1e-4 of the largest entry
+        if not (err <= 1e-4 * scale and rel_a <= 1e-4 and herm == 0.
+                and bool(torch.isfinite(s_k).all())):
+            fail(f'K7 bingham {name} mismatch at {(B, F, D, K, T, weight_mode)}')
+        worst = max(worst, err)
+    return worst
+
+
+def check_bingham_stream_fit(B, F, D, K, T, seed, iterations=5,
+                             weight_mode='per_bin'):
+    """The whole streamed Bingham EM (K7 + K1 + K8 and the finish)
+    against its plain twin (the statistics twin, the plain Jacobi, the
+    chord solve's twin), held by the argmax agreement of the final
+    posteriors. Returns the agreement."""
+    import torch
+    from pb_bss_tpu_torch.models.cbmm import CBMM
+    from pb_bss_tpu_torch.models.complex_bingham import ComplexBingham
+    from pb_bss_tpu_torch.ops.mm_stream import (
+        cbmm_em_long, cbmm_em_long_reference)
+    y, aff, _ = em_inputs(B, F, D, K, T, seed)
+    masks = []
+    for fit in (cbmm_em_long, cbmm_em_long_reference):
+        weight, lam, vec = fit(y, aff, iterations=iterations,
+                               weight_mode=weight_mode)
+        w = weight[..., None] if weight_mode == 'per_bin' \
+            else weight[..., None, :, None]
+        model = CBMM(weight=w, complex_bingham=ComplexBingham(
+            covariance_eigenvectors=vec, covariance_eigenvalues=lam))
+        masks.append(model._predict(y.transpose(-1, -2)).argmax(-2))
+        if fit is cbmm_em_long:
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (weight, lam, vec))
+            wsum = (weight.sum(-1) - 1).abs().max().item()
+    sync()
+    agree = (masks[0] == masks[1]).float().mean().item()
+    log(f'K7 bingham fit B={B} F={F} D={D} K={K} T={T} {weight_mode}, '
+        f'{iterations} iter: finite {finite} |sum w - 1| {wsum:.2e} argmax '
+        f'agreement {agree:.4f}')
+    if not (finite and wsum < 1e-4 and agree > 0.9):
+        fail(f'K7 bingham fit check failed at {(B, F, D, K, T, weight_mode)}')
+    return agree
+
+
 def phase_kernels():
     results = {}
     results['em_bench'] = check_em(8, 513, 6, 3, 300, seed=1)
@@ -856,6 +1225,29 @@ def phase_kernels():
     check_watson_stream_fit(1, 513, 6, 3, 4000, seed=58)
     check_watson_stream_fit(8, 513, 6, 3, 300, seed=59, weight_mode='fc',
                             iterations=20)
+    # K8 at the streamed route's M-step shape (4 recordings x 257 bins x
+    # 3 classes), cold and warm, D in {3, 6, 8}, and a finite bound
+    results['bingham'] = check_bingham(4 * 257 * 3, 6, seed=70)
+    check_bingham(4 * 257 * 3, 3, seed=71)
+    check_bingham(4 * 257 * 3, 8, seed=72)
+    check_bingham(4 * 257 * 3, 6, seed=73, max_concentration=50.)
+    # K9: the slice and bench shapes, saliency with a class silenced in
+    # 16 bins, a finite bound, odd shapes
+    results['cbmm_slice'] = check_cbmm(8, 257, 6, 3, 304, seed=74,
+                                       control=True)
+    check_cbmm(8, 513, 6, 3, 300, seed=75, saliency=True, silence=True)
+    check_cbmm(1, 65, 6, 3, 304, seed=76, max_concentration=50.)
+    check_cbmm(1, 65, 3, 2, 777, seed=77)
+    check_cbmm(1, 65, 8, 4, 150, seed=78)
+    check_cbmm_conditioned(8 * 257, 6, 3, 304, seed=86)
+    # the Bingham K7: the long-T config (F=513, T=4000), fc weights at the
+    # bench shape, saliency at an odd T; the whole streamed fit
+    results['bingham_stream'] = check_bingham_stream(1, 513, 6, 3, 4000,
+                                                     seed=79)
+    check_bingham_stream(8, 513, 6, 3, 300, seed=80, weight_mode='fc')
+    check_bingham_stream(2, 65, 6, 3, 1001, seed=81, saliency=True)
+    check_bingham_stream_fit(1, 513, 6, 3, 4000, seed=82)
+    check_bingham_stream_fit(8, 513, 6, 3, 300, seed=83, weight_mode='fc')
     return results
 
 
@@ -867,8 +1259,9 @@ def phase_guards():
     g = torch.Generator('cuda').manual_seed(0)
     obs = torch.randn((6, 8000), device='cuda', generator=g)
     for name, call in (
-            ("separate(model='cbmm') (K9)",
-             lambda: P.separate(obs, model='cbmm')),):
+            ("separate(refine='fca')", lambda: P.separate(obs, refine='fca')),
+            ("separate(beamformer='mvdr_souden')",
+             lambda: P.separate(obs, beamformer='mvdr_souden'))):
         try:
             call()
         except NotImplementedError as e:
@@ -987,12 +1380,16 @@ def long_recordings(first_seed, count):
 
 
 def counters():
+    """{name: wrapper} of every kernel's launch counter; ``mm_stats`` is
+    K7's, the streamed pass of both the Watson and the Bingham fits."""
     from pb_bss_tpu_torch.ops import (
-        cwmm_loop, eigh, em_estep, em_loop, em_step, em_stream, gev,
-        mm_stream)
+        bingham, cbmm_loop, cwmm_loop, eigh, em_estep, em_loop, em_step,
+        em_stream, gev, mm_stream)
     return {'cacgmm_em_full': em_loop.cacgmm_em_full,
             'cwmm_em_full': cwmm_loop.cwmm_em_full,
-            'cwmm_em_long': mm_stream.mm_stats,
+            'mm_stats': mm_stream.mm_stats,
+            'cbmm_em_full': cbmm_loop.cbmm_em_full,
+            'bingham_chord_solve': bingham.bingham_chord_solve,
             'gev': gev.gev,
             'eigh_jacobi': eigh.eigh_jacobi,
             'cacgmm_em_long': em_stream.e_stats,
@@ -1119,7 +1516,7 @@ def phase_cwmm():
     launches = read_counters()
     expect_launches(f"separate_batch(8 x {tuple(obs.shape[1:])}, 'gev+ban', "
                     "20 it, model='cwmm')", launches,
-                    {'cwmm_em_full': 1, 'cwmm_em_long': 0, 'gev': 2, **none})
+                    {'cwmm_em_full': 1, 'mm_stats': 0, 'gev': 2, **none})
     path = {'cwmm_em_full': launches['cwmm_em_full']}
     if not bool(torch.isfinite(out).all()):
         fail("separate_batch(model='cwmm') output is not finite")
@@ -1150,7 +1547,7 @@ def phase_cwmm():
         f"'gev+ban', 20 it): route {route}; {1e3 * seconds:.1f} ms host "
         'clock (the first call of this shape)')
     expect_launches('cwmm long path', launches,
-                    {'cwmm_em_full': 1, 'cwmm_em_long': 0, 'gev': 2, **none})
+                    {'cwmm_em_full': 1, 'mm_stats': 0, 'gev': 2, **none})
     if not bool(torch.isfinite(out).all()):
         fail("separate_batch(model='cwmm') on 60 s is not finite")
     scores = si_sdr_stft(images[:, :, None],
@@ -1174,11 +1571,11 @@ def phase_cwmm():
         sync()
         launches = read_counters()
         expect_launches(f'CWMMTrainer.fit {label}, {iterations} it',
-                        launches, {'cwmm_em_long': iterations,
+                        launches, {'mm_stats': iterations,
                                    'eigh_jacobi': iterations,
                                    'cwmm_em_full': 0, **none})
         path['cwmm_em_long'] = path.get('cwmm_em_long', 0) \
-            + launches['cwmm_em_long']
+            + launches['mm_stats']
         wsum = (model.weight.sum(-2) - 1).abs().max().item()
         finite = bool(torch.isfinite(model.complex_watson.concentration)
                       .all() and torch.isfinite(model.weight).all())
@@ -1188,6 +1585,149 @@ def phase_cwmm():
             f'{model.complex_watson.concentration.max().item():.3g}]')
         if not (finite and wsum < 1e-4):
             fail(f'CWMMTrainer.fit {label} is not finite or not normalized')
+    return path
+
+
+def phase_cbmm():
+    """The complex Bingham mixture on the card: separate_batch(model=
+    'cbmm') of the 4.8 s utterances (K9 once, K3 twice, no K7 or K8);
+    CBMMTrainer.fit at the long-T config (F=513, T=4000, 5 iterations: K7
+    5 passes, K1 in every M-step, K8 three launches for the cold first
+    solve and one per warm solve) and with frequency-constant weights at
+    the bench shape (20 iterations); the scan path (frequency-constant
+    weights with the inline DHTV aligner, which the kernels do not take:
+    K8 and K1 in every M-step); and the warm-start recipe's quality
+    against its control. Returns the launches of the path's kernels."""
+    import torch
+    import pb_bss_tpu_torch as P
+    from pb_bss_tpu_torch.evaluation import si_sdr_stft
+    from pb_bss_tpu_torch.models.cbmm import CBMMTrainer
+    from pb_bss_tpu_torch.permutation_alignment import (
+        DHTVPermutationAlignment)
+    # the CBMM quality floors and the CPU numbers behind them live beside
+    # the recipes, where the slow CPU test reads them too
+    from pb_bss_tpu_torch.testing.cbmm_quality import (
+        MEAN_FLOOR_DB as CBMM_MEAN_FLOOR_DB,
+        SINGLE_FLOOR_DB as CBMM_SINGLE_FLOOR_DB,
+        WARM_MEAN_FLOOR_DB as CBMM_WARM_MEAN_FLOOR_DB,
+        WARM_SINGLE_FLOOR_DB as CBMM_WARM_SINGLE_FLOOR_DB, cbmm_quality)
+    none = {'cacgmm_em_full': 0, 'cacgmm_em_long': 0, 'cwmm_em_full': 0}
+    path = dict.fromkeys(('cbmm_em_full', 'cbmm_em_long',
+                          'bingham_chord_solve'), 0)
+
+    def add(launches):
+        for k in path:
+            path[k] += launches['mm_stats' if k == 'cbmm_em_long' else k]
+
+    obs, images = load_utterances(range(8))
+    obs = obs.cuda()
+    sync()
+    reset_counters()
+    out = P.separate_batch(obs, num_classes=3, iterations=20,
+                           beamformer='gev+ban', model='cbmm')
+    sync()
+    launches = read_counters()
+    add(launches)
+    expect_launches(f"separate_batch(8 x {tuple(obs.shape[1:])}, 'gev+ban', "
+                    "20 it, model='cbmm')", launches,
+                    {'cbmm_em_full': 1, 'mm_stats': 0,
+                     'bingham_chord_solve': 0, 'gev': 2, **none})
+    # a bin where one class takes every frame leaves the other classes'
+    # noise PSD exactly 0, and the GEV beamformer of such a bin is
+    # non-finite in both packages (ROADMAP queue 3): the random start
+    # reaches that in some utterances (JAX's separate: 5 of these 8 on the
+    # CPU, the port's separate_batch 1)
+    finite = torch.isfinite(out).flatten(1).all(-1).cpu()
+    log(f"cbmm separate_batch: finite utterances {int(finite.sum())} of "
+        f'{len(finite)}')
+    if int(finite.sum()) < 5:
+        fail("separate_batch(model='cbmm') output is not finite in more "
+             'than 3 of 8 utterances')
+    scores = si_sdr_stft(images[finite][:, :, None],
+                         out.cpu().double()[finite][:, None]).max(-1).values
+    log('cbmm per-frequency SI-SDR (dB), best estimate per speaker, finite '
+        'utterances:', [[round(v, 2) for v in row] for row in scores.tolist()])
+    means = scores.mean(0)
+    log('cbmm batch mean per speaker:', [round(v, 2) for v in means.tolist()])
+    if not (bool((means >= CBMM_MEAN_FLOOR_DB).all())
+            and bool((scores >= CBMM_SINGLE_FLOOR_DB).all())):
+        fail(f'cbmm separation quality below the floor ({CBMM_MEAN_FLOOR_DB}'
+             f' dB mean, {CBMM_SINGLE_FLOOR_DB} dB single)')
+
+    for recipe, want in (('warm', {'cacgmm_em_full': 1}),
+                         ('random', {'cacgmm_em_full': 0})):
+        sync()
+        reset_counters()
+        scores = cbmm_quality(obs, images, recipe)
+        sync()
+        launches = read_counters()
+        add(launches)
+        expect_launches(f'cbmm {recipe} recipe, 8 x 4.8 s, 20 it', launches,
+                        {'cbmm_em_full': 1, 'gev': 2, **want})
+        means = scores.mean(0)
+        log(f'  cbmm {recipe} recipe SI-SDR per speaker (dB): '
+            f'{[[round(v, 2) for v in row] for row in scores.tolist()]}; '
+            f'batch means {[round(v, 2) for v in means.tolist()]}')
+        passed = (bool((means >= CBMM_WARM_MEAN_FLOOR_DB).all())
+                  and bool((scores >= CBMM_WARM_SINGLE_FLOOR_DB).all()))
+        if recipe == 'warm' and not bool(torch.isfinite(scores).all()):
+            fail('cbmm warm recipe: non-finite estimates')
+        if recipe == 'warm' and not passed:
+            fail(f'cbmm warm recipe below the floor ({CBMM_WARM_MEAN_FLOOR_DB}'
+                 f' dB mean, {CBMM_WARM_SINGLE_FLOOR_DB} dB single)')
+        if recipe == 'random' and passed:
+            fail('the cbmm control (random start) meets the warm-recipe '
+                 'floors: they would not catch a warm start not applied')
+
+    fc = dict(weight_constant_axis=(-3, -1))
+    for label, (B, F, T), iterations, kwargs in (
+            ('T=4000 (config 3e)', (1, 513, 4000), 5, {}),
+            ('fc B=8 F=513 T=300', (8, 513, 300), 20, fc)):
+        y, aff, _ = em_inputs(B, F, 6, 3, T, seed=84)
+        Y = y.transpose(-1, -2).contiguous()
+        if B == 1:
+            Y, aff = Y[0], aff[0]
+        sync()
+        reset_counters()
+        model = CBMMTrainer().fit(Y, initialization=aff,
+                                  iterations=iterations, **kwargs)
+        sync()
+        launches = read_counters()
+        add(launches)
+        expect_launches(f'CBMMTrainer.fit {label}, {iterations} it',
+                        launches, {'mm_stats': iterations,
+                                   'eigh_jacobi': iterations,
+                                   'bingham_chord_solve': 3 + iterations - 1,
+                                   'cbmm_em_full': 0, **none})
+        ev = model.complex_bingham.covariance_eigenvalues
+        wsum = (model.weight.sum(-2) - 1).abs().max().item()
+        finite = bool(torch.isfinite(ev).all()
+                      and torch.isfinite(model.weight).all())
+        log(f'  weight {tuple(model.weight.shape)}, |sum w - 1| {wsum:.2e}, '
+            f'finite {finite}, eigenvalue range [{ev.min().item():.4g}, '
+            f'{ev.max().item():.4g}]')
+        if not (finite and wsum < 1e-4):
+            fail(f'CBMMTrainer.fit {label} is not finite or not normalized')
+
+    # the scan path on the card: its M-step eigh and moment inversion
+    # launch K1 and K8
+    y, aff, _ = em_inputs(1, 257, 6, 3, 304, seed=85)
+    sync()
+    reset_counters()
+    model, posterior = CBMMTrainer().fit(
+        y[0].transpose(-1, -2), initialization=aff[0], iterations=5,
+        inline_permutation_aligner=DHTVPermutationAlignment.from_stft_size(
+            512), _return_affiliation=True, **fc)
+    sync()
+    launches = read_counters()
+    add(launches)
+    expect_launches('CBMMTrainer.fit fc + inline DHTV (scan path), F=257 '
+                    'T=304, 5 it', launches,
+                    {'bingham_chord_solve': 3 + 4, 'eigh_jacobi': 5,
+                     'cbmm_em_full': 0, 'mm_stats': 0, **none})
+    if not (bool(torch.isfinite(posterior).all()) and bool(torch.isfinite(
+            model.complex_bingham.covariance_eigenvalues).all())):
+        fail('the CBMM scan path on the card is not finite')
     return path
 
 
@@ -1345,8 +1885,27 @@ def cwmm_flops(frames, K, D, e_step=True, scatter=True):
     return frames * ((3 * D + 6 * (P - D) if scatter else 0) + K * per_class)
 
 
+# float32 operations of the Bingham EM pieces: the cascades of the moment
+# inversion (bingham.cascade_flops each; per (bin, class) the cold first
+# solve runs cold_rounds x (1 + (D - 1) + cold_steps) of them and each warm
+# solve 1 + (D - 1) + warm_steps, plus one for log c per iteration), the
+# full-form E-step and the scatter counted as em_flops counts the cACGMM's
+# (the same quadratic form over the upper triangle), the forms
+# V diag(lambda) V^H (8 D^3 per class), and the Jacobi.
+def bingham_flops(N, K, D, T, iterations, cold_rounds=3, cold_steps=10,
+                  warm_steps=16, sweeps=6, warm_sweeps=2):
+    from pb_bss_tpu_torch.ops.bingham import cascade_flops, solve_cascades
+    cascades = (solve_cascades(D, cold_rounds, cold_steps)
+                + (iterations - 1) * solve_cascades(D, 1, warm_steps)
+                + iterations)
+    return (N * K * cascades * cascade_flops(D)
+            + iterations * (em_flops(N * T, K, D) + N * K * 8 * D ** 3)
+            + jacobi_flops(N * K, D, sweeps) + (iterations - 1) * (
+                jacobi_flops(N * K, D, warm_sweeps) + N * K * 16 * D ** 3))
+
+
 def phase_timing(errors, launches, long_launches, fc_launches,
-                 cwmm_launches):
+                 cwmm_launches, cbmm_launches):
     import torch
     import pb_bss_tpu_torch as P
     from pb_bss_tpu_torch.ops.eigh import eigh_jacobi, eigh_jacobi_reference
@@ -1421,6 +1980,7 @@ def phase_timing(errors, launches, long_launches, fc_launches,
     fc_times = time_fc()
     estep_times = time_estep()
     cwmm_times = time_cwmm()
+    cbmm_times = time_cbmm()
 
     def e2e(batches, count, label, model='cacgmm'):
         """Host clock around synchronized separate_batch calls, distinct
@@ -1446,7 +2006,10 @@ def phase_timing(errors, launches, long_launches, fc_launches,
     e2e([long_recordings(first, 4)[0].cuda()
          for first in (1000, 2000, 3000)], 4, '60 s recording')
     e2e(short, 8, 'utterance (4.8 s)', model='cwmm')
-    profile_cwmm(short[1], long_recordings(2000, 4)[0].cuda())
+    e2e(short, 8, 'utterance (4.8 s)', model='cbmm')
+    profile_separate('cwmm', (('8 x 4.8 s', short[1]), (
+        '4 x 60 s', long_recordings(2000, 4)[0].cuda())))
+    profile_separate('cbmm', (('8 x 4.8 s', short[1]),))
 
     # the least time of each timed call, from the shapes of its inputs
     D, K = 6, 3
@@ -1501,6 +2064,15 @@ def phase_timing(errors, launches, long_launches, fc_launches,
         ('cwmm_em_long', 'mm_stream.cu', 'pallas_mm_stream.py:252',
          cwmm_launches['cwmm_em_long'], errors['watson_stream'],
          *cwmm_times['cwmm_em_long'], None),
+        ('bingham_chord_solve', 'bingham.cu', 'pallas_bingham.py:293',
+         cbmm_launches['bingham_chord_solve'], errors['bingham'],
+         *cbmm_times['bingham_chord_solve'], None),
+        ('cbmm_em_full', 'cbmm_loop.cu', 'pallas_cbmm_loop.py:338',
+         cbmm_launches['cbmm_em_full'], errors['cbmm_slice'],
+         *cbmm_times['cbmm_em_full'], None),
+        ('cbmm_em_long', 'mm_stream.cu', 'pallas_mm_stream.py:252',
+         cbmm_launches['cbmm_em_long'], errors['bingham_stream'],
+         *cbmm_times['cbmm_em_long'], None),
     ]
     kernels = []
     for (name, source, replaces, count, err, ms, plain, (bound_ms, by),
@@ -1725,29 +2297,129 @@ def time_cwmm():
     return out
 
 
-def profile_cwmm(short, long):
-    """Device time by kernel, wall time and the device's idle share of
-    one separate_batch(model='cwmm') call on 8 x 4.8 s and on 4 x 60 s
-    (after the e2e warm-up of the same shapes)."""
+def profile_separate(model, cases):
+    """Device time by kernel, wall time and the device's idle share of one
+    separate_batch(model=...) call per (label, observations) case (after
+    the e2e warm-up of the same shapes)."""
     import torch
     import pb_bss_tpu_torch as P
-    for label, obs in (('8 x 4.8 s', short), ('4 x 60 s', long)):
+    for label, obs in cases:
         P.separate_batch(obs, iterations=20, beamformer='gev+ban',
-                         model='cwmm')
+                         model=model)
         sync()
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             P.separate_batch(obs, iterations=20, beamformer='gev+ban',
-                             model='cwmm')
+                             model=model)
             sync()
             wall = 1e3 * (time.perf_counter() - t0)
         busy = device_times(prof, '')['all kernels'][0] / 1e3
-        log(f"profile separate_batch({label}, model='cwmm'): wall {wall:.2f} "
-            f'ms (profiled), device busy {busy:.2f} ms, idle share '
-            f'{1 - busy / wall:.3f}; device us (count) of the EM kernels '
-            f'{device_times(prof, "cwmm")}, GEV {device_times(prof, "gev")}')
+        log(f"profile separate_batch({label}, model='{model}'): wall "
+            f'{wall:.2f} ms (profiled), device busy {busy:.2f} ms, idle '
+            f'share {1 - busy / wall:.3f}; device us (count) of the EM '
+            f'kernels {device_times(prof, model)}, GEV '
+            f'{device_times(prof, "gev")}')
+
+
+def time_cbmm():
+    """K8 per warm 16-step launch at the streamed route's M-step shape
+    (4 x 257 bins x 3 classes), K9 per 20-iteration fit at the slice shape
+    (B=8, F=257, T=304) and at the bench shape (B=8, F=513, T=300), the
+    Bingham K7 per step-mode pass at the long-T config (F=513, T=4000),
+    each against its twin; and the streamed fit of config 3e (5
+    iterations) with its kernels against its twins. Returns {kernel: (ms,
+    plain_ms, bound)}."""
+    import torch
+    from pb_bss_tpu_torch.models.complex_bingham import (
+        ComplexBingham, find_eigenvalues)
+    from pb_bss_tpu_torch.ops.bingham import (
+        bingham_chord_solve, bingham_chord_solve_reference, cascade_flops,
+        solve_cascades)
+    from pb_bss_tpu_torch.ops.cbmm_loop import (
+        cbmm_em_full, cbmm_em_full_reference)
+    from pb_bss_tpu_torch.ops.mm_stream import (
+        cbmm_em_long, cbmm_em_long_reference, mm_stats, mm_stats_reference)
+    D, K = 6, 3
+    out = {}
+
+    # K8: warm solves from the twin's cold solution perturbed by 5%
+    B = 4 * 257 * 3
+    solves = []
+    for i in range(6):
+        s = bingham_moments(B, D, 1500 + i)
+        lam = find_eigenvalues(s, _chord=bingham_chord_solve_reference)
+        g = torch.Generator('cuda').manual_seed(1500 + i)
+        x0 = lam * (1 + 0.05 * torch.randn((B, 1), device='cuda',
+                                           generator=g))
+        x0 = torch.sort(torch.cat([x0[:, :-1], torch.zeros_like(x0[:, :1])],
+                                  -1), -1).values
+        solves.append((s, x0))
+    bounds = dict(iterations=16, lower=-32768. / (D - 1), upper=-1e-3)
+    ms8 = cuda_time(lambda s, x: bingham_chord_solve(s, x, **bounds),
+                    solves)
+    plain8 = cuda_time(lambda s, x: bingham_chord_solve_reference(
+        s, x, **bounds), solves[:3])
+    k8_flops = B * solve_cascades(D, 1, 16) * cascade_flops(D)
+    log(f'timing K8 {B} problems D={D}, warm 16 steps: kernel {ms8:.4f} ms, '
+        f'plain {plain8:.4f} ms')
+    out['bingham_chord_solve'] = (ms8, plain8,
+                                  bound(3 * B * D * 4, k8_flops))
+
+    def fits(Bu, F, T, seed):
+        ins = [watson_inputs(Bu, F, D, K, T, seed + i)[:2] for i in range(4)]
+        ms = cuda_time(lambda y, a: cbmm_em_full(y, a, iterations=20), ins)
+        # the twin's 20-iteration fit takes seconds here: two timed
+        # calls, no warm-up (phase_kernels ran it already)
+        plain = cuda_time(lambda y, a: cbmm_em_full_reference(
+            y, a, iterations=20), ins[:2], warmup=0)
+        log(f'timing K9 B={Bu} F={F} D={D} K={K} T={T}, 20 it: kernel '
+            f'{ms:.3f} ms ({20e3 / ms:.1f} iters/s), plain {plain:.3f} ms')
+        return ms, plain, ins[0]
+
+    ms9, plain9, (y, a) = fits(8, 257, 304, 1600)
+    N, T = y.shape[0], y.shape[-1]
+    # y and the initial affiliations in; weight, eigenvalues, eigenvectors,
+    # log c and affiliations out
+    k9_bytes = nbytes(y, a) + N * K * (4 + 4 * D + 8 * D * D + 4 + 4 * T)
+    out['cbmm_em_full'] = (ms9, plain9,
+                           bound(k9_bytes, bingham_flops(N, K, D, T, 20)))
+    fits(8, 513, 300, 1700)
+
+    # the Bingham K7: one step-mode pass at F=513, T=4000 from the twin's
+    # first M-step
+    states = []
+    for i in range(5):
+        y, aff, _ = watson_inputs(1, 513, D, K, 4000, 1800 + i)
+        N, _, T = y.shape
+        weight, lam, vec = cbmm_em_long_reference(y, aff, iterations=1)
+        log_c = ComplexBingham(covariance_eigenvectors=vec,
+                               covariance_eigenvalues=lam).log_norm()
+        states.append((y, vec, lam, log_c, weight))
+
+    def step(stats):
+        return lambda y, v, l, c, w: stats(
+            y, eigenvectors=v, eigenvalues=l, log_norm=c, weight=w,
+            affiliation_eps=1e-3)
+    ms7 = cuda_time(step(mm_stats), states)
+    plain7 = cuda_time(step(mm_stats_reference), states[:3])
+    log(f'timing K7 bingham statistics pass N={N} D={D} K={K} T={T} (step '
+        f'mode): kernel {ms7:.4f} ms, plain {plain7:.4f} ms')
+    P_ = D * (D + 1) // 2
+    k7_bytes = nbytes(*states[0]) + N * K * (8 * P_ + 4)
+    out['cbmm_em_long'] = (ms7, plain7, bound(
+        k7_bytes, em_flops(N * T, K, D) + N * K * 8 * D ** 3))
+
+    # the streamed fit of config 3e: its kernels against its twins
+    ins = [em_inputs(1, 513, D, K, 4000, 1900 + i)[:2] for i in range(3)]
+    long_ms = cuda_time(lambda y, a: cbmm_em_long(y, a, iterations=5),
+                        ins[1:])
+    long_plain = cuda_time(lambda y, a: cbmm_em_long_reference(
+        y, a, iterations=5), ins[1:2])
+    log(f'timing cbmm_em_long F=513 T=4000, 5 it: kernels {long_ms:.3f} ms, '
+        f'plain {long_plain:.3f} ms')
+    return out
 
 
 def time_estep():
@@ -1809,8 +2481,9 @@ def main():
         long_launches = timed(phase_long)
         fc_launches = timed(phase_fc_path)
         cwmm_launches = timed(phase_cwmm)
+        cbmm_launches = timed(phase_cbmm)
         kernels = timed(phase_timing, errors, launches, long_launches,
-                        fc_launches, cwmm_launches)
+                        fc_launches, cwmm_launches, cbmm_launches)
         timed(time_fc_stages)
     except SystemExit:
         raise

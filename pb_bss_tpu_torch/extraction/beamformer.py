@@ -58,15 +58,24 @@ def get_power_spectral_density_matrix(observation, mask=None,
             observation, conj)
 
 
+# Diagonal loading of the GEV retry, relative to tr(Phi_nn) / D. The JAX
+# package loads 1e-10, which cannot lift the f32 rounding of a
+# rank-deficient noise PSD (a few ulps of its largest eigenvalue below
+# zero: a noise class whose masks cover ~one frame in a bin) and leaves
+# the bin non-finite; 1e-5 does. Only bins that are non-finite without
+# loading take the retry, so every other bin is the JAX package's.
+RETRY_LOADING = 1e-5
+
+
 def get_gev_vector(target_psd_matrix, noise_psd_matrix):
     """GEV (max-SNR) beamforming vector [Warsitz2007GEV], B-normalized
     (``w^H Phi_nn w = 1``). Bins whose noise PSD is not positive
-    definite (non-finite vector) are retried with diagonal loading,
-    branchlessly."""
+    definite (non-finite vector) are retried with diagonal loading
+    (:data:`RETRY_LOADING`), branchlessly."""
     beam = gev_max_eigvec(target_psd_matrix, noise_psd_matrix)
     bad = ~torch.isfinite(beam.abs()).all(-1, keepdim=True)
     loaded = gev_max_eigvec(
-        target_psd_matrix, noise_psd_matrix, condition=1e-10)
+        target_psd_matrix, noise_psd_matrix, condition=RETRY_LOADING)
     return torch.where(bad, loaded, beam)
 
 

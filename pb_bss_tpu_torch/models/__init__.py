@@ -1,5 +1,10 @@
 from .base import Model  # noqa: F401
 from .cacgmm import CACGMM, CACGMMTrainer  # noqa: F401
+from .cbmm import CBMM, CBMMTrainer  # noqa: F401
+from .complex_bingham import (  # noqa: F401
+    ComplexBingham,
+    ComplexBinghamTrainer,
+)
 from .complex_angular_central_gaussian import (  # noqa: F401
     ComplexAngularCentralGaussian,
     ComplexAngularCentralGaussianTrainer,

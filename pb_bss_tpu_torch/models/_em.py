@@ -9,6 +9,8 @@ runs it as one ``lax.scan``; here it is a plain Python loop.
 """
 from __future__ import annotations
 
+import inspect
+
 from .mixture_model_utils import apply_inline_permutation_alignment
 
 __all__ = ['run_em']
@@ -21,7 +23,10 @@ def run_em(*, affiliation, iterations, m_step, e_step, aligner=None,
     Args:
         affiliation: initial responsibilities (..., K, N).
         iterations: number of M-steps (> 0).
-        m_step: affiliation -> model.
+        m_step: affiliation -> model. A two-parameter
+            ``m_step(affiliation, previous_model)`` receives the previous
+            model (None on the first call), for warm-started M-step
+            solvers.
         e_step: model -> affiliation.
         aligner: optional inline permutation aligner applied to each
             E-step's output (requires (F, K, T) affiliations).
@@ -30,12 +35,15 @@ def run_em(*, affiliation, iterations, m_step, e_step, aligner=None,
         The fitted model.
     """
     assert iterations > 0, iterations
-    model = m_step(affiliation)
+    if len(inspect.signature(m_step).parameters) < 2:
+        one_parameter = m_step
+        m_step = lambda affiliation, _model: one_parameter(affiliation)
+    model = m_step(affiliation, None)
     for _ in range(iterations - 1):
         affiliation = e_step(model)
         if aligner is not None:
             affiliation = apply_inline_permutation_alignment(
                 affiliation, weight_constant_axis=weight_constant_axis,
                 aligner=aligner)
-        model = m_step(affiliation)
+        model = m_step(affiliation, model)
     return model

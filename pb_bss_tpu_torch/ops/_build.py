@@ -25,7 +25,7 @@ __all__ = ['CSRC', 'BUILD_DIR', 'KERNELS', 'SMEM_LIMIT', 'nvcc_command',
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = CSRC.parent / '_kernels'
-_HEADERS = ('jacobi.cuh', 'em_common.cuh', 'watson.cuh')
+_HEADERS = ('jacobi.cuh', 'em_common.cuh', 'watson.cuh', 'bingham.cuh')
 # bytes of shared memory one block may opt into on the H100 (sm_90), the
 # budget of every kernel's shape gate
 SMEM_LIMIT = 232448
@@ -65,7 +65,14 @@ KERNELS = {
             [_P] * 8 + [_I] * 7 + [_F, _F, _I, _F, _F, _P], _I),
     },
     'mm_stream': {
-        'mm_stream_launch': ([_P] * 9 + [_I] * 7 + [_P], _I),
+        'mm_stream_launch': ([_P] * 11 + [_I] * 7 + [_F, _P], _I),
+    },
+    'bingham': {
+        'bingham_chord_launch': ([_P] * 3 + [_I] * 3 + [_F] * 3 + [_P], _I),
+    },
+    'cbmm_loop': {
+        'cbmm_em_full_launch': (
+            [_P] * 8 + [_I] * 10 + [_F] * 8 + [_P], _I),
     },
 }
 

@@ -1,14 +1,16 @@
 """High-level separation pipeline.
 
-The standard recipe — STFT -> spatial mixture model EM (cACGMM, or
-the complex Watson mixture with ``model='cwmm'``) -> DHTV permutation
+The standard recipe — STFT -> spatial mixture model EM (cACGMM, the
+complex Watson mixture with ``model='cwmm'`` or the complex Bingham
+mixture with ``model='cbmm'``) -> DHTV permutation
 alignment -> mask-based extraction or GEV beamforming -> iSTFT — as
 :func:`separate` (one utterance) and :func:`separate_batch` (a leading
 batch axis through every stage). Counterpart of ``pb_bss_tpu.pipeline``.
 On the card the EM runs one whole-fit launch for recordings inside its
 gate and the streamed route (one statistics launch per iteration) for
-longer ones, such as a minute at 8 kHz (past the cACGMM kernel's gate;
-the Watson whole-fit kernel still takes a minute at D=6, K=3).
+longer ones, such as a minute at 8 kHz (T = 3753 frames: past the
+cACGMM kernel's gate and, by three frames, the Bingham one's; the Watson
+whole-fit kernel still takes it at D=6, K=3).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from .extraction.beamformer import (
 )
 from .extraction.beamformer_wrapper import get_bf_vector
 from .models.cacgmm import CACGMMTrainer
+from .models.cbmm import CBMMTrainer
 from .models.cwmm import CWMMTrainer
 from .permutation_alignment import DHTVPermutationAlignment
 from .transform import istft, stft
@@ -39,10 +42,7 @@ def _check_options(beamformer, model, mesh, refine):
                 f'refine={refine!r}, beamformer={beamformer!r}')
         raise NotImplementedError(
             "refine='fca' is not ported yet (ROADMAP queue 1, FCA)")
-    if model == 'cbmm':
-        raise NotImplementedError(
-            "model='cbmm' is not ported yet (ROADMAP queue 1, CBMM)")
-    if model not in ('cacgmm', 'cwmm'):
+    if model not in ('cacgmm', 'cwmm', 'cbmm'):
         raise ValueError(model)
     if mesh is not None:
         raise NotImplementedError(
@@ -70,6 +70,9 @@ def _separate(observations, initialization, *, iterations, stft_size,
     Y = Observation.permute(0, 3, 2, 1)  # (B, F, T, D)
     if model == 'cwmm':
         affiliation = CWMMTrainer().fit_predict(
+            Y, initialization=initialization, iterations=iterations)
+    elif model == 'cbmm':
+        affiliation = CBMMTrainer().fit_predict(
             Y, initialization=initialization, iterations=iterations)
     else:
         _, affiliation = CACGMMTrainer().fit_predict_model(
@@ -120,9 +123,8 @@ def separate(observation, *, num_classes=3, iterations=80, stft_size=512,
         generator: ``torch.Generator`` for the EM initialization
             (default: one seeded 0 on the observation's device).
         eigh_sweeps: optional Jacobi sweeps of the EM eigh.
-        model: the spatial mixture model: ``'cacgmm'`` (default) or
-            ``'cwmm'`` (complex Watson); ``'cbmm'`` is not ported yet
-            (``NotImplementedError``).
+        model: the spatial mixture model: ``'cacgmm'`` (default),
+            ``'cwmm'`` (complex Watson) or ``'cbmm'`` (complex Bingham).
         mesh / refine / refine_iterations: JAX options whose paths are
             not ported yet (``NotImplementedError``).
     Returns:

@@ -101,3 +101,27 @@ def test_plain_twin_matches_pallas_interpret():
     assert _phase_free_error(out, ref) < 1e-4
     assert_allclose(_b_norm(out, phi_nn).real,
                     _b_norm(ref, phi_nn).real, atol=1e-4)
+
+
+def test_loading_retry_lifts_a_rounded_rank_deficient_noise_psd():
+    """A noise PSD of rank 2 at D=6 whose zero eigenvalues f32 rounding
+    left a few ulps below zero (a noise class that covers about one frame
+    in a bin, as a CBMM fit from a random start can leave after the
+    alignment): the JAX package's 1e-10 loading leaves the vector
+    non-finite, the port's retry gives a finite, B-normalized one; the
+    other bins keep the vector without loading."""
+    phi_xx, phi_nn = _pencils(B=4, D=6, seed=3)
+    phi_nn[2] = (np.diag([1., 1., 0., 0., 0., 0.])
+                 - 1e-6 * np.eye(6)).astype(np.complex64)
+    jax_retried = np.asarray(jax_get_gev(jnp.asarray(phi_xx),
+                                         jnp.asarray(phi_nn)))
+    assert not np.isfinite(jax_retried[2]).all()
+    retried = get_gev_vector(torch.as_tensor(phi_xx),
+                             torch.as_tensor(phi_nn)).numpy()
+    assert np.isfinite(retried).all()
+    plain = gev(torch.as_tensor(phi_xx), torch.as_tensor(phi_nn)).numpy()
+    np.testing.assert_array_equal(retried[[0, 1, 3]], plain[[0, 1, 3]])
+    loaded = phi_nn[2] + 1e-5 * np.trace(phi_nn[2]).real / 6 * np.eye(6)
+    b_norm = np.einsum('d,de,e->', retried[2].conj(), loaded / (1 + 1e-5),
+                       retried[2])
+    assert abs(b_norm - 1) < 1e-3

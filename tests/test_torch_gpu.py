@@ -3,6 +3,7 @@ card. Marked ``gpu``; each test skips when no CUDA device is present
 (decided inside the fixture, never at import). Run on a GPU machine
 with ``python -m pytest --noconftest tests/test_torch_gpu.py -m gpu``
 (the shared conftest imports jax)."""
+import numpy as np
 import pytest
 import torch
 
@@ -435,4 +436,176 @@ def test_cwmm_trainer_routes_to_the_watson_kernels(cuda, route):
     want = (1, 0, 0) if route == 'whole' else (0, 5, 5)
     assert tuple(a - b for a, b in zip(after, before)) == want
     assert torch.isfinite(model.complex_watson.concentration).all()
+    assert torch.isfinite(posterior).all()
+
+
+def _bingham_problems(B, D, device, seed, warm=True):
+    """Sorted, spaced moments (B, D) and their start: the twin's cold
+    solve perturbed by 5% (warm) or the -1/s start (cold)."""
+    from pb_bss_tpu_torch.models.complex_bingham import (
+        _remove_duplicate_eigenvalues, find_eigenvalues)
+    rng = np.random.default_rng(seed)
+    s = np.sort(rng.dirichlet(np.full(D, 0.7), size=B), -1)
+    _, s = _remove_duplicate_eigenvalues(torch.as_tensor(s, dtype=torch.float32))
+    lam = find_eigenvalues(s, use_pallas=True)
+    x0 = lam * (1 + 0.05 * torch.as_tensor(
+        rng.standard_normal((B, 1)), dtype=torch.float32))
+    x0[:, -1] = 0
+    return s.to(device), torch.sort(x0, -1).values.to(device)
+
+
+def _residual(lam, s):
+    from pb_bss_tpu_torch.ops.bingham import grad_cascade
+    return (grad_cascade(lam.cpu())[0] - s.cpu()).abs().max(-1).values
+
+
+@pytest.mark.parametrize('D', [3, 6, 8])
+def test_bingham_chord_kernel_matches_plain(cuda, D):
+    """K8 against its twin: the same fixed point grad log Z = s, so the
+    residual is the criterion (the finite-difference Jacobians differ by
+    ulps under FMA contraction); structure exact."""
+    from pb_bss_tpu_torch.ops.bingham import (
+        bingham_chord_solve, bingham_chord_solve_reference)
+    s, x0 = _bingham_problems(777, D, cuda, seed=D)
+    bounds = dict(lower=-32768. / (D - 1), upper=-1e-3)
+    before = bingham_chord_solve.launches
+    out = bingham_chord_solve(s, x0, iterations=16, **bounds)
+    torch.cuda.synchronize()
+    assert bingham_chord_solve.launches == before + 1
+    ref = bingham_chord_solve_reference(s, x0, iterations=16, **bounds)
+    r_k, r_p = _residual(out, s), _residual(ref, s)
+    assert torch.isfinite(out).all()
+    assert r_k.median() < 2 * max(r_p.median().item(), 1e-5)
+    assert r_k.max() < 3 * max(r_p.max().item(), 1e-3)
+    assert (torch.diff(out, dim=-1) >= 0).all()
+    assert (out[:, -1] == 0).all()
+    well = ref.abs().max(-1).values < 300
+    rel = ((out - ref).abs() / (1 + ref.abs())).max(-1).values
+    assert rel[well].median() < 1e-3
+
+
+def _cbmm_mixture(N, D, K, T, device, seed=0):
+    """Unit-norm observations around K axes per bin (Bingham data is
+    axially symmetric) and a random initial affiliation."""
+    g = torch.Generator(device).manual_seed(seed)
+    modes = torch.randn((N, K, D), dtype=torch.complex64, device=device,
+                        generator=g)
+    lab = torch.arange(T, device=device) % K
+    y = modes[:, lab].transpose(-1, -2) + 0.3 * torch.randn(
+        (N, D, T), dtype=torch.complex64, device=device, generator=g)
+    y = y / torch.linalg.vector_norm(y, dim=-2, keepdim=True)
+    aff = torch.rand((N, K, T), device=device, generator=g)
+    return y, aff / aff.sum(-2, keepdim=True)
+
+
+@pytest.mark.parametrize('D,K,T,extras', [
+    (6, 3, 304, False), (6, 3, 304, True), (3, 2, 777, False),
+    (8, 4, 150, False)])
+def test_bingham_whole_fit_kernel_matches_plain(cuda, D, K, T, extras):
+    """K9 against its twin: one cold iteration tightly (weights; the
+    eigenvalues through the same chord rounds), eigenvectors phase-aligned;
+    5 iterations by the argmax of the posteriors, and the kernel's fifth
+    (warm) iteration against the twin's warm step from the kernel's state
+    after four: the weights to 1e-5, the posteriors on average to 2.5e-3
+    plus four times what an ulp-level change of y moves that step.
+    ``extras``: saliency, a class silenced in 8 bins and a finite
+    max_concentration."""
+    from pb_bss_tpu_torch.ops.cbmm_loop import (
+        cbmm_em_full, cbmm_em_full_reference, cbmm_em_step_reference)
+    y, aff = _cbmm_mixture(33, D, K, T, cuda)
+    kw = {}
+    if extras:
+        g = torch.Generator(cuda).manual_seed(14)
+        kw = dict(saliency=0.2 + 0.8 * torch.rand((33, T), device=cuda,
+                                                   generator=g),
+                  max_concentration=50.)
+        aff[3:11, 1] = 0
+        aff = aff / aff.sum(-2, keepdim=True)
+    before = cbmm_em_full.launches
+    out = cbmm_em_full(y, aff, iterations=1, **kw)
+    torch.cuda.synchronize()
+    assert cbmm_em_full.launches == before + 1
+    ref = cbmm_em_full_reference(y, aff, iterations=1, **kw)
+    torch.testing.assert_close(out[0], ref[0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(out[1], ref[1], rtol=5e-2, atol=0.5)
+    inner = torch.einsum('...dk,...dk->...k', out[2].conj(), ref[2]).abs()
+    assert inner.min() > 1 - 1e-3, inner.min()
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+    out = cbmm_em_full(y, aff, iterations=5, **kw)
+    ref = cbmm_em_full_reference(y, aff, iterations=5, **kw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+    agree = (out[4].argmax(-2) == ref[4].argmax(-2)).float().mean()
+    assert agree > 0.9, agree
+    four = cbmm_em_full(y, aff, iterations=4, **kw)
+
+    def step(y_):
+        return cbmm_em_step_reference(y_, four[4], four[1:3], **kw)
+    twin = step(y)
+    torch.testing.assert_close(out[0], twin[0], atol=1e-5, rtol=0)
+    parted = (out[4] - twin[4]).abs().mean().item()
+    rounding = (step(y * (1 + 2 ** -22))[4] - twin[4]).abs().mean().item()
+    assert parted <= 4 * rounding + 2.5e-3, (parted, rounding)
+
+
+@pytest.mark.parametrize('mode', ['from_init', 'step', 'step_fc'])
+def test_bingham_stream_kernel_one_pass_matches_plain(cuda, mode):
+    from pb_bss_tpu_torch.ops.mm_stream import mm_stats, mm_stats_reference
+    N, D, K, T = 66, 6, 3, 1777
+    y, aff = _unit_norm_mixture(N, D, K, T, cuda)
+    g = torch.Generator(cuda).manual_seed(15)
+    sal = 0.2 + 0.8 * torch.rand((N, T), device=cuda, generator=g)
+    if mode == 'from_init':
+        kwargs = dict(affiliation=aff)
+    else:
+        vec = torch.linalg.qr(torch.randn((N, K, D, D), dtype=torch.complex64,
+                                          device=cuda, generator=g))[0]
+        lam = -torch.sort(30. * torch.rand((N, K, D), device=cuda,
+                                           generator=g), -1,
+                          descending=True).values
+        lam = lam - lam[..., -1:]
+        rows = 2 if mode == 'step_fc' else N
+        weight = torch.rand((rows, K), device=cuda, generator=g) + 0.2
+        kwargs = dict(eigenvectors=vec, eigenvalues=lam,
+                      log_norm=torch.rand((N, K), device=cuda, generator=g),
+                      weight=weight / weight.sum(-1, keepdim=True),
+                      bins_per_weight=N // rows, affiliation_eps=1e-3)
+    before = mm_stats.launches
+    s_k, a_k = mm_stats(y, saliency=sal, **kwargs)
+    torch.cuda.synchronize()
+    assert mm_stats.launches == before + 1
+    s_p, a_p = mm_stats_reference(y, saliency=sal, **kwargs)
+    # f32 sums over T in two orders: 1e-4 of the largest entry
+    assert (s_k - s_p).abs().max() <= 1e-4 * s_p.abs().max()
+    assert torch.equal(s_k, s_k.conj().transpose(-1, -2))
+    torch.testing.assert_close(a_k, a_p, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize('route', ['whole', 'fc', 'long'])
+def test_cbmm_trainer_routes_to_the_bingham_kernels(cuda, route):
+    """'auto' on a CUDA tensor: per-bin weights inside K9's gate launch K9
+    once; frequency-constant weights, or T past the gate, launch K7 once
+    per iteration, K1 in every M-step finish and K8 three times for the
+    cold first solve and once per warm one."""
+    from pb_bss_tpu_torch.models.cbmm import CBMMTrainer
+    from pb_bss_tpu_torch.ops.bingham import bingham_chord_solve
+    from pb_bss_tpu_torch.ops.cbmm_loop import cbmm_em_full
+    from pb_bss_tpu_torch.ops.eigh import eigh_jacobi
+    from pb_bss_tpu_torch.ops.mm_stream import mm_stats
+    T = 3800 if route == 'long' else 300
+    g = torch.Generator(cuda).manual_seed(16)
+    Y = torch.randn((65, T, 6), dtype=torch.complex64, device=cuda,
+                    generator=g)
+    kwargs = dict(weight_constant_axis=(-3, -1)) if route == 'fc' else {}
+
+    def counts():
+        return (cbmm_em_full.launches, mm_stats.launches,
+                eigh_jacobi.launches, bingham_chord_solve.launches)
+    before = counts()
+    model, posterior = CBMMTrainer().fit(
+        Y, num_classes=3, iterations=5, _return_affiliation=True, **kwargs)
+    torch.cuda.synchronize()
+    want = (1, 0, 0, 0) if route == 'whole' else (0, 5, 5, 3 + 4)
+    assert tuple(a - b for a, b in zip(counts(), before)) == want
+    assert torch.isfinite(model.complex_bingham.covariance_eigenvalues).all()
     assert torch.isfinite(posterior).all()

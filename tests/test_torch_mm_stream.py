@@ -242,3 +242,148 @@ def test_matches_pallas_interpret(weight_mode):
     assert_allclose(weight, np.asarray(ref[0]), atol=1e-4)
     assert_allclose(kappa, np.asarray(ref[2]), rtol=5e-3, atol=1e-2)
     _assert_modes_aligned(mode, ref[1])
+
+
+# ---- the Bingham family ------------------------------------------------
+
+def _bingham_model(seed):
+    """A fixed Bingham model on (F, K): eigenvectors (F, K, D, D),
+    ascending eigenvalues with the maximum at 0, weights."""
+    rng = np.random.default_rng(seed)
+    vec = np.linalg.qr(rng.standard_normal((F, K, D, D))
+                       + 1j * rng.standard_normal((F, K, D, D)))[0]
+    lam = -np.sort(rng.uniform(0., 30., (F, K, D)), -1)[..., ::-1].copy()
+    lam[..., -1] = 0.
+    weight = rng.uniform(0.2, 1., (F, K))
+    weight /= weight.sum(-1, keepdims=True)
+    return (vec.astype(np.complex64), lam.astype(np.float32),
+            weight.astype(np.float32))
+
+
+@pytest.mark.parametrize('mode', ['from_init', 'step'])
+def test_bingham_pass_matches_the_jax_statistics(mode):
+    """One Bingham statistics pass against the JAX package's E-step
+    (with the posterior clip) and a direct sum: sum_t a s y y^H and
+    sum_t a s."""
+    from pb_bss_tpu.models.cbmm import CBMM as JaxCBMM
+    from pb_bss_tpu.models.complex_bingham import ComplexBingham as JaxCB
+    from pb_bss_tpu_torch.models.complex_bingham import ComplexBingham
+    y, aff0 = _mixture(seed=30, T=60), _aff0(31, T=60)
+    saliency = np.random.default_rng(32).uniform(
+        0.2, 1., (F, 60)).astype(np.float32)
+    y_dt = torch.as_tensor(y).transpose(-1, -2).contiguous()
+    if mode == 'from_init':
+        kwargs = dict(affiliation=torch.as_tensor(aff0))
+        aff = aff0
+    else:
+        vec, lam, weight = _bingham_model(33)
+        log_c = ComplexBingham(
+            covariance_eigenvectors=torch.as_tensor(vec),
+            covariance_eigenvalues=torch.as_tensor(lam)).log_norm()
+        kwargs = dict(eigenvectors=torch.as_tensor(vec),
+                      eigenvalues=torch.as_tensor(lam), log_norm=log_c,
+                      weight=torch.as_tensor(weight), affiliation_eps=1e-3)
+        aff = np.asarray(JaxCBMM(
+            weight=jnp.asarray(weight[..., None]),
+            complex_bingham=JaxCB(covariance_eigenvectors=jnp.asarray(vec),
+                                  covariance_eigenvalues=jnp.asarray(lam))
+        )._predict(jnp.asarray(y), affiliation_eps=1e-3))
+    before = mm_stream.mm_stats.launches
+    scatter, asum = mm_stream.mm_stats(
+        y_dt, saliency=torch.as_tensor(saliency), **kwargs)
+    assert mm_stream.mm_stats.launches == before  # CPU: the twin
+    a = aff * saliency[:, None, :]
+    ref = np.einsum('fkt,ftd,fte->fkde', a, y, y.conj())
+    assert_allclose(asum.numpy(), a.sum(-1), rtol=1e-4)
+    assert np.abs(scatter.numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+def _assert_bingham_close(weight, lam, ref_weight, ref_lam):
+    """The JAX suite's kernel-against-scan tolerances: weights 5e-3,
+    eigenvalues rtol 5e-2 / atol 0.5."""
+    assert_allclose(weight, ref_weight, atol=5e-3)
+    assert_allclose(lam, ref_lam, rtol=5e-2, atol=0.5)
+
+
+@pytest.mark.parametrize('weight_mode', ['per_bin', 'fc'])
+@pytest.mark.parametrize('twin', [False, True], ids=['cpu_route', 'twin'])
+def test_cbmm_stream_matches_jax_scan(weight_mode, twin):
+    """The streamed Bingham fit with saliency and the posterior clip
+    against the JAX scan path: on the CPU (the scan path's solver) and
+    the twin of the card's route (the chord solve's twin)."""
+    from pb_bss_tpu.models.cbmm import CBMMTrainer as JaxCBMMTrainer
+    y, aff0 = _mixture(seed=34, T=60), _aff0(35, T=60)
+    saliency = np.random.default_rng(36).uniform(
+        0.3, 1., (F, 60)).astype(np.float32)
+    fit = mm_stream.cbmm_em_long_reference if twin \
+        else mm_stream.cbmm_em_long
+    before = mm_stream.mm_stats.launches
+    weight, lam, vec = fit(
+        torch.as_tensor(y).transpose(-1, -2), torch.as_tensor(aff0),
+        iterations=3, weight_mode=weight_mode, spacing_eps=1e-8,
+        affiliation_eps=1e-3, saliency=torch.as_tensor(saliency))
+    assert mm_stream.mm_stats.launches == before
+    scan = JaxCBMMTrainer().fit(
+        jnp.asarray(y), initialization=jnp.asarray(aff0), iterations=3,
+        use_fused_em=False, saliency=jnp.asarray(saliency),
+        affiliation_eps=1e-3, weight_constant_axis=(
+            (-1,) if weight_mode == 'per_bin' else (-3, -1)))
+    ref_weight = np.asarray(scan.weight)[..., 0]
+    assert weight.shape == ((F, K) if weight_mode == 'per_bin' else (K,))
+    assert vec.shape == (F, K, D, D) and lam.shape == (F, K, D)
+    _assert_bingham_close(
+        weight.numpy(), lam.numpy(),
+        ref_weight if weight_mode == 'per_bin' else ref_weight[0],
+        np.asarray(scan.complex_bingham.covariance_eigenvalues))
+
+
+def test_cbmm_trainer_long_route_on_the_cpu_is_the_streamed_path():
+    """use_fused_em=True past the whole-fit gate (T=3751 at D=6, K=3)
+    takes the streamed route: no launch, and the scan path's model."""
+    from pb_bss_tpu_torch.models.cbmm import CBMMTrainer
+    rng = np.random.default_rng(37)
+    Y = torch.as_tensor((rng.standard_normal((2, 3751, 6))
+                         + 1j * rng.standard_normal((2, 3751, 6))
+                         ).astype(np.complex64))
+    before = mm_stream.mm_stats.launches
+    model = CBMMTrainer().fit(Y, num_classes=3, iterations=2,
+                              use_fused_em=True)
+    scan = CBMMTrainer().fit(Y, num_classes=3, iterations=2,
+                             use_fused_em=False)
+    assert mm_stream.mm_stats.launches == before
+    # the E-step and the sums over 3751 frames in two formulas and orders
+    _assert_bingham_close(
+        model.weight.numpy(), model.complex_bingham.covariance_eigenvalues
+        .numpy(), scan.weight.numpy(),
+        scan.complex_bingham.covariance_eigenvalues.numpy())
+
+
+def test_bingham_kernel_gate():
+    assert mm_stream.fits(6, 3, family='bingham')
+    assert mm_stream.fits(8, 4, has_sal=True, family='bingham')
+    assert mm_stream.smem_bytes(6, 3, 'bingham') \
+        == mm_stream.smem_bytes(6, 3) + 8 * 3 * 36
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize('weight_mode', ['per_bin', 'fc'])
+def test_cbmm_matches_pallas_interpret(weight_mode):
+    """The port's streamed Bingham fit against the JAX streamed kernel
+    (interpret mode, several time blocks), with saliency and the
+    posterior clip."""
+    T = 100
+    y, aff0 = _mixture(seed=38, T=T), _aff0(39, T=T)
+    saliency = np.random.default_rng(40).uniform(
+        0.3, 1., (F, T)).astype(np.float32)
+    y_dt = np.swapaxes(y, -1, -2)
+    ref = pallas_mm_stream.cbmm_em_long(
+        jnp.asarray(y_dt.real), jnp.asarray(y_dt.imag), jnp.asarray(aff0),
+        iterations=3, tile_t=64, tile_f=128, interpret=True,
+        weight_mode=weight_mode, affiliation_eps=1e-3,
+        saliency=jnp.asarray(saliency))
+    weight, lam, _ = mm_stream.cbmm_em_long(
+        torch.as_tensor(y_dt), torch.as_tensor(aff0), iterations=3,
+        weight_mode=weight_mode, affiliation_eps=1e-3,
+        saliency=torch.as_tensor(saliency))
+    _assert_bingham_close(weight.numpy(), lam.numpy(), np.asarray(ref[0]),
+                          np.asarray(ref[1]))

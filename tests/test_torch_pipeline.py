@@ -99,6 +99,32 @@ def test_separate_batch_cwmm_equals_separate_per_utterance(scenario):
     _check_batch_equals_single(scenario[0], 'cwmm')
 
 
+def test_separate_cbmm_runs_on_the_cpu_with_no_launch(scenario):
+    """model='cbmm': the complex Bingham mixture in place of the cACGMM.
+    On a CPU tensor the scan path runs and no kernel launches; a batch of
+    one equals its separate() (a short utterance, two iterations: the
+    scan path's cold moment inversion over 771 problems dominates)."""
+    from pb_bss_tpu_torch.ops.bingham import bingham_chord_solve
+    from pb_bss_tpu_torch.ops.cbmm_loop import cbmm_em_full
+    from pb_bss_tpu_torch.ops.mm_stream import mm_stats
+
+    def counts():
+        return (cbmm_em_full.launches, mm_stats.launches,
+                bingham_chord_solve.launches, gev.launches)
+    before = counts()
+    observations = torch.as_tensor(scenario[0][None, :, :2000])
+    batched = separate_batch(observations, iterations=2,
+                             beamformer='gev+ban', model='cbmm')
+    assert batched.shape == (1, 3, 2000) and torch.isfinite(batched).all()
+    generator = utterance_generators(torch.Generator().manual_seed(0), 1,
+                                     'cpu')[0]
+    single = separate(observations[0], iterations=2, beamformer='gev+ban',
+                      generator=generator, model='cbmm')
+    # same initialization; batched vs unbatched f32 products only
+    torch.testing.assert_close(batched[0], single, atol=1e-4, rtol=1e-3)
+    assert counts() == before
+
+
 def test_cpu_run_launches_no_kernel(scenario):
     observation, _ = scenario
     before = (cacgmm_em_full.launches, gev.launches)
@@ -109,7 +135,7 @@ def test_cpu_run_launches_no_kernel(scenario):
 
 def test_unported_options_raise(scenario):
     observation = torch.as_tensor(scenario[0][:, :2000])
-    for kwargs in (dict(model='cbmm'), dict(refine='fca'),
+    for kwargs in (dict(mesh='f'), dict(refine='fca'),
                    dict(beamformer='mvdr_souden')):
         with pytest.raises(NotImplementedError):
             separate(observation, iterations=1, **kwargs)
@@ -169,3 +195,53 @@ def test_cwmm_quality_on_the_smoke_utterances(capsys):
     # sit below the port's numbers here
     assert (scores['port'].mean(0) >= 4.5).all()
     assert (scores['port'] >= -3.0).all()
+
+
+@pytest.mark.slow
+def test_cbmm_quality_on_the_smoke_utterances(capsys):
+    """The numbers behind chip_smoke.py's CBMM floors on the smoke's eight
+    4.8 s utterances (20 iterations, 'gev+ban'): separate_batch(model=
+    'cbmm') from its random initialization on the CPU, beside JAX's
+    separate(model='cbmm') on each utterance, and the warm-start recipe
+    (the CBMM fit from cACGMM posteriors) with its random-start control
+    (pb_bss_tpu_torch.testing.cbmm_quality). Per-frequency SI-SDR of the
+    best estimate per speaker."""
+    from pb_bss_tpu_torch.testing.cbmm_quality import (
+        MEAN_FLOOR_DB, SINGLE_FLOOR_DB, WARM_MEAN_FLOOR_DB,
+        WARM_SINGLE_FLOOR_DB, cbmm_quality, utterances)
+    observations, images = utterances()
+    ours = separate_batch(observations, iterations=20, beamformer='gev+ban',
+                          model='cbmm')
+    theirs = torch.stack([torch.as_tensor(np.array(jax_separate(
+        jnp.asarray(o.numpy()), iterations=20, beamformer='gev+ban',
+        model='cbmm'))) for o in observations])
+    scores = {name: si_sdr_stft(images[:, :, None],
+                                out.double()[:, None]).max(-1).values
+              for name, out in (('port', ours), ('jax', theirs))}
+    for recipe in ('random', 'warm'):
+        scores[f'port {recipe} recipe'] = cbmm_quality(
+            observations, images, recipe)
+    with capsys.disabled():
+        for name, s in scores.items():
+            finite = torch.isfinite(s).all(-1)
+            print(f'\n{name}: per speaker {s.numpy().round(2).tolist()}; '
+                  f'{int(finite.sum())} finite, their means '
+                  f'{s[finite].mean(0).numpy().round(2).tolist()}; worst '
+                  f'{s[finite].min().item():.2f} dB')
+    # a bin where one class takes every frame leaves the others' noise
+    # PSD exactly 0 and its GEV vector non-finite, in both packages
+    # (ROADMAP queue 3); chip_smoke.py's floors sit below the port's
+    # numbers here: the random start's (MEAN_FLOOR_DB, SINGLE_FLOOR_DB)
+    # over its finite utterances only catch a broken path; the warm
+    # recipe's (WARM_MEAN_FLOOR_DB, WARM_SINGLE_FLOOR_DB) sit above its
+    # control
+    port = scores['port'][torch.isfinite(scores['port']).all(-1)]
+    assert len(port) >= 5
+    assert (port.mean(0) >= MEAN_FLOOR_DB).all()
+    assert (port >= SINGLE_FLOOR_DB).all()
+    warm = scores['port warm recipe']
+    control = scores['port random recipe']
+    assert (warm.mean(0) >= WARM_MEAN_FLOOR_DB).all()
+    assert (warm >= WARM_SINGLE_FLOOR_DB).all()
+    assert not ((control.mean(0) >= WARM_MEAN_FLOOR_DB).all()
+                and (control >= WARM_SINGLE_FLOOR_DB).all())
