@@ -4,7 +4,7 @@
 
 Builds the hand-written CUDA kernels from pb_bss_tpu_torch/csrc (one
 nvcc per source, all at once), holds each against its plain PyTorch
-version on the card, and drives four paths, each with the launch
+version on the card, and drives six paths, each with the launch
 counters reset just before and read just after:
 
 * the short-recording path: ``separate_batch`` of 4.8 s utterances
@@ -32,7 +32,13 @@ counters reset just before and read just after:
   warm-start recipe from cACGMM posteriors and its control,
   ``CBMMTrainer.fit`` at T=4000 and with frequency-constant weights
   (streamed Bingham statistics, Jacobi and chord-solve kernels) and its
-  scan path with an inline aligner (Jacobi and chord-solve kernels).
+  scan path with an inline aligner (Jacobi and chord-solve kernels);
+* the integration models: ``VMFCACGMMTrainer.fit`` (unbatched and at
+  B=8) and ``GCACGMMTrainer.fit`` at the JAX package's bench config 3,
+  by default (the per-iteration statistics kernel and the Jacobi kernel)
+  and with ``use_fused_em='loop'`` (the whole-fit integration kernel),
+  and ``VMFCACGMMTrainer.fit_predict`` on the 4.8 s utterances with
+  oracle embeddings against its control.
 
 It checks finiteness and separation quality, and times kernels and
 pipeline with CUDA events. Prints a JSON line of per-kernel results
@@ -1169,6 +1175,271 @@ def check_bingham_stream_fit(B, F, D, K, T, seed, iterations=5,
     return agree
 
 
+def integration_inputs(N, D, K, T, E, U, mode, seed, saliency=False,
+                       separable=False, floor=False):
+    """The integration kernels' inputs, made on the card: N bins of U
+    utterances, (N, D, T) unit-norm observations, an (N, E, T) unit-norm
+    embedding, a cACG model and weight per bin, the spectral state of each
+    utterance ('vmf': mean, concentration, log normalizer; 'gaussian':
+    P m, P, const) and optional (N, T) saliency. By default the
+    observations are two-source mixtures and the embedding is random (the
+    JAX package's bench config 3); with ``separable`` each frame belongs to
+    one of K classes, with a steering vector per bin and an embedding centre
+    per utterance, so that the EM is well-conditioned. With ``floor``, the
+    regime of a converged fit: class 0's smallest eigenvalue sits at the
+    eigenvalue floor (1e-10) and the first third of the frames lie in the
+    span of its other eigenvectors, where a quadratic form through the
+    assembled inverse covariance cancels (entries ~1e10)."""
+    import torch
+    from pb_bss_tpu_torch.models.von_mises_fisher import VonMisesFisher
+    g = torch.Generator('cuda').manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device='cuda')
+
+    def cn(*shape):
+        return torch.complex(rn(*shape), rn(*shape))
+
+    if separable:
+        label = torch.randint(K, (N, T), generator=g, device='cuda')
+        steer = torch.gather(cn(N, K, D), 1, label[..., None].expand(N, T, D))
+        y = steer.transpose(1, 2) * cn(N, 1, T) + 0.1 * cn(N, D, T)
+        centres = rn(U, K, E)
+        utterance = torch.arange(N, device='cuda')[:, None] // (N // U)
+        emb = (centres[utterance, label] + 0.3 * rn(N, T, E)).transpose(1, 2)
+    else:
+        y = torch.einsum('ndk,nkt->ndt', cn(N, D, 2), cn(N, 2, T)) \
+            + 0.3 * cn(N, D, T)
+        emb = rn(N, E, T)
+    y = y / torch.linalg.vector_norm(y, dim=1, keepdim=True)
+    emb = (emb / torch.linalg.vector_norm(emb, dim=1, keepdim=True)
+           ).contiguous()
+    a = cn(N, K, D, D)
+    ev, vec = torch.linalg.eigh(a @ a.conj().transpose(-1, -2) / D
+                                + 2 * torch.eye(D, device='cuda'))
+    ev = ev / ev.max(-1, keepdim=True).values
+    if floor:
+        ev[:, 0, 0] = 1e-10
+        inside = torch.einsum('nde,net->ndt', vec[:, 0, :, 1:],
+                              cn(N, D - 1, T // 3))
+        y[..., :T // 3] = inside / torch.linalg.vector_norm(
+            inside, dim=1, keepdim=True)
+    w = torch.rand((N, K), generator=g, device='cuda') + 0.5
+    w = w / w.sum(-1, keepdim=True)
+    if mode == 'vmf':
+        mu = rn(U, K, E)
+        mu = mu / mu.norm(dim=-1, keepdim=True)
+        kappa = 1 + 19 * torch.rand((U, K), generator=g, device='cuda')
+        spec = (mu, kappa, VonMisesFisher(mean=mu,
+                                          concentration=kappa).log_norm())
+    else:
+        mean = 0.3 * rn(U, K, E)
+        prec = 0.5 + torch.rand((U, K, E), generator=g, device='cuda')
+        const = 0.5 * E * math.log(2 * math.pi) - 0.5 * torch.log(prec).sum(
+            -1) + 0.5 * (mean ** 2 * prec).sum(-1)
+        spec = (prec * mean, prec, const)
+    sal = (0.2 + 0.8 * torch.rand((N, T), generator=g, device='cuda')
+           if saliency else None)
+    return y, emb, ev, vec, w, spec, sal
+
+
+def check_integration_stats(N, D, K, T, E, U, mode, seed, saliency=False,
+                            floor=False):
+    """One K10 pass from a random model (with ``floor``, one with an
+    eigenvalue at the floor and frames orthogonal to its eigenvector)
+    against its plain twin, with saliency also under spatial / spectral
+    weights of 0.7 / 1.3. Returns the max abs error of the covariances
+    D scatter / asum."""
+    import torch
+    from pb_bss_tpu_torch.ops.integration_em import e_stats, e_stats_reference
+    y, emb, ev, vec, w, spec, sal = integration_inputs(
+        N, D, K, T, E, U, mode, seed, saliency, floor=floor)
+    kw = dict(eigenvalues=ev, eigenvectors=vec, weight=w, mu=spec[0],
+              kappa=spec[1], log_c=spec[2], bins_per_utt=N // U,
+              spectral_mode=mode, saliency=sal,
+              spatial_weight=0.7 if saliency else 1.,
+              spectral_weight=1.3 if saliency else 1.)
+    before = e_stats.launches
+    out = e_stats(y, emb, **kw)
+    ref = e_stats_reference(y, emb, **kw)
+    sync()
+    launched = e_stats.launches - before
+    cov_k = D * out[0] / out[1].clamp(min=1e-30)[..., None, None]
+    cov_p = D * ref[0] / ref[1].clamp(min=1e-30)[..., None, None]
+    err = (cov_k - cov_p).abs().max().item()
+    scale = cov_p.abs().max().item()
+    # the sums over T frames in two orders: relative to the largest entry
+    rel = [((a - b).abs().max() / b.abs().max()).item()
+           for a, b in zip(out[1:], ref[1:]) if b is not None]
+    herm = torch.equal(out[0], out[0].conj().transpose(-1, -2))
+    finite = all(bool(torch.isfinite(x).all()) for x in out if x is not None)
+    label = (f'N={N} D={D} K={K} T={T} E={E} U={U} {mode}'
+             f'{" +saliency, weights 0.7 / 1.3" if saliency else ""}'
+             f'{" +eigenvalue at the floor" if floor else ""}')
+    log(f'K10 {label}: max|cov_k - cov_p| {err:.2e} (max|cov| {scale:.2f}); '
+        f'asum / resultants{" / second moments" if mode == "gaussian" else ""}'
+        f' rel {", ".join(f"{r:.2e}" for r in rel)}; exactly Hermitian '
+        f'{herm}; launches {launched}')
+    if not (launched == 1 and err <= 1e-4 * scale and max(rel) <= 1e-5
+            and herm and finite):
+        fail(f'K10 mismatch at {label}')
+    return err
+
+
+def vmf_table(E):
+    """The whole-fit kernel's log normalizer table as the twin takes it."""
+    import torch
+    from pb_bss_tpu_torch.ops.integration_em_loop import vmf_log_norm_table
+    s0, ds, values = vmf_log_norm_table(E, 1e-10, 500.)
+    return s0, ds, torch.as_tensor(values, device='cuda')
+
+
+def integration_posterior(y, emb, out, mode, bins_per_utt, table):
+    """The posterior (N, K, T) of the next E-step after a whole fit (its
+    predict): the fit's cACG state and weights, and the spectral model
+    finished from its last accumulators as the kernel finishes it."""
+    from pb_bss_tpu_torch.ops.integration_em import e_step_reference
+    from pb_bss_tpu_torch.ops.integration_em_loop import (
+        spectral_m_step_reference)
+    lam, vec, weight, acc = out
+    K, E = weight.shape[-1], emb.shape[-2]
+    spec = [x.repeat_interleave(bins_per_utt, 0)
+            for x in spectral_m_step_reference(acc, E=E, K=K,
+                                               spectral_mode=mode,
+                                               table=table)]
+    return e_step_reference(y, emb, eigenvalues=lam, eigenvectors=vec,
+                            weight=weight, mu=spec[0], kappa=spec[1],
+                            log_c=spec[2], spectral_mode=mode)[0]
+
+
+def loop_errors(out, ref):
+    """(max |weight diff|, max |covariance diff| of V diag(lam) V^H, acc
+    rel to its largest entry) of two whole-fit results."""
+    def cov(lam, vec):
+        return (vec * lam[..., None, :].to(vec.dtype)) \
+            @ vec.conj().transpose(-1, -2)
+    return ((out[2] - ref[2]).abs().max().item(),
+            (cov(*out[:2]) - cov(*ref[:2])).abs().max().item(),
+            ((out[3] - ref[3]).abs().max() / ref[3].abs().max()).item())
+
+
+def check_integration_loop(N, D, K, T, E, U, mode, seed, iterations=20,
+                           separable=False, control=False):
+    """K12 against its twin (:func:`integration_em_step_reference` per
+    iteration), as K9 is held.
+
+    1. One iteration: the weights and the covariances V diag(lam) V^H to
+       1e-5, the accumulators to 1e-5 of their largest entry.
+    2. The warm iterations, one at a time: the kernel's fit of n
+       iterations is the state its iteration n + 1 starts from (the
+       spectral state finished in-kernel from the returned accumulators).
+       The twin's warm step from that state is held against the kernel's
+       fit of n + 1 iterations at n = 1 and n = iterations - 1, by the
+       posteriors of the next E-step: their mean |diff| and the share of
+       frames whose argmax parts, at most 2.5e-3 / 4e-3 plus four times
+       what the same twin step gives on y (1 + 2^-22). The control, the
+       step with no sweep after the rotation (frozen eigenvectors), must
+       exceed those limits at n = 1.
+    3. The whole fit: the kernel may part from the twin by at most twice
+       as many frames (argmax of the next E-step's posteriors) as the twin
+       parts from itself on y (1 + 2^-22), plus 1%. With ``control``, the
+       twin with frozen eigenvectors must part by more.
+
+    Returns the max abs error of the one-iteration weights and
+    covariances."""
+    import torch
+    from pb_bss_tpu_torch.ops import integration_em_loop as il
+    y, emb, ev, vec, w, spec, _ = integration_inputs(
+        N, D, K, T, E, U, mode, seed, separable=separable)
+    F = N // U
+    # the kernel's own column order: a warm step from it continues the fit
+    # exactly (sorted columns change the order of the Jacobi's rotations)
+    kw = dict(bins_per_utt=F, spectral_mode=mode, sort=False)
+    table = vmf_table(E) if mode == 'vmf' else None
+    label = (f'N={N} D={D} K={K} T={T} E={E} U={U} {mode}'
+             f'{" separable" if separable else " random"}')
+    fits = {n: il.integration_em_full(y, emb, vec, ev, w, *spec,
+                                      iterations=n, **kw)
+            for n in (1, 2, iterations - 1, iterations)}
+    grid = il.integration_em_full.last_grid
+    errors = loop_errors(fits[1], il.integration_em_full_reference(
+        y, emb, vec, ev, w, *spec, iterations=1, **kw))
+    sync()
+    log(f'K12 1 iter {label}: weight {errors[0]:.2e} covariance '
+        f'{errors[1]:.2e} accumulators rel {errors[2]:.2e}; grid {grid}')
+    if not (max(errors) < 1e-5
+            and all(bool(torch.isfinite(x).all()) for x in fits[1])):
+        fail(f'K12 one-iteration mismatch at {label}')
+
+    def posterior(out, y_=y):
+        return integration_posterior(y_, emb, out, mode, F, table)
+
+    def parts(a, b):
+        d = (a - b).abs()
+        return (d.mean().item(),
+                (a.argmax(-2) != b.argmax(-2)).float().mean().item())
+
+    for n in (1, iterations - 1):
+        lam, vectors, weight, acc = fits[n]
+        start_spec = il.spectral_m_step_reference(
+            acc, E=E, K=K, spectral_mode=mode, table=table)
+
+        def step(y_, warm_sweeps=2):
+            v, lam_, w_, acc_ = il.integration_em_step_reference(
+                y_, emb, (vectors, lam, weight, start_spec), bins_per_utt=F,
+                sweeps=warm_sweeps, spectral_mode=mode)
+            return lam_, v, w_, acc_
+        twin = posterior(step(y))
+        kernel = posterior(fits[n + 1])
+        got = parts(kernel, twin)
+        rounding = parts(posterior(step(y * (1 + 2 ** -22))), twin)
+        frozen = parts(posterior(step(y, 0)), twin)
+        limit = (4 * rounding[0] + 2.5e-3, 4 * rounding[1] + 4e-3)
+        sync()
+        log(f'K12 warm step {n} -> {n + 1} {label}: posteriors mean |diff| '
+            f'/ argmax parted: kernel {got[0]:.2e} / {got[1]:.2e}, twin on '
+            f'y (1 + 2^-22) {rounding[0]:.2e} / {rounding[1]:.2e} (limits '
+            f'{limit[0]:.2e} / {limit[1]:.2e}), control (no sweep) '
+            f'{frozen[0]:.2e} / {frozen[1]:.2e}')
+        if not (got[0] <= limit[0] and got[1] <= limit[1]):
+            fail(f'K12 warm step {n} -> {n + 1} mismatch at {label}')
+        if n == 1 and frozen[0] <= limit[0] and frozen[1] <= limit[1]:
+            fail(f'K12 warm step {n} -> {n + 1} at {label}: the control '
+                 'stays within the limits, which would not catch a wrong '
+                 'warm M-step')
+    out_k = fits[iterations]
+    p_ref = posterior(il.integration_em_full_reference(
+        y, emb, vec, ev, w, *spec, iterations=iterations, **kw))
+
+    def parted(p):
+        return (p.argmax(-2) != p_ref.argmax(-2)).float().mean().item()
+    kernel = parted(posterior(out_k))
+    rounding = parted(posterior(il.integration_em_full_reference(
+        y * (1 + 2 ** -22), emb, vec, ev, w, *spec, iterations=iterations,
+        **kw), y * (1 + 2 ** -22)))
+    limit = 2 * rounding + 0.01
+    frozen = None
+    if control:
+        frozen = parted(posterior(il.integration_em_full_reference(
+            y, emb, vec, ev, w, *spec, iterations=iterations, warm_sweeps=0,
+            **kw)))
+    finite = all(bool(torch.isfinite(x).all()) for x in out_k)
+    wsum = (out_k[2].sum(-1) - 1).abs().max().item()
+    sync()
+    log(f'K12 {iterations} iter {label}: finite {finite} |sum w - 1| '
+        f'{wsum:.2e}; frames whose argmax parts from the twin: kernel '
+        f'{kernel:.4f}, twin on y (1 + 2^-22) {rounding:.4f} (limit '
+        f'{limit:.4f})'
+        f'{f", control (frozen eigenvectors) {frozen:.4f}" if control else ""}')
+    if not (finite and wsum < 1e-4 and kernel <= limit):
+        fail(f'K12 {iterations}-iteration check failed at {label}')
+    if control and frozen <= limit:
+        fail(f'K12 {iterations}-iteration check at {label}: the control '
+             'stays within the limit, which would not catch a wrong warm '
+             'M-step')
+    return max(errors[:2])
+
+
 def phase_kernels():
     results = {}
     results['em_bench'] = check_em(8, 513, 6, 3, 300, seed=1)
@@ -1248,6 +1519,36 @@ def phase_kernels():
     check_bingham_stream(2, 65, 6, 3, 1001, seed=81, saliency=True)
     check_bingham_stream_fit(1, 513, 6, 3, 4000, seed=82)
     check_bingham_stream_fit(8, 513, 6, 3, 300, seed=83, weight_mode='fc')
+    # K10 at bench config 3 (F=513, T=300, D=6, K=3, E=20) in both
+    # spectral modes, with and without saliency, at an odd T, at B=8 and
+    # at D=8, K=4
+    results['integration_stats'] = check_integration_stats(
+        513, 6, 3, 300, 20, 1, 'vmf', seed=90)
+    check_integration_stats(513, 6, 3, 300, 20, 1, 'gaussian', seed=91)
+    check_integration_stats(513, 6, 3, 301, 20, 1, 'vmf', seed=92,
+                            saliency=True)
+    check_integration_stats(2 * 513, 6, 3, 301, 20, 2, 'gaussian', seed=93,
+                            saliency=True)
+    check_integration_stats(8 * 513, 6, 3, 300, 20, 8, 'vmf', seed=94)
+    check_integration_stats(130, 8, 4, 301, 7, 2, 'vmf', seed=95,
+                            saliency=True)
+    check_integration_stats(65, 8, 4, 37, 7, 1, 'gaussian', seed=96)
+    check_integration_stats(513, 6, 3, 300, 20, 1, 'vmf', seed=102,
+                            floor=True)
+    check_integration_stats(130, 8, 4, 301, 7, 2, 'gaussian', seed=103,
+                            saliency=True, floor=True)
+    # K12: the trainer's 19 in-kernel iterations at config 3 on random and
+    # on separable data, both modes, two utterances folded, D=8, K=4
+    results['integration_loop'] = check_integration_loop(
+        513, 6, 3, 300, 20, 1, 'vmf', seed=97, iterations=19)
+    check_integration_loop(513, 6, 3, 300, 20, 1, 'gaussian', seed=98,
+                           iterations=19)
+    check_integration_loop(513, 6, 3, 300, 20, 1, 'vmf', seed=99,
+                           iterations=19, separable=True, control=True)
+    check_integration_loop(2 * 257, 6, 3, 301, 20, 2, 'gaussian', seed=100,
+                           iterations=19, separable=True)
+    check_integration_loop(130, 8, 4, 150, 7, 2, 'vmf', seed=101,
+                           iterations=10, separable=True)
     return results
 
 
@@ -1384,8 +1685,10 @@ def counters():
     K7's, the streamed pass of both the Watson and the Bingham fits."""
     from pb_bss_tpu_torch.ops import (
         bingham, cbmm_loop, cwmm_loop, eigh, em_estep, em_loop, em_step,
-        em_stream, gev, mm_stream)
-    return {'cacgmm_em_full': em_loop.cacgmm_em_full,
+        em_stream, gev, integration_em, integration_em_loop, mm_stream)
+    return {'integration_e_stats': integration_em.e_stats,
+            'integration_em_full': integration_em_loop.integration_em_full,
+            'cacgmm_em_full': em_loop.cacgmm_em_full,
             'cwmm_em_full': cwmm_loop.cwmm_em_full,
             'mm_stats': mm_stream.mm_stats,
             'cbmm_em_full': cbmm_loop.cbmm_em_full,
@@ -1731,6 +2034,97 @@ def phase_cbmm():
     return path
 
 
+def phase_integration():
+    """The integration models on the card at the JAX package's bench
+    config 3 (F=513, T=300, D=6, K=3, E=20, random unit embeddings, 20
+    iterations): VMFCACGMMTrainer().fit unbatched and at B=8 and
+    GCACGMMTrainer().fit (spherical), each through 'auto' (K10 once per
+    iteration after the first, K1 in all 20 M-steps) and
+    use_fused_em='loop' (K12 once, K1 in the first M-step); then
+    VMFCACGMMTrainer().fit_predict on the eight 4.8 s utterances with
+    oracle embeddings against the floors of
+    ``testing/integration_quality.py``, and its control with random
+    embeddings, which must fail them. Returns the launches of the path's
+    kernels."""
+    import torch
+    from pb_bss_tpu_torch.models import GCACGMMTrainer, VMFCACGMMTrainer
+    from pb_bss_tpu_torch.testing import integration_quality as iq
+    path = dict.fromkeys(('integration_e_stats', 'integration_em_full',
+                          'eigh_jacobi'), 0)
+    idle = dict.fromkeys(counters(), 0)
+    step = {'integration_e_stats': 19, 'eigh_jacobi': 20}
+
+    def add(launches):
+        for k in path:
+            path[k] += launches[k]
+
+    E = 20
+    for label, B, trainer, kwargs in (
+            ('VMFCACGMMTrainer', 1, VMFCACGMMTrainer, {}),
+            ('VMFCACGMMTrainer', 8, VMFCACGMMTrainer, {}),
+            ("GCACGMMTrainer('spherical')", 1, GCACGMMTrainer,
+             dict(covariance_type='spherical'))):
+        y, _, _ = em_inputs(B, 513, 6, 3, 300, seed=110 + B)
+        obs = y.transpose(-1, -2)
+        g = torch.Generator('cuda').manual_seed(120 + B)
+        emb = torch.randn((B, 513, 300, E), generator=g, device='cuda')
+        emb = emb / emb.norm(dim=-1, keepdim=True)
+        if B == 1:
+            obs, emb = obs[0], emb[0]
+        for route, want in (('auto', step),
+                            ('loop', {'integration_em_full': 1,
+                                      'eigh_jacobi': 1})):
+            sync()
+            reset_counters()
+            model = trainer().fit(obs, emb, num_classes=3, iterations=20,
+                                  use_fused_em=route, **kwargs)
+            sync()
+            launches = read_counters()
+            add(launches)
+            expect_launches(
+                f'{label}.fit B={B} F=513 T=300 D=6 K=3 E={E}, 20 it, '
+                f'use_fused_em={route!r}', launches, {**idle, **want})
+            aff = model.predict(obs, emb)
+            finite = bool(torch.isfinite(aff).all()) and bool(
+                torch.isfinite(model.cacg.covariance_eigenvalues).all())
+            asum = (aff.sum(-2) - 1).abs().max().item()
+            weight = model.weight.reshape(-1, 3).mean(0).tolist()
+            log(f'  finite {finite}, |sum_k posterior - 1| {asum:.1e}, '
+                f'mean weight per class {[round(v, 4) for v in weight]}')
+            if not (finite and asum < 1e-4):
+                fail(f'{label}.fit B={B} use_fused_em={route!r} is not '
+                     'finite or its posterior is not normalized')
+
+    observations, images, noise = iq.utterances()
+    observations = observations.cuda()
+    for kind in iq.EMBEDDINGS:
+        sync()
+        reset_counters()
+        scores, accuracy = iq.integration_quality(
+            observations, images, noise, iq.embeddings(images, noise, kind))
+        sync()
+        launches = read_counters()
+        add(launches)
+        expect_launches(f'integration quality ({kind} embeddings), '
+                        'VMFCACGMMTrainer.fit_predict 8 x 4.8 s, 20 it',
+                        launches, {**idle, **step})
+        passed = iq.passes(scores, accuracy)
+        log(f'  {kind}: decision accuracy '
+            f'{[round(a, 3) for a in accuracy.tolist()]}; SI-SDR per speaker '
+            f'{[[round(v, 2) for v in row] for row in scores.tolist()]}; batch'
+            f' means {[round(v, 2) for v in scores.mean(0).tolist()]}; '
+            f'passes the floors {passed}')
+        if kind == 'oracle' and not passed:
+            fail(f'integration quality below the floors (accuracy '
+                 f'{iq.ACCURACY_FLOOR}, {iq.MEAN_FLOOR_DB} dB mean, '
+                 f'{iq.SINGLE_FLOOR_DB} dB single)')
+        if kind == 'random' and passed:
+            fail('the integration control (random embeddings) meets the '
+                 'floors: they would not catch a spectral model that does '
+                 'not act')
+    return path
+
+
 def phase_fc_path():
     """The rest of the cACGMM trainer on the card: frequency-constant
     weights through K5 (batched, resumed, and with the inline aligners),
@@ -1904,8 +2298,26 @@ def bingham_flops(N, K, D, T, iterations, cold_rounds=3, cold_steps=10,
                 jacobi_flops(N * K, D, warm_sweeps) + N * K * 16 * D ** 3))
 
 
+# float32 operations of one integration-model E-step and its sums, counted
+# as em_flops counts: per frame the products y_d conj(y_e) of the scatter
+# once, shared by the classes, and the embedding's norm (vMF) or squares
+# (Gaussian); per (frame, class) the quadratic form as the projection on
+# the eigenvectors (8 per complex multiply-add, D^2 of them, and 3 per
+# eigenvalue), the spectral dot (2 per dimension; the Gaussian's two dots
+# 4), ~10 for the logs and the softmax, the scatter (4 per upper-triangle
+# entry), the resultants (2 per dimension) and the Gaussian's second
+# moments (2).
+def integration_flops(frames, K, D, E, mode):
+    P = D * (D + 1) // 2
+    gaussian = mode == 'gaussian'
+    per_frame = 3 * D + 6 * (P - D) + (E if gaussian else 2 * E)
+    per_class = 8 * D * D + 3 * D + 4 * P + 10 \
+        + (8 * E if gaussian else 4 * E)
+    return frames * (per_frame + K * per_class)
+
+
 def phase_timing(errors, launches, long_launches, fc_launches,
-                 cwmm_launches, cbmm_launches):
+                 cwmm_launches, cbmm_launches, integration_launches):
     import torch
     import pb_bss_tpu_torch as P
     from pb_bss_tpu_torch.ops.eigh import eigh_jacobi, eigh_jacobi_reference
@@ -1981,6 +2393,7 @@ def phase_timing(errors, launches, long_launches, fc_launches,
     estep_times = time_estep()
     cwmm_times = time_cwmm()
     cbmm_times = time_cbmm()
+    integration_times = time_integration()
 
     def e2e(batches, count, label, model='cacgmm'):
         """Host clock around synchronized separate_batch calls, distinct
@@ -2073,6 +2486,16 @@ def phase_timing(errors, launches, long_launches, fc_launches,
         ('cbmm_em_long', 'mm_stream.cu', 'pallas_mm_stream.py:252',
          cbmm_launches['cbmm_em_long'], errors['bingham_stream'],
          *cbmm_times['cbmm_em_long'], None),
+        ('integration_e_stats', 'integration_em.cu',
+         'pallas_integration_em.py:282',
+         integration_launches['integration_e_stats'],
+         errors['integration_stats'],
+         *integration_times['integration_e_stats'], None),
+        ('integration_em_full', 'integration_em_loop.cu',
+         'pallas_integration_em_loop.py:530',
+         integration_launches['integration_em_full'],
+         errors['integration_loop'],
+         *integration_times['integration_em_full'], None),
     ]
     kernels = []
     for (name, source, replaces, count, err, ms, plain, (bound_ms, by),
@@ -2422,6 +2845,105 @@ def time_cbmm():
     return out
 
 
+def time_integration():
+    """K10 per vMF pass at bench config 3 (F=513, T=300, D=6, K=3, E=20,
+    random unit embeddings) and at B=8, K12 per 19-iteration vMF fit (the
+    trainer's in-kernel iterations) at config 3, each against its twin;
+    and VMFCACGMMTrainer().fit at config 3 (20 iterations) through 'auto'
+    (K10 + K1) and 'loop' (K12), in turns, host clock around synchronized
+    fits, distinct inputs per repetition: the K12 : K10 ratio of a whole
+    fit. Returns {kernel: (ms, plain_ms, bound)}."""
+    import statistics
+    import torch
+    from pb_bss_tpu_torch.models import VMFCACGMMTrainer
+    from pb_bss_tpu_torch.ops import integration_em_loop as il
+    from pb_bss_tpu_torch.ops.integration_em import e_stats, e_stats_reference
+    D, K, E, F, T = 6, 3, 20, 513, 300
+    out = {}
+
+    def stats(fn):
+        return lambda y, emb, ev, vec, w, spec, sal: fn(
+            y, emb, eigenvalues=ev, eigenvectors=vec, weight=w, mu=spec[0],
+            kappa=spec[1], log_c=spec[2], bins_per_utt=F)
+
+    def whole_fit(fn):
+        return lambda y, emb, ev, vec, w, spec, sal: fn(
+            y, emb, vec, ev, w, *spec, iterations=19, bins_per_utt=F)
+
+    for B in (1, 8):
+        ins = [integration_inputs(B * F, D, K, T, E, B, 'vmf', 2000 + 10 * B
+                                  + i) for i in range(6)]
+        ms = cuda_time(stats(e_stats), ins)
+        plain = cuda_time(stats(e_stats_reference), ins[:3])
+        log(f'timing K10 vmf pass B={B} F={F} D={D} K={K} T={T} E={E}: '
+            f'kernel {ms:.4f} ms, plain {plain:.4f} ms')
+        if B == 1:
+            y, emb, ev, vec, w, spec, _ = ins[0]
+            # y, the embedding and the model in; the scatter, the
+            # affiliation sums and the resultants out
+            moved = nbytes(y, emb, ev, vec, w, *spec) \
+                + F * K * (8 * D * D + 4 + 4 * E)
+            flops = integration_flops(F * T, K, D, E, 'vmf')
+            out['integration_e_stats'] = (ms, plain, bound(moved, flops))
+            ms12 = cuda_time(whole_fit(il.integration_em_full), ins[:4])
+            plain12 = cuda_time(whole_fit(il.integration_em_full_reference),
+                                ins[4:6], warmup=0)
+            log(f'timing K12 vmf B=1 F={F} D={D} K={K} T={T} E={E}, 19 it: '
+                f'kernel {ms12:.3f} ms (grid '
+                f'{il.integration_em_full.last_grid}), plain {plain12:.3f} ms')
+            # the inputs and the initial state in, the state and the
+            # accumulators out; per iteration the E-step and its sums, the
+            # warm rotation (16 D^3 a class), the Jacobi (6 sweeps, then 2)
+            moved = 2 * nbytes(ev, vec, w) + nbytes(y, emb, *spec) \
+                + K * (E + 1) * 4
+            flops = 19 * (integration_flops(F * T, K, D, E, 'vmf')
+                          + F * K * 16 * D ** 3) \
+                + jacobi_flops(F * K, D, 6) + 18 * jacobi_flops(F * K, D, 2)
+            out['integration_em_full'] = (ms12, plain12, bound(moved, flops))
+
+    fits = []
+    for i in range(4):
+        y, _, _ = em_inputs(1, F, D, K, T, 2200 + i)
+        g = torch.Generator('cuda').manual_seed(2200 + i)
+        emb = torch.randn((F, T, E), generator=g, device='cuda')
+        fits.append((y[0].transpose(-1, -2),
+                     emb / emb.norm(dim=-1, keepdim=True)))
+    route_ms = {'auto': [], 'loop': []}
+    for route in ('auto', 'loop', 'loop', 'auto'):
+        VMFCACGMMTrainer().fit(*fits[0], num_classes=K, iterations=20,
+                               use_fused_em=route)
+        sync()
+        for obs, emb in fits[1:]:
+            t0 = time.perf_counter()
+            VMFCACGMMTrainer().fit(obs, emb, num_classes=K, iterations=20,
+                                   use_fused_em=route)
+            sync()
+            route_ms[route].append(1e3 * (time.perf_counter() - t0))
+    ratio = statistics.median(route_ms['loop']) \
+        / statistics.median(route_ms['auto'])
+    log(f'timing VMFCACGMMTrainer.fit F={F} T={T} D={D} K={K} E={E}, 20 it '
+        f"(host clock): 'auto' (K10 19 + K1 20) "
+        f"{[round(t, 3) for t in route_ms['auto']]} ms, 'loop' (K12 1 + K1 "
+        f"1) {[round(t, 3) for t in route_ms['loop']]} ms; median ratio "
+        f'loop / auto {ratio:.3f}')
+    for route in ('auto', 'loop'):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            VMFCACGMMTrainer().fit(*fits[1], num_classes=K, iterations=20,
+                                   use_fused_em=route)
+            sync()
+            wall = 1e3 * (time.perf_counter() - t0)
+        busy = device_times(prof, '')['all kernels'][0] / 1e3
+        log(f'profile VMFCACGMMTrainer.fit({route!r}) F={F} T={T}: wall '
+            f'{wall:.2f} ms (profiled), device busy {busy:.2f} ms, idle '
+            f'share {1 - busy / wall:.3f}; device us (count) of the '
+            f'integration kernels {device_times(prof, "integration")}, K1 '
+            f'{device_times(prof, "eigh")}')
+    return out
+
+
 def time_estep():
     """K11 per launch against its twins: the E-step at F=513, T=300 and
     the scatter at the use_pallas_em slice shape F=257, T=304. Returns
@@ -2482,8 +3004,10 @@ def main():
         fc_launches = timed(phase_fc_path)
         cwmm_launches = timed(phase_cwmm)
         cbmm_launches = timed(phase_cbmm)
+        integration_launches = timed(phase_integration)
         kernels = timed(phase_timing, errors, launches, long_launches,
-                        fc_launches, cwmm_launches, cbmm_launches)
+                        fc_launches, cwmm_launches, cbmm_launches,
+                        integration_launches)
         timed(time_fc_stages)
     except SystemExit:
         raise

@@ -1,27 +1,64 @@
 """Scale-Invariant Signal-to-Distortion Ratio (SI-SDR) [LeRoux2019]
 "SDR - Half-Baked or Well Done?", broadcast over leading dims.
 
-Computed in the inputs' precision; the JAX package asserts float64
-unless ``allow_float32`` (the projection suffers cancellation in
-float32: expect ~0.01 dB noise on typical signals).
+Counterpart of ``pb_bss_tpu.evaluation.module_si_sdr``, with its float64
+contract: :func:`si_sdr` refuses anything but float64 input unless the
+caller passes ``allow_float32=True`` (the projection suffers
+cancellation in float32: expect ~0.01 dB noise on typical signals).
+Integer input is refused either way: its squares overflow.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ['si_sdr']
+__all__ = ['si_sdr', 'si_sdr_allow_float32', 'si_sdr_stft']
 
 
-def si_sdr(reference, estimation):
-    """SI-SDR in dB of ``estimation`` against ``reference``, both
-    (..., T) real tensors (broadcastable).
+def _dtype(x):
+    """The numpy dtype of a tensor, an array or a scalar."""
+    if isinstance(x, torch.Tensor):
+        return torch.empty((), dtype=x.dtype).numpy().dtype
+    return x.dtype if hasattr(x, 'dtype') else np.asarray(x).dtype
+
+
+def si_sdr_allow_float32(*arrays):
+    """The opt-in policy for :func:`si_sdr`'s ``allow_float32``: True
+    exactly when every input is floating and at least one is float32.
+    Integer inputs keep raising the float64 contract: treating any
+    non-float64 dtype as an opt-in would let int16 PCM silently compute
+    garbage (integer sums overflow in the energy terms)."""
+    dts = [_dtype(a) for a in arrays]
+    return (all(np.issubdtype(dt, np.floating) for dt in dts)
+            and any(dt == np.float32 for dt in dts))
+
+
+def si_sdr(reference, estimation, *, allow_float32=False):
+    """SI-SDR in dB of ``estimation`` against ``reference``.
+
+    Args:
+        reference: (..., T) float64 (tensor, array or sequence).
+        estimation: (..., T) float64, broadcastable.
+        allow_float32: accept other floating inputs (float32 on the
+            card, where the evaluation stays on the device).
 
     >>> g = torch.Generator().manual_seed(0)
     >>> reference = torch.randn(100, generator=g, dtype=torch.float64)
     >>> float(si_sdr(reference, reference * 2)) == float('inf')
     True
     """
-    estimation, reference = torch.broadcast_tensors(estimation, reference)
+    if not allow_float32:
+        # the contract is about the data given: check it before any
+        # conversion
+        for name, x in (('reference', reference),
+                        ('estimation', estimation)):
+            dt = _dtype(x)
+            assert dt == np.float64, (
+                f'The reference requires float64 inputs for a meaningful '
+                f'SI-SDR ({name} has {dt}); pass allow_float32=True for '
+                f'on-device f32 evaluation.')
+    estimation, reference = torch.broadcast_tensors(
+        torch.as_tensor(estimation), torch.as_tensor(reference))
     reference_energy = (reference ** 2).sum(-1, keepdim=True)
     # alpha after Equation (3) in [LeRoux2019]
     optimal_scaling = (reference * estimation).sum(-1, keepdim=True) \

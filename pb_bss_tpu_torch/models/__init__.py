@@ -11,3 +11,15 @@ from .complex_angular_central_gaussian import (  # noqa: F401
 )
 from .complex_watson import ComplexWatson, ComplexWatsonTrainer  # noqa: F401
 from .cwmm import CWMM, CWMMTrainer  # noqa: F401
+from .gaussian import (  # noqa: F401
+    DiagonalGaussian,
+    Gaussian,
+    GaussianTrainer,
+    SphericalGaussian,
+)
+from .gcacgmm import GCACGMM, GCACGMMTrainer  # noqa: F401
+from .vmfcacgmm import VMFCACGMM, VMFCACGMMTrainer  # noqa: F401
+from .von_mises_fisher import (  # noqa: F401
+    VonMisesFisher,
+    VonMisesFisherTrainer,
+)

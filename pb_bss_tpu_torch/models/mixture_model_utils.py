@@ -2,12 +2,15 @@
 (counterpart of ``pb_bss_tpu.models.mixture_model_utils``)."""
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from .._dtypes import tiny as _tiny
 
-__all__ = ['log_pdf_to_affiliation', 'estimate_mixture_weight',
-           'apply_inline_permutation_alignment']
+__all__ = ['log_pdf_to_affiliation',
+           'log_pdf_to_affiliation_for_integration_models_with_inline_pa',
+           'estimate_mixture_weight', 'apply_inline_permutation_alignment']
 
 
 def log_pdf_to_affiliation(weight, log_pdf, source_activity_mask=None,
@@ -36,6 +39,41 @@ def log_pdf_to_affiliation(weight, log_pdf, source_activity_mask=None,
         affiliation = torch.clamp(
             affiliation, affiliation_eps, 1 - affiliation_eps)
     return affiliation
+
+
+def log_pdf_to_affiliation_for_integration_models_with_inline_pa(
+        weight, spatial_log_pdf, spectral_log_pdf, source_activity_mask=None,
+        affiliation_eps=0.):
+    """Inline per-frequency permutation alignment between a spatial and a
+    spectral model ([Drude2018Dual] Eq. 11-12): per frequency the spatial
+    classes are permuted to the permutation whose posterior best explains
+    the joint log-pdf, ``argmax_P sum_{k,t} gamma_P log p_P``.
+
+    All K! permutations are evaluated at once as one gather, (P, F, K, T)
+    candidate log-pdfs -> auxiliary values (P, F) -> argmax over P per
+    frequency (the first of equal maxima). K is asserted small (K! terms).
+
+    Shapes: spatial_log_pdf / spectral_log_pdf (F, K, T); weight
+    broadcastable against them.
+    """
+    F, num_classes, T = spatial_log_pdf.shape
+    assert num_classes <= 6, (num_classes, 'K! blows up')
+    permutations = torch.tensor(
+        list(itertools.permutations(range(num_classes))),
+        device=spatial_log_pdf.device)  # (P, K)
+    # (P, F, K, T): spatial rows permuted, spectral fixed
+    log_pdf = spatial_log_pdf[:, permutations, :].transpose(0, 1) \
+        + spectral_log_pdf[None]
+    candidate = torch.exp(log_pdf - log_pdf.max(dim=-2, keepdim=True).values)
+    candidate = candidate / torch.clamp(candidate.sum(-2, keepdim=True),
+                                        min=_tiny(candidate))
+    auxiliary = (candidate * log_pdf).sum((-2, -1))  # (P, F)
+    best = torch.argmax(auxiliary, dim=0)  # (F,)
+    best_log_pdf = log_pdf[best, torch.arange(F, device=best.device)]
+    return log_pdf_to_affiliation(
+        torch.broadcast_to(torch.as_tensor(weight), spatial_log_pdf.shape),
+        best_log_pdf, source_activity_mask=source_activity_mask,
+        affiliation_eps=affiliation_eps)
 
 
 def _axes(axis):

@@ -25,7 +25,8 @@ __all__ = ['CSRC', 'BUILD_DIR', 'KERNELS', 'SMEM_LIMIT', 'nvcc_command',
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = CSRC.parent / '_kernels'
-_HEADERS = ('jacobi.cuh', 'em_common.cuh', 'watson.cuh', 'bingham.cuh')
+_HEADERS = ('jacobi.cuh', 'em_common.cuh', 'watson.cuh', 'bingham.cuh',
+            'integration.cuh')
 # bytes of shared memory one block may opt into on the H100 (sm_90), the
 # budget of every kernel's shape gate
 SMEM_LIMIT = 232448
@@ -73,6 +74,15 @@ KERNELS = {
     'cbmm_loop': {
         'cbmm_em_full_launch': (
             [_P] * 8 + [_I] * 10 + [_F] * 8 + [_P], _I),
+    },
+    'integration_em': {
+        'integration_stats_launch': (
+            [_P] * 13 + [_I] * 9 + [_F] * 3 + [_P], _I),
+    },
+    'integration_em_loop': {
+        'integration_em_loop_launch': (
+            [_P] * 11 + [_I] * 10 + [_F] * 6 + [_I, _F, _F, _I, _I, _P, _P],
+            _I),
     },
 }
 

@@ -609,3 +609,138 @@ def test_cbmm_trainer_routes_to_the_bingham_kernels(cuda, route):
     assert tuple(a - b for a, b in zip(counts(), before)) == want
     assert torch.isfinite(model.complex_bingham.covariance_eigenvalues).all()
     assert torch.isfinite(posterior).all()
+
+
+def _integration_inputs(N, D, K, T, E, U, mode, device, saliency=False,
+                        seed=0, floor=False):
+    """Unit-norm two-source mixtures, a random embedding, a
+    well-conditioned cACG model per bin and a spectral state per
+    utterance, made on the card. With ``floor``, class 0's smallest
+    eigenvalue sits at the eigenvalue floor and a third of the frames lie
+    in the span of its other eigenvectors (a converged fit's regime)."""
+    import math
+    from pb_bss_tpu_torch.models.von_mises_fisher import VonMisesFisher
+    g = torch.Generator(device).manual_seed(seed)
+
+    def cn(*shape):
+        return torch.complex(torch.randn(shape, generator=g, device=device),
+                             torch.randn(shape, generator=g, device=device))
+    y = torch.einsum('ndk,nkt->ndt', cn(N, D, 2), cn(N, 2, T)) \
+        + 0.3 * cn(N, D, T)
+    y = y / torch.linalg.vector_norm(y, dim=1, keepdim=True)
+    emb = torch.randn((N, E, T), generator=g, device=device)
+    a = cn(N, K, D, D)
+    cov = a @ a.conj().transpose(-1, -2) / D \
+        + 2 * torch.eye(D, device=device)
+    eigenvalues, eigenvectors = torch.linalg.eigh(cov)
+    eigenvalues = eigenvalues / eigenvalues.max(-1, keepdim=True).values
+    if floor:
+        eigenvalues[:, 0, 0] = 1e-10
+        inside = torch.einsum('nde,net->ndt', eigenvectors[:, 0, :, 1:],
+                              cn(N, D - 1, T // 3))
+        y[..., :T // 3] = inside / torch.linalg.vector_norm(
+            inside, dim=1, keepdim=True)
+    weight = torch.rand((N, K), generator=g, device=device) + 0.5
+    weight = weight / weight.sum(-1, keepdim=True)
+    if mode == 'vmf':
+        mu = torch.randn((U, K, E), generator=g, device=device)
+        mu = mu / mu.norm(dim=-1, keepdim=True)
+        kappa = 1 + 19 * torch.rand((U, K), generator=g, device=device)
+        spec = (mu, kappa, VonMisesFisher(mean=mu,
+                                          concentration=kappa).log_norm())
+    else:
+        mean = 0.3 * torch.randn((U, K, E), generator=g, device=device)
+        prec = 0.5 + torch.rand((U, K, E), generator=g, device=device)
+        const = 0.5 * E * math.log(2 * math.pi) \
+            - 0.5 * torch.log(prec).sum(-1) + 0.5 * (mean ** 2 * prec).sum(-1)
+        spec = (prec * mean, prec, const)
+    sal = (torch.rand((N, T), generator=g, device=device) if saliency
+           else None)
+    return y, emb, eigenvalues, eigenvectors, weight, spec, sal
+
+
+@pytest.mark.parametrize('mode,D,K,T,E,U,saliency,floor', [
+    ('vmf', 6, 3, 300, 20, 1, False, False),
+    ('gaussian', 6, 3, 300, 20, 2, True, False),
+    ('vmf', 8, 4, 37, 7, 1, True, False),
+    ('gaussian', 3, 2, 301, 5, 1, False, False),
+    ('vmf', 6, 3, 300, 20, 1, False, True),
+    ('gaussian', 8, 4, 150, 7, 2, True, True)])
+def test_integration_stats_kernel_matches_plain(cuda, mode, D, K, T, E, U,
+                                                saliency, floor):
+    from pb_bss_tpu_torch.ops import integration_em
+    N = 66
+    y, emb, ev, vec, w, spec, sal = _integration_inputs(
+        N, D, K, T, E, U, mode, cuda, saliency, floor=floor)
+    kw = dict(eigenvalues=ev, eigenvectors=vec, weight=w, mu=spec[0],
+              kappa=spec[1], log_c=spec[2], bins_per_utt=N // U,
+              spectral_mode=mode, saliency=sal, spatial_weight=0.7,
+              spectral_weight=1.3)
+    before = integration_em.e_stats.launches
+    out = integration_em.e_stats(y, emb, **kw)
+    torch.cuda.synchronize()
+    assert integration_em.e_stats.launches == before + 1
+    ref = integration_em.e_stats_reference(y, emb, **kw)
+    # f32 sums over T frames in two orders: 1e-5 of the largest entry
+    for a, b in zip(out, ref):
+        if b is None:
+            assert a is None
+            continue
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    assert torch.equal(out[0], out[0].conj().transpose(-1, -2))
+
+
+@pytest.mark.parametrize('mode', ['vmf', 'gaussian'])
+def test_integration_whole_fit_kernel_one_iteration_matches_plain(cuda,
+                                                                  mode):
+    from pb_bss_tpu_torch.ops import integration_em_loop as il
+    N, D, K, T, E, U = 2 * 33, 6, 3, 150, 8, 2
+    y, emb, ev, vec, w, spec, _ = _integration_inputs(N, D, K, T, E, U,
+                                                      mode, cuda)
+    kw = dict(iterations=1, bins_per_utt=N // U, spectral_mode=mode)
+    before = il.integration_em_full.launches
+    out = il.integration_em_full(y, emb, vec, ev, w, *spec, **kw)
+    torch.cuda.synchronize()
+    assert il.integration_em_full.launches == before + 1
+    ref = il.integration_em_full_reference(y, emb, vec, ev, w, *spec, **kw)
+    # one iteration: the same sums in two orders and two f32 Jacobi runs
+    torch.testing.assert_close(out[0], ref[0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(out[2], ref[2], atol=1e-5, rtol=0)
+    assert (out[3] - ref[3]).abs().max() <= 1e-5 * ref[3].abs().max()
+
+
+def test_integration_whole_fit_too_large_a_grid_raises(cuda):
+    from pb_bss_tpu_torch.ops import integration_em_loop as il
+    y, emb, ev, vec, w, spec, _ = _integration_inputs(33, 4, 2, 40, 5, 1,
+                                                      'vmf', cuda)
+    # 100,000 CTAs of 256 threads cannot be co-resident on any card:
+    # cudaErrorCooperativeLaunchTooLarge, never a fallback
+    with pytest.raises(RuntimeError, match='CUDA error 720'):
+        il.integration_em_full(y, emb, vec, ev, w, *spec, iterations=2,
+                               grid=100_000)
+
+
+@pytest.mark.parametrize('trainer', ['vmf', 'spherical'])
+@pytest.mark.parametrize('route', ['auto', 'loop'])
+def test_integration_trainers_launch_their_kernels(cuda, trainer, route):
+    """'auto' runs K10 once per iteration after the first and K1 in every
+    M-step; 'loop' runs K12 once and K1 in the first M-step only."""
+    from pb_bss_tpu_torch.models import GCACGMMTrainer, VMFCACGMMTrainer
+    from pb_bss_tpu_torch.ops import eigh, integration_em, integration_em_loop
+    g = torch.Generator(cuda).manual_seed(3)
+    obs = torch.randn((65, 120, 6), dtype=torch.complex64, device=cuda,
+                      generator=g)
+    emb = torch.randn((65, 120, 8), device=cuda, generator=g)
+    fit = (VMFCACGMMTrainer().fit if trainer == 'vmf' else
+           lambda *a, **k: GCACGMMTrainer().fit(
+               *a, covariance_type='spherical', **k))
+    counters = (integration_em.e_stats, integration_em_loop.integration_em_full,
+                eigh.eigh_jacobi)
+    before = [c.launches for c in counters]
+    model = fit(obs, emb, num_classes=3, iterations=5, use_fused_em=route)
+    torch.cuda.synchronize()
+    got = [c.launches - b for c, b in zip(counters, before)]
+    assert got == ([4, 0, 5] if route == 'auto' else [0, 1, 1]), got
+    aff = model.predict(obs, emb)
+    assert torch.isfinite(aff).all()
+    torch.testing.assert_close(aff.sum(-2), torch.ones_like(aff[:, 0]))

@@ -25,9 +25,10 @@ from pb_bss_tpu_torch.evaluation import module_si_sdr
 from pb_bss_tpu_torch.extraction import beamformer, beamformer_wrapper
 from pb_bss_tpu_torch.models import (
     base, cacgmm, complex_angular_central_gaussian, complex_watson, cwmm,
-    mixture_model_utils)
+    gaussian, gcacgmm, mixture_model_utils, vmfcacgmm, von_mises_fisher)
 from pb_bss_tpu_torch.ops import (
-    _build, cwmm_loop, em_loop, gev, linalg, mm_stream)
+    _build, cwmm_loop, em_loop, gev, integration_em, integration_em_loop,
+    linalg, mm_stream)
 from pb_bss_tpu_torch.testing import dummy_data
 from pb_bss_tpu_torch.transform import stft_module
 assert 'jax' not in sys.modules, 'jax was imported'
@@ -48,6 +49,17 @@ out = cwmm_loop.cwmm_em_full(y, aff, iterations=2)
 assert out[3].shape == (4, 3, 20)
 out = mm_stream.cwmm_em_long(y, aff, iterations=2)
 assert out[1].shape == (4, 3, 6)
+obs = torch.randn((4, 20, 6), dtype=torch.complex64, generator=g)
+emb = torch.randn((4, 20, 5), generator=g)
+for trainer, kw in ((vmfcacgmm.VMFCACGMMTrainer(), {}),
+                    (gcacgmm.GCACGMMTrainer(),
+                     dict(covariance_type='diagonal'))):
+    for route in (True, 'loop'):
+        model = trainer.fit(obs, emb, num_classes=3, iterations=3,
+                            use_fused_em=route, **kw)
+        assert model.predict(obs, emb).shape == (4, 3, 20)
+assert integration_em.e_stats.launches == 0
+assert integration_em_loop.integration_em_full.launches == 0
 assert em_loop.cacgmm_em_full.launches == 0
 assert gev.gev.launches == 0
 assert cwmm_loop.cwmm_em_full.launches == 0
