@@ -4,8 +4,9 @@
 
 Builds the hand-written CUDA kernels from pb_bss_tpu_torch/csrc (one
 nvcc per source, all at once), holds each against its plain PyTorch
-version on the card, and drives six paths, each with the launch
-counters reset just before and read just after:
+version on the card (the four cACGMM kernels also with an eigenvalue at
+the floor, pb_bss_tpu_torch.testing.em_floor), and drives six paths,
+each with the launch counters reset just before and read just after:
 
 * the short-recording path: ``separate_batch`` of 4.8 s utterances
   with the GEV+BAN beamformer (whole-fit EM kernel, GEV kernel),
@@ -47,6 +48,13 @@ bytes and operations of this run's inputs), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without a CUDA device, outside a checkout of the repository,
 or when any phase fails. Imports nothing of JAX.
+
+    python3 chip_smoke.py --only floor,cacgmm,splits,e2e [--package DIR]
+
+runs only the named phases after the build (the floor checks, the cACGMM
+kernels' checks, the split of the whole-fit and streamed EM kernels'
+time, the cACGMM separate_batch end to end), with ``pb_bss_tpu_torch`` imported from DIR if given (another
+checkout, to time two versions in one call); it prints no kernels line.
 """
 from __future__ import annotations
 
@@ -225,7 +233,8 @@ def phase_build():
         f'{sorted(_build.KERNELS)}')
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
-            if 'registers' in line or 'spill' in line:
+            if any(key in line for key in ('registers', 'spill', 'took',
+                                           'entry function')):
                 log(f'  ptxas {name}: {line.strip()}')
 
 
@@ -447,8 +456,8 @@ def check_stream(B, F, D, K, T, seed, weight_mode='per_bin',
             f'max|cov_k - cov_p| {err:.2e} (max|cov| {scale:.2f}); '
             f'asum rel {rel_a:.2e}; |S - S^H| {herm:.1e}')
         # f32 sums over thousands of frames in two orders, and (model
-        # mode) the quadratic form through the assembled inverse
-        # against the projection V^H y: 1e-4 of the largest entry
+        # mode) the projection on V diag(l^-1/2) against V^H y then / l:
+        # 1e-4 of the largest entry
         if not (err <= 1e-4 * scale and rel_a <= 1e-4 and herm == 0.
                 and bool(torch.isfinite(s_k).all())):
             fail(f'K4 {mode} mismatch at {(B, F, D, K, T, weight_mode)}')
@@ -643,13 +652,171 @@ def check_estep(F, D, K, T, seed):
     log(f'K11 F={F} D={D} K={K} T={T}: e_step max|aff| {err_a:.2e}, qf rel '
         f'{rel_q:.2e}; scatter max|S_k - S_p| {err_s:.2e} (max|S| '
         f'{scale:.2f}), asum rel {rel_a:.2e}')
-    # the inverse-covariance quadratic form against the projection, and
-    # f32 sums over T in two orders: 1e-4 (relative, or of the largest
-    # scatter entry)
+    # the projection on V diag(sqrt(1/l)) against V^H y then times 1/l,
+    # and f32 sums over T in two orders: 1e-4 (relative, or of the
+    # largest scatter entry)
     if not (err_a <= 1e-4 and rel_q <= 1e-4 and err_s <= 1e-4 * scale
             and rel_a <= 1e-4):
         fail(f'K11 mismatch at {(F, D, K, T)}')
     return err_a, err_s
+
+
+# ---------------------------------------------------------------------
+# the eigenvalue floor (pb_bss_tpu_torch.testing.em_floor): each cACGMM
+# kernel against its twin with an eigenvalue at the floor, at the
+# tolerances of its check above. Each returns (passed, message).
+# ---------------------------------------------------------------------
+
+def floor_tensors(x):
+    import torch
+    return {k: torch.as_tensor(v, device='cuda') for k, v in x.items()}
+
+
+def check_em_floor(N, D, K, T, seed):
+    """K2, one iteration from affiliations under which class 0's first
+    M-step is rank-deficient (affiliation_eps=0), held in its two halves:
+    the M-step against the twin's (weights, eigenvalues and covariances),
+    and the E-step against the twin's E-step on the kernel's own model.
+    (Against the twin's whole iteration the posterior moves with the
+    rounding noise of the eigenvalue at zero, whatever computes it: that
+    comparison and the twin's own on y (1 + 2^-22) are logged.)"""
+    from pb_bss_tpu_torch.models.cacgmm import CACGMM
+    from pb_bss_tpu_torch.models.complex_angular_central_gaussian import (
+        ComplexAngularCentralGaussian)
+    from pb_bss_tpu_torch.ops.em_loop import (
+        cacgmm_em_full, cacgmm_em_full_reference)
+    from pb_bss_tpu_torch.testing.em_floor import affiliations_at_floor
+    x = floor_tensors(affiliations_at_floor(N, D, K, T, seed))
+    args = (x['y'], x['affiliation'], x['quadratic_form'])
+    kw = dict(iterations=1, sweeps=6 if D <= 8 else 8, affiliation_eps=0.)
+    out_k = cacgmm_em_full(*args, warm_sweeps=2, **kw)
+    out_p = cacgmm_em_full_reference(*args, **kw)
+    model = CACGMM(weight=out_k[0][..., None], cacg=(
+        ComplexAngularCentralGaussian(covariance_eigenvectors=out_k[2],
+                                      covariance_eigenvalues=out_k[1])))
+    e_step = model._predict(x['y'], affiliation_eps=0.)[0]
+    own = cacgmm_em_full_reference(args[0] * (1 + 2 ** -22), *args[1:],
+                                   **kw)[3]
+    sync()
+    err_w = (out_k[0] - out_p[0]).abs().max().item()
+    err_e = (out_k[1] - out_p[1]).abs().max().item()
+    _, err_c, scale = state_errors(out_k[2], out_k[1], out_p[2], out_p[1])
+    err_a = (out_k[3] - e_step).abs().max().item()
+    whole = (out_k[3] - out_p[3]).abs()
+    low = out_p[1][:, 0, 0].max().item()
+    message = (
+        f'K2 floor N={N} D={D} K={K} T={T}, 1 iter: weight {err_w:.2e} eig '
+        f'{err_e:.2e} covariance {err_c:.2e} (max {scale:.2f}); aff against '
+        f'the twin\'s E-step on the kernel\'s model {err_a:.2e}; against '
+        f'the twin\'s iteration {whole.max().item():.2e} '
+        f'({int((whole.amax((1, 2)) >= 2e-3).sum())} bins >= 2e-3), the twin '
+        f'on y (1 + 2^-22) {(own - out_p[3]).abs().max().item():.2e}; the '
+        f'twin\'s smallest class-0 eigenvalue <= {low:.2e} in every bin')
+    return (err_w < 1e-5 and err_e < 1e-4 and err_c <= 1e-4 * scale
+            and err_a < 2e-3), message
+
+
+def check_stream_floor(N, D, K, T, seed):
+    """K4 in model mode from a model at the floor."""
+    import torch
+    from pb_bss_tpu_torch.ops.em_stream import e_stats, e_stats_reference
+    from pb_bss_tpu_torch.testing.em_floor import model_at_floor
+    x = floor_tensors(model_at_floor(N, D, K, T, seed))
+    kw = dict(eigenvalues=x['eigenvalues'], eigenvectors=x['eigenvectors'],
+              weight=x['weight'], affiliation_eps=1e-10)
+    s_k, a_k = e_stats(x['y'], **kw)
+    s_p, a_p = e_stats_reference(x['y'], **kw)
+    sync()
+    cov_k = D * s_k / a_k.clamp(min=1e-30)[..., None, None]
+    cov_p = D * s_p / a_p.clamp(min=1e-30)[..., None, None]
+    err = (cov_k - cov_p).abs().max().item()
+    scale = cov_p.abs().max().item()
+    rel_a = ((a_k - a_p).abs() / a_p.abs().clamp(min=1e-30)).max().item()
+    herm = (s_k - s_k.conj().transpose(-1, -2)).abs().max().item()
+    finite = bool(torch.isfinite(s_k).all())
+    message = (f'K4 floor N={N} D={D} K={K} T={T} (model mode): max|cov_k - '
+               f'cov_p| {err:.2e} (max|cov| {scale:.2f}); asum rel '
+               f'{rel_a:.2e}; |S - S^H| {herm:.1e}; finite {finite}')
+    return (err <= 1e-4 * scale and rel_a <= 1e-4 and herm == 0.
+            and finite), message
+
+
+def check_fc_floor(B, F, D, K, T, seed):
+    """K5's init from affiliations under which class 0 is rank-deficient,
+    and its step from a model at the floor."""
+    import torch
+    from pb_bss_tpu_torch.ops import em_step
+    from pb_bss_tpu_torch.testing.em_floor import (
+        affiliations_at_floor, model_at_floor)
+    N = B * F
+    x = floor_tensors(affiliations_at_floor(N, D, K, T, seed))
+    init = dict(sweeps=6 if D <= 8 else 8, eigenvalue_floor=1e-10)
+    args = (x['y'], x['affiliation'], x['quadratic_form'])
+    init_k = em_step.m_init(*args, **init)
+    init_p = em_step.m_init_reference(*args, **init)
+    x = floor_tensors(model_at_floor(N, D, K, T, seed + 1))
+    weight = x['weight'].reshape(B, F, K).mean(1)
+    step = dict(warm_sweeps=2, eigenvalue_floor=1e-10, affiliation_eps=1e-10)
+    args = (x['y'], x['eigenvalues'], x['eigenvectors'], weight)
+    step_k = em_step.em_step(*args, **step)
+    step_p = em_step.em_step_reference(*args, **step)
+    sync()
+    passed, messages = True, []
+    for name, (vk, ek, ak), (vp, ep, ap) in (
+            ('init', init_k, init_p), ('step', step_k[:3], step_p[:3])):
+        rel, err, scale = state_errors(vk, ek, vp, ep)
+        rel_a = ((ak - ap).abs() / ap.abs().clamp(min=1e-30)).max().item()
+        finite = bool(torch.isfinite(ek).all() and torch.isfinite(vk).all())
+        passed &= (finite and rel <= 1e-4 and err <= 1e-4 * scale
+                   and rel_a <= 1e-4)
+        messages.append(
+            f'K5 {name} floor B={B} F={F} D={D} K={K} T={T}: max|lam_k - '
+            f'lam_p| / lam_max {rel:.2e}; max|C_k - C_p| {err:.2e} (max|C| '
+            f'{scale:.2f}); asum rel {rel_a:.2e}; finite {finite}')
+    return passed, '\n'.join(messages)
+
+
+def check_estep_floor(F, D, K, T, seed):
+    """Both K11 kernels from a model at the floor (1 / lambda = 1e10)."""
+    import torch
+    from pb_bss_tpu_torch.ops.em_estep import (
+        cacgmm_e_step, cacgmm_e_step_reference, cacgmm_em_scatter,
+        cacgmm_em_scatter_reference)
+    from pb_bss_tpu_torch.testing.em_floor import model_at_floor
+    x = floor_tensors(model_at_floor(F, D, K, T, seed))
+    y, vec, ev = x['y'], x['eigenvectors'], x['eigenvalues']
+    args = (y.real.contiguous(), y.imag.contiguous(), vec.real.contiguous(),
+            vec.imag.contiguous(), 1. / ev, torch.log(ev).sum(-1),
+            x['weight'])
+    aff_k, qf_k = cacgmm_e_step(*args)
+    aff_p, qf_p = cacgmm_e_step_reference(*args)
+    s_k = cacgmm_em_scatter(*args)
+    s_p = cacgmm_em_scatter_reference(*args)
+    sync()
+    err_a = (aff_k - aff_p).abs().max().item()
+    rel_q = ((qf_k - qf_p).abs() / qf_p).max().item()
+    scale = max(s_p[0].abs().max().item(), s_p[1].abs().max().item())
+    err_s = max((s_k[i] - s_p[i]).abs().max().item() for i in (0, 1))
+    rel_a = ((s_k[2] - s_p[2]).abs() / s_p[2].abs()).max().item()
+    message = (f'K11 floor F={F} D={D} K={K} T={T}: e_step max|aff| '
+               f'{err_a:.2e}, qf rel {rel_q:.2e}; scatter max|S_k - S_p| '
+               f'{err_s:.2e} (max|S| {scale:.2f}), asum rel {rel_a:.2e}')
+    return (err_a <= 1e-4 and rel_q <= 1e-4 and err_s <= 1e-4 * scale
+            and rel_a <= 1e-4), message
+
+
+def phase_floor():
+    """The four cACGMM kernels at the eigenvalue floor; every check runs
+    and logs before the phase fails on any of them."""
+    results = [('K2', *check_em_floor(2 * 257, 6, 3, 304, seed=110)),
+               ('K4', *check_stream_floor(257, 6, 3, 3753, seed=111)),
+               ('K5', *check_fc_floor(2, 129, 6, 3, 304, seed=112)),
+               ('K11', *check_estep_floor(257, 6, 3, 304, seed=114))]
+    for _, passed, message in results:
+        log(f'{message} -> {"agrees" if passed else "PARTS from its twin"}')
+    parted = [name for name, passed, _ in results if not passed]
+    if parted:
+        fail(f'kernels part from their twins at the floor: {parted}')
 
 
 def watson_inputs(B, F, D, K, T, seed, saliency=False, silence=False):
@@ -1441,6 +1608,14 @@ def check_integration_loop(N, D, K, T, E, U, mode, seed, iterations=20,
 
 
 def phase_kernels():
+    results = phase_kernels_cacgmm()
+    results.update(phase_kernels_mixtures())
+    return results
+
+
+def phase_kernels_cacgmm():
+    """The cACGMM path's kernels against their twins: K2, K3, K1, K4,
+    K5, K11."""
     results = {}
     results['em_bench'] = check_em(8, 513, 6, 3, 300, seed=1)
     results['em_slice'] = check_em(8, 257, 6, 3, 304, seed=2)
@@ -1480,6 +1655,13 @@ def phase_kernels():
     check_estep(33, 4, 2, 37, seed=28)
     # K2 with saliency and a mask that silences a class in 16 bins
     results['em_extras'] = check_em(2, 129, 6, 3, 304, seed=29, extras=True)
+    return results
+
+
+def phase_kernels_mixtures():
+    """The other mixtures' kernels against their twins: K6, K7, K8, K9,
+    K10, K12."""
+    results = {}
     # K6: the bench and CWMM config-2 shape, the slice shape, saliency with
     # a class silenced in 16 bins, odd shapes
     results['cwmm_bench'] = check_cwmm(8, 513, 6, 3, 300, seed=50)
@@ -2252,15 +2434,20 @@ def nbytes(*tensors):
 # float32 operations of the EM pieces, as the function needs them (a
 # complex multiply-add is 8): a frame's products y_d conj(y_e) over the
 # upper triangle once per frame, shared by the classes, the E-step and
-# the scatter (3 per diagonal entry, 6 per pair); per (frame, class), 4
-# per upper-triangle entry for the quadratic form plus ~10 for the
-# log-pdf and softmax, and 4 per entry for the scatter; a Jacobi rotation
-# updates two rows and two columns of A and two columns of V (10 per
-# entry) after ~30 for its parameters; the warm rotation V^H A V and the
-# inverse covariance are 16 D^3 and 8 D^3 per class.
-def em_flops(frames, K, D, e_step=True, scatter=True):
+# the scatter (3 per diagonal entry, 6 per pair); per (frame, class) the
+# quadratic form as the projection on the scaled eigenbasis (8 per complex
+# multiply-add, D^2 of them, and 3 per |z_i|^2), or for the Bingham
+# kernels through the assembled form (4 per upper-triangle entry, on the
+# shared products), plus ~10 for the log-pdf and softmax, and 4 per entry
+# for the scatter; a Jacobi rotation updates two rows and two columns of
+# A and two columns of V (10 per entry) after ~30 for its parameters; the
+# warm rotation V^H A V is 16 D^3 per class, the scaled eigenbasis
+# V diag(lambda^-1/2) 2 D^2 and an assembled form V diag(lambda) V^H 8 D^3.
+def em_flops(frames, K, D, e_step=True, scatter=True, form='projection'):
     P = D * (D + 1) // 2
-    per_class = (4 * P + 10 if e_step else 0) + (4 * P if scatter else 0)
+    quadratic = 8 * D * D + 3 * D if form == 'projection' else 4 * P
+    per_class = (quadratic + 10 if e_step else 0) \
+        + (4 * P if scatter else 0)
     return frames * (3 * D + 6 * (P - D) + K * per_class)
 
 
@@ -2293,7 +2480,8 @@ def bingham_flops(N, K, D, T, iterations, cold_rounds=3, cold_steps=10,
                 + (iterations - 1) * solve_cascades(D, 1, warm_steps)
                 + iterations)
     return (N * K * cascades * cascade_flops(D)
-            + iterations * (em_flops(N * T, K, D) + N * K * 8 * D ** 3)
+            + iterations * (em_flops(N * T, K, D, form='assembled')
+                            + N * K * 8 * D ** 3)
             + jacobi_flops(N * K, D, sweeps) + (iterations - 1) * (
                 jacobi_flops(N * K, D, warm_sweeps) + N * K * 16 * D ** 3))
 
@@ -2319,7 +2507,6 @@ def integration_flops(frames, K, D, E, mode):
 def phase_timing(errors, launches, long_launches, fc_launches,
                  cwmm_launches, cbmm_launches, integration_launches):
     import torch
-    import pb_bss_tpu_torch as P
     from pb_bss_tpu_torch.ops.eigh import eigh_jacobi, eigh_jacobi_reference
     from pb_bss_tpu_torch.ops.em_loop import (
         cacgmm_em_full, cacgmm_em_full_reference)
@@ -2388,6 +2575,7 @@ def phase_timing(errors, launches, long_launches, fc_launches,
         y, a, q, iterations=20), em_in[1:3])
     log(f'timing cacgmm_em_long B=4 F=257 T=3753, 20 it: kernels '
         f'{long_ms:.3f} ms, plain {long_plain:.3f} ms')
+    time_em_splits()
 
     fc_times = time_fc()
     estep_times = time_estep()
@@ -2395,29 +2583,7 @@ def phase_timing(errors, launches, long_launches, fc_launches,
     cbmm_times = time_cbmm()
     integration_times = time_integration()
 
-    def e2e(batches, count, label, model='cacgmm'):
-        """Host clock around synchronized separate_batch calls, distinct
-        recordings per repetition, after one warm-up call."""
-        P.separate_batch(batches[0], iterations=20, beamformer='gev+ban',
-                         model=model)
-        sync()
-        times = []
-        for obs in batches[1:]:
-            t0 = time.perf_counter()
-            P.separate_batch(obs, iterations=20, beamformer='gev+ban',
-                             model=model)
-            sync()
-            times.append(time.perf_counter() - t0)
-        per_utt = [1e3 * t / count for t in times]
-        log(f"timing e2e separate_batch({count}, gev+ban, 20 it, "
-            f"model='{model}'): ms per {label} "
-            f'{[round(t, 2) for t in per_utt]}')
-
-    short = [load_utterances(range(8 * r, 8 * r + 8))[0].cuda()
-             for r in range(1, 5)]
-    e2e(short, 8, 'utterance (4.8 s)')
-    e2e([long_recordings(first, 4)[0].cuda()
-         for first in (1000, 2000, 3000)], 4, '60 s recording')
+    short = time_e2e()
     e2e(short, 8, 'utterance (4.8 s)', model='cwmm')
     e2e(short, 8, 'utterance (4.8 s)', model='cbmm')
     profile_separate('cwmm', (('8 x 4.8 s', short[1]), (
@@ -2431,7 +2597,7 @@ def phase_timing(errors, launches, long_launches, fc_launches,
     # eigenvalues, eigenvectors and affiliations out
     k2_bytes = N2 * D * T2 * 8 + 2 * N2 * K * T2 * 4 \
         + N2 * K * (4 + 4 * D + 8 * D * D + 4 * T2)
-    k2_flops = 20 * (em_flops(N2 * T2, K, D) + N2 * K * 8 * D ** 3) \
+    k2_flops = 20 * (em_flops(N2 * T2, K, D) + N2 * K * 2 * D ** 2) \
         + jacobi_flops(N2 * K, D, 6) + 19 * (
             jacobi_flops(N2 * K, D, 2) + N2 * K * 16 * D ** 3)
     n3 = 8 * 257 * 3
@@ -2445,7 +2611,7 @@ def phase_timing(errors, launches, long_launches, fc_launches,
     k4_bytes = nbytes(stats_in[0][0], model['eigenvalues'],
                       model['eigenvectors'], model['weight']) \
         + 2 * N * K * (D * D * 8 + 4)
-    k4_flops = em_flops(N * T, K, D) + N * K * 8 * D ** 3
+    k4_flops = em_flops(N * T, K, D) + N * K * 2 * D ** 2
     rows = [
         ('cacgmm_em_full', 'em_loop.cu', 'pallas_em_loop.py:386',
          launches['cacgmm_em_full'], errors['em_slice'], slice_ms,
@@ -2511,6 +2677,102 @@ def phase_timing(errors, launches, long_launches, fc_launches,
     return kernels
 
 
+def e2e(batches, count, label, model='cacgmm'):
+    """Host clock around synchronized separate_batch calls, distinct
+    recordings per repetition, after one warm-up call."""
+    import pb_bss_tpu_torch as P
+    P.separate_batch(batches[0], iterations=20, beamformer='gev+ban',
+                     model=model)
+    sync()
+    times = []
+    for obs in batches[1:]:
+        t0 = time.perf_counter()
+        P.separate_batch(obs, iterations=20, beamformer='gev+ban',
+                         model=model)
+        sync()
+        times.append(time.perf_counter() - t0)
+    per_utt = [1e3 * t / count for t in times]
+    log(f"timing e2e separate_batch({count}, gev+ban, 20 it, "
+        f"model='{model}'): ms per {label} "
+        f'{[round(t, 2) for t in per_utt]}')
+
+
+def time_e2e():
+    """The cACGMM main path end to end: separate_batch of 8 x 4.8 s
+    utterances (whole-fit EM) and of 4 x 60 s recordings (streamed EM).
+    Returns the 4.8 s batches."""
+    short = [load_utterances(range(8 * r, 8 * r + 8))[0].cuda()
+             for r in range(1, 5)]
+    e2e(short, 8, 'utterance (4.8 s)')
+    e2e([long_recordings(first, 4)[0].cuda()
+         for first in (1000, 2000, 3000)], 4, '60 s recording')
+    return short
+
+
+def time_em_splits():
+    """The split of K2's and K4's time, with their own arguments only:
+    K2 (B=8, F=257, D=6, K=3) at 20 iterations against 1, warm_sweeps 2
+    against 0, T=304 against 32, and at the bench.py shape (B=8, F=513,
+    T=300); K4 (B=4, F=257, T=3753) from_init mode (the sums alone)
+    against model mode (E-step and sums). Returns {case: ms}."""
+    import torch
+    from pb_bss_tpu_torch.ops.em_loop import cacgmm_em_full
+    from pb_bss_tpu_torch.ops.em_stream import (
+        cacgmm_em_long_reference, e_stats)
+    out = {}
+    for F, T in ((257, 304), (257, 32), (513, 300)):
+        inputs = [em_inputs(8, F, 6, 3, T, 3000 + i) for i in range(6)]
+        for iterations, warm in ((20, 2), (1, 2), (20, 0)):
+            if T != 304 and (iterations, warm) != (20, 2):
+                continue
+            case = f'K2 F={F} T={T} it={iterations} warm={warm}'
+            out[case] = cuda_time(lambda y, a, q: cacgmm_em_full(
+                y, a, q, iterations=iterations, sweeps=6,
+                warm_sweeps=warm), inputs)
+    B, F, D, K, T = 4, 257, 6, 3, 3753
+    N = B * F
+    ins = [em_inputs(B, F, D, K, T, 3100 + i) for i in range(5)]
+    weight, ev, vec = cacgmm_em_long_reference(*ins[0], iterations=1)
+    model = dict(eigenvalues=ev.reshape(N, K, D),
+                 eigenvectors=vec.reshape(N, K, D, D),
+                 weight=weight.reshape(N, K), affiliation_eps=1e-10)
+    out['K4 from_init'] = cuda_time(lambda y, a, q: e_stats(
+        y.reshape(N, D, T), affiliation=a.reshape(N, K, T),
+        quadratic_form=q.reshape(N, K, T)), ins)
+    out['K4 model'] = cuda_time(
+        lambda y, a, q: e_stats(y.reshape(N, D, T), **model), ins)
+    from pb_bss_tpu_torch.ops import _build, em_loop, em_stream
+    lib = _build.load('em_loop')
+    if hasattr(em_loop, '_threads'):  # not in older checkouts
+        # the CTA shape: the slice shape with 5 warps a CTA (2 rounds of
+        # frames) against the 4 that em_loop._threads takes
+        chosen = em_loop._threads
+        em_loop._threads = lambda D, K, T: 160
+        inputs = [em_inputs(8, 257, 6, 3, 304, 3000 + i) for i in range(6)]
+        out['K2 F=257 T=304 it=20 warm=2 160 threads'] = cuda_time(
+            lambda y, a, q: cacgmm_em_full(y, a, q, iterations=20, sweeps=6,
+                                           warm_sweeps=2), inputs)
+        em_loop._threads = chosen
+    if hasattr(em_stream, '_WAVES'):  # not in older checkouts
+        # the grid's waves: K4's model-mode pass with 1, 2 and 8 whole
+        # waves against the 4 that em_stream._WAVES takes
+        chosen = em_stream._WAVES
+        for waves in (1, 2, 8):
+            em_stream._WAVES = waves
+            out[f'K4 model {waves} waves'] = cuda_time(
+                lambda y, a, q: e_stats(y.reshape(N, D, T), **model), ins)
+        em_stream._WAVES = chosen
+    if hasattr(lib, 'cacgmm_em_full_occupancy'):
+        threads = em_loop._threads(6, 3, 304)
+        per_sm = lib.cacgmm_em_full_occupancy(6, 3, 304, threads)
+        resident = em_stream._capacity(torch.cuda.current_device(), 6, 3)
+        log(f'occupancy: K2 CTAs per SM at D=6, K=3, T=304 ({threads} '
+            f'threads) {per_sm}; K4 resident CTAs at D=6, K=3 {resident}')
+    log('timing splits (ms per call): '
+        + '; '.join(f'{case} {ms:.4f}' for case, ms in out.items()))
+    return out
+
+
 def time_fc():
     """K5 at the JAX package's frequency-constant benchmark shape (B=8,
     F=513, D=6, K=3, T=300): each kernel per launch against its twin,
@@ -2546,8 +2808,8 @@ def time_fc():
         + jacobi_flops(N * K, D, 6)
     y, ev, vec, w = states[0]
     step_bytes = nbytes(y, ev, vec, w) + N * K * (8 * D * D + 4 * D + 4)
-    step_flops = em_flops(N * T, K, D) + N * K * 24 * D ** 3 \
-        + jacobi_flops(N * K, D, 2)
+    step_flops = em_flops(N * T, K, D) \
+        + N * K * (16 * D ** 3 + 2 * D ** 2) + jacobi_flops(N * K, D, 2)
 
     fits = [em_inputs(B, F, D, K, T, 800 + i) for i in range(4)]
     fit_ms = cuda_time(lambda y, a, q: em_step.cacgmm_em_fc(
@@ -2832,7 +3094,8 @@ def time_cbmm():
     P_ = D * (D + 1) // 2
     k7_bytes = nbytes(*states[0]) + N * K * (8 * P_ + 4)
     out['cbmm_em_long'] = (ms7, plain7, bound(
-        k7_bytes, em_flops(N * T, K, D) + N * K * 8 * D ** 3))
+        k7_bytes, em_flops(N * T, K, D, form='assembled')
+        + N * K * 8 * D ** 3))
 
     # the streamed fit of config 3e: its kernels against its twins
     ins = [em_inputs(1, 513, D, K, 4000, 1900 + i)[:2] for i in range(3)]
@@ -2959,7 +3222,7 @@ def time_estep():
         ins = [estep_inputs(F, D, K, T, 1000 + i) for i in range(6)]
         ms = cuda_time(fn, ins)
         plain = cuda_time(ref, ins[:3])
-        inverse = F * K * 8 * D ** 3
+        inverse = F * K * 2 * D ** 2  # the scaled eigenbases
         if name == 'e_step':
             moved = nbytes(*ins[0]) + 2 * F * K * T * 4
             flops = em_flops(F * T, K, D, scatter=False) + inverse
@@ -2982,6 +3245,18 @@ def timed(phase, *args):
 
 
 def main():
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument(
+        '--only', default=None,
+        help='comma-separated phases to run after the build instead of '
+             'the whole smoke test (floor, splits, cacgmm, e2e); prints no '
+             'kernels line')
+    parser.add_argument(
+        '--package', default=None,
+        help='import pb_bss_tpu_torch from this directory (with --only: '
+             'another checkout, to time two versions in one call)')
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -2989,15 +3264,36 @@ def main():
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is false: this smoke test needs '
              'a CUDA device')
+    if args.package is not None:
+        sys.path.insert(0, str(pathlib.Path(args.package).resolve()))
     if importlib.util.find_spec('pb_bss_tpu_torch') is None:
         sys.path.insert(0, str(ROOT))
         if importlib.util.find_spec('pb_bss_tpu_torch') is None:
             fail('pb_bss_tpu_torch not found: run from a checkout of the '
                  'repository')
+    if args.only is not None:
+        phases = {'floor': phase_floor, 'splits': time_em_splits,
+                  'cacgmm': phase_kernels_cacgmm, 'e2e': time_e2e}
+        try:
+            card = timed(phase_device)
+            log('package:', importlib.util.find_spec(
+                'pb_bss_tpu_torch').origin)
+            timed(phase_build)
+            for name in args.only.split(','):
+                timed(phases[name])
+        except SystemExit:
+            raise
+        except Exception:
+            traceback.print_exc()
+            fail('a phase raised')
+        print(card)
+        print(json.dumps({'ok': True, 'only': args.only}))
+        return
     try:
         card = timed(phase_device)
         timed(phase_build)
         errors = timed(phase_kernels)
+        timed(phase_floor)
         timed(phase_guards)
         launches = timed(phase_main_path)
         long_launches = timed(phase_long)

@@ -2,15 +2,18 @@
 // the whole-fit EM (em_loop.cu), the streamed statistics (em_stream.cu),
 // the frequency-constant-weight step (em_step.cu), the opt-in E-step
 // kernels (em_estep.cu) and, for the statistics and the mixture weight,
-// the whole-fit Watson EM (cwmm_loop.cu).
+// the whole-fit Watson and Bingham EMs (cwmm_loop.cu, cbmm_loop.cu).
 //
 // Replaces what the JAX package's Pallas kernels write out again in each
 // kernel (pb_bss_tpu/ops/pallas_em_loop.py, pallas_em_stream.py,
-// pallas_em_step.py, pallas_em.py): the inverse covariance of a class,
-// the E-step of one frame (a thread per frame) and one upper-triangle
-// scatter sum (a warp per sum, lanes over frames). The loop structure
-// around them (what lives in shared memory, how T is walked) stays in
-// each kernel.
+// pallas_em_step.py, pallas_em.py): the per-class basis of the quadratic
+// form, the E-step of one frame (a thread per frame) and one
+// upper-triangle scatter sum (a warp per sum, lanes over frames). The
+// loop structure around them (what lives in shared memory, how T is
+// walked) stays in each kernel. The JAX kernels take the quadratic form
+// through the assembled inverse covariance; these take the projection on
+// the scaled eigenbasis, as the JAX scan path and the plain twins do
+// (projection_form).
 #pragma once
 
 #include <cfloat>
@@ -19,73 +22,113 @@
 
 #include "jacobi.cuh"
 
-// Ci = V diag(inv_lam) V^H of one class (V row-major D x D, eigenvectors
-// in columns; Ci row-major), by one warp: lane owns entries de = lane,
-// lane + 32, ... `inv_lam(i)` gives the reciprocal of eigenvalue i.
-template <class InvLam>
-__device__ __forceinline__ void warp_inverse_covariance(const float2* V,
-                                                        InvLam inv_lam,
-                                                        float2* Ci, int D) {
+// The scaled eigenbasis of one class, stored conjugate-transposed for
+// the E-step: Wh[i * D + d] = conj(V[d * D + i]) s(i), where s(i) is
+// lambda_i^{-1/2} (V row-major D x D, eigenvectors in columns), so that
+// (W^H y)_i = sum_d Wh[i * D + d] y_d with W = V diag(lambda^{-1/2}). By
+// one warp: lane owns entries i * D + d = lane, lane + 32, ...
+template <class Scale>
+__device__ __forceinline__ void warp_scaled_basis(const float2* V, Scale s,
+                                                  float2* Wh, int D) {
   const int lane = threadIdx.x & 31;
-  const int DD = D * D;
-  for (int de = lane; de < DD; de += 32) {
-    const int d = de / D;
-    const int e = de % D;
-    float2 acc = make_float2(0.f, 0.f);
-    for (int i = 0; i < D; ++i)
-      acc = c_add(acc, c_scale(inv_lam(i), c_mul_conj(V[d * D + i],
-                                                      V[e * D + i])));
-    Ci[de] = acc;
+  for (int id = lane; id < D * D; id += 32) {
+    const int i = id / D;
+    const int d = id - i * D;
+    Wh[id] = c_scale(s(i), c_conj(V[d * D + i]));
   }
 }
 
-// The E-step of one frame: for each class k the quadratic form y^H Ci_k y
-// (2 Re over the upper triangle), max(q, tiny), the log-pdf
+// The quadratic form y^H C^-1 y of one frame as the projection on the
+// scaled eigenbasis, q = sum_i |(W^H y)_i|^2 = sum_i |v_i^H y|^2 /
+// lambda_i: a sum of non-negative terms. (Through the assembled inverse
+// V diag(1 / lambda) V^H it cancels once an eigenvalue sits at the floor:
+// entries ~1e10 whose f32 errors, ~1e3, swamp a true q of O(1).) `y(d)`
+// gives the frame's entry d; Wh as warp_scaled_basis writes it.
+template <class Y>
+__device__ __forceinline__ float projection_form(Y y, const float2* Wh,
+                                                 int D) {
+  float q = 0.f;
+  for (int i = 0; i < D; ++i) {
+    float zr = 0.f, zi = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float2 w = Wh[i * D + d];
+      const float2 yd = y(d);
+      zr = fmaf(w.x, yd.x, fmaf(-w.y, yd.y, zr));
+      zi = fmaf(w.x, yd.y, fmaf(w.y, yd.x, zi));
+    }
+    q = fmaf(zr, zr, fmaf(zi, zi, q));
+  }
+  return q;
+}
+
+// The same with D known at compile time and the frame in registers (the
+// loops unroll; Wh is read as broadcasts, two entries a read for even D,
+// where Wh must be 16-byte aligned).
+template <int D>
+__device__ __forceinline__ float projection_form(const float2 (&y)[D],
+                                                 const float2* Wh) {
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    float zr = 0.f, zi = 0.f;
+    if constexpr (D % 2 == 0) {
+#pragma unroll
+      for (int d = 0; d < D; d += 2) {
+        const float4 w = *reinterpret_cast<const float4*>(Wh + i * D + d);
+        zr = fmaf(w.x, y[d].x, fmaf(-w.y, y[d].y, zr));
+        zi = fmaf(w.x, y[d].y, fmaf(w.y, y[d].x, zi));
+        zr = fmaf(w.z, y[d + 1].x, fmaf(-w.w, y[d + 1].y, zr));
+        zi = fmaf(w.z, y[d + 1].y, fmaf(w.w, y[d + 1].x, zi));
+      }
+    } else {
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const float2 w = Wh[i * D + d];
+        zr = fmaf(w.x, y[d].x, fmaf(-w.y, y[d].y, zr));
+        zi = fmaf(w.x, y[d].y, fmaf(w.y, y[d].x, zi));
+      }
+    }
+    q = fmaf(zr, zr, fmaf(zi, zi, q));
+  }
+  return q;
+}
+
+// The E-step of one frame: for each class k the quadratic form
+// qform(k) (projection_form), max(q, tiny), the log-pdf
 // -D log q - logdet_k, then the max-shift softmax with the linear weights
 // wgt, the source-activity mask on the numerators (mask == nullptr: none;
 // else mask[k * mask_stride]), max(den, tiny) and the clip to
-// [eps, 1 - eps] when eps != 0. `y(d)` gives the frame's entry d. Writes
-// the posterior to aff[k * ld] and the quadratic form to qf[k * ld]; aff
-// doubles as scratch for the log-pdfs.
-template <class Y>
-__device__ __forceinline__ void e_step_frame(Y y, const float2* Ci,
+// [eps, 1 - eps] when eps != 0. Writes the posterior to aff[k * ld] and
+// the quadratic form to qf[k * ld]; aff doubles as scratch for the
+// log-pdfs. The log, the exp and the normalization take the card's fast
+// intrinsics (a few ulp; the posterior moves by ~1e-6).
+template <class QForm>
+__device__ __forceinline__ void e_step_frame(QForm qform,
                                              const float* logdet,
                                              const float* wgt,
                                              const float* mask,
                                              int mask_stride, float eps,
                                              float* aff, float* qf, int ld,
                                              int D, int K) {
-  const int DD = D * D;
   const float tiny = FLT_MIN;
   float mx = -INFINITY;
   for (int k = 0; k < K; ++k) {
-    const float2* Cik = Ci + k * DD;
-    float q = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float2 yd = y(d);
-      q += Cik[d * D + d].x * (yd.x * yd.x + yd.y * yd.y);
-      for (int e = d + 1; e < D; ++e) {
-        // 2 Re(Cinv_de conj(y_d) y_e) with p = y_d conj(y_e)
-        const float2 p = c_mul_conj(yd, y(e));
-        q += 2.f * (Cik[d * D + e].x * p.x + Cik[d * D + e].y * p.y);
-      }
-    }
-    q = fmaxf(q, tiny);
-    const float lp = -float(D) * logf(q) - logdet[k];
+    const float q = fmaxf(qform(k), tiny);
+    const float lp = -float(D) * __logf(q) - logdet[k];
     qf[k * ld] = q;
     aff[k * ld] = lp;
     mx = fmaxf(mx, lp);
   }
   float den = 0.f;
   for (int k = 0; k < K; ++k) {
-    float num = expf(aff[k * ld] - mx) * wgt[k];
+    float num = __expf(aff[k * ld] - mx) * wgt[k];
     if (mask != nullptr) num *= mask[k * mask_stride];
     aff[k * ld] = num;
     den += num;
   }
   den = fmaxf(den, tiny);
   for (int k = 0; k < K; ++k) {
-    float a = aff[k * ld] / den;
+    float a = __fdividef(aff[k * ld], den);
     if (eps != 0.f) a = fminf(fmaxf(a, eps), 1.f - eps);
     aff[k * ld] = a;
   }

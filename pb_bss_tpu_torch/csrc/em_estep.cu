@@ -5,10 +5,11 @@
 // and cacgmm_em_scatter (_em_iteration_kernel), the Pallas TPU kernels
 // behind CACGMMTrainer.fit(use_pallas_em=True). On the TPU one grid step
 // held a whole bin (D x T planes) in VMEM and computed z = V^H y with
-// two real matrix products per plane. Here the quadratic form goes
-// through the assembled inverse covariance V diag(1/l) V^H, once per
-// (bin, class) in shared memory, as in the other EM kernels
-// (em_common.cuh); it equals sum_e |z_e|^2 / l_e up to f32 rounding.
+// two real matrix products per plane. Here the quadratic form is the
+// projection on the scaled eigenbasis W = V diag(sqrt(1/l)), built once
+// per (bin, class) in shared memory, q = sum_i |(W^H y)_i|^2, as in the
+// other cACGMM kernels (em_common.cuh); the JAX kernels' assembled
+// inverse V diag(1/l) V^H cancels once an eigenvalue sits at the floor.
 //
 //   em_e_step_kernel: grid (bins F, frame blocks of kThreads), a thread
 //     per frame reads its D entries from the y planes (coalesced along
@@ -41,14 +42,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 512;  // frames per shared-memory tile (scatter)
 
-// Inverse covariances, log-determinants and weights of bin f into shared
+// Scaled eigenbases, log-determinants and weights of bin f into shared
 // memory (V staged as complex in Vs first); then a __syncthreads().
 __device__ void load_model(const float* __restrict__ v_re,
                            const float* __restrict__ v_im,
                            const float* __restrict__ inv_lam,
                            const float* __restrict__ logdet_in,
                            const float* __restrict__ weight, size_t f,
-                           float2* Vs, float2* Ci, float* logdet, float* wgt,
+                           float2* Vs, float2* Wh, float* logdet, float* wgt,
                            int D, int K) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -64,8 +65,8 @@ __device__ void load_model(const float* __restrict__ v_re,
   __syncthreads();
   for (int k = warp; k < K; k += nwarps) {
     const float* ik = inv_lam + (f * K + k) * D;
-    warp_inverse_covariance(Vs + k * DD, [&](int i) { return ik[i]; },
-                            Ci + k * DD, D);
+    warp_scaled_basis(Vs + k * DD, [&](int i) { return sqrtf(ik[i]); },
+                      Wh + k * DD, D);
   }
   __syncthreads();
 }
@@ -83,23 +84,27 @@ em_e_step_kernel(const float* __restrict__ y_re,
   extern __shared__ float4 smem_raw[];
   const int DD = D * D;
   float2* Vs = reinterpret_cast<float2*>(smem_raw);  // K * DD
-  float2* Ci = Vs + K * DD;                          // K * DD
-  float* aff = reinterpret_cast<float*>(Ci + K * DD);  // K * kThreads
+  float2* Wh = Vs + K * DD;                          // K * DD
+  float* aff = reinterpret_cast<float*>(Wh + K * DD);  // K * kThreads
   float* qf = aff + K * kThreads;                      // K * kThreads
   float* logdet = qf + K * kThreads;                   // K
   float* wgt = logdet + K;                             // K
 
   const size_t f = blockIdx.x;
-  load_model(v_re, v_im, inv_lam, logdet_in, weight, f, Vs, Ci, logdet, wgt,
+  load_model(v_re, v_im, inv_lam, logdet_in, weight, f, Vs, Wh, logdet, wgt,
              D, K);
   const int tl = threadIdx.x;
   const int t = blockIdx.y * kThreads + tl;
   if (t >= T) return;
   const float* yr = y_re + f * D * T + t;
   const float* yi = y_im + f * D * T + t;
-  e_step_frame([&](int d) { return make_float2(yr[d * T], yi[d * T]); }, Ci,
-               logdet, wgt, nullptr, 0, 0.f, aff + tl, qf + tl, kThreads, D,
-               K);
+  e_step_frame(
+      [&](int k) {
+        return projection_form(
+            [&](int d) { return make_float2(yr[d * T], yi[d * T]); },
+            Wh + k * DD, D);
+      },
+      logdet, wgt, nullptr, 0, 0.f, aff + tl, qf + tl, kThreads, D, K);
   for (int k = 0; k < K; ++k) {
     aff_out[(f * K + k) * T + t] = aff[k * kThreads + tl];
     qf_out[(f * K + k) * T + t] = qf[k * kThreads + tl];
@@ -121,8 +126,8 @@ em_scatter_kernel(const float* __restrict__ y_re,
   const int P = D * (D + 1) / 2;
   float2* ys = reinterpret_cast<float2*>(smem_raw);  // D * kTile
   float2* Vs = ys + size_t(D) * kTile;               // K * DD
-  float2* Ci = Vs + K * DD;                          // K * DD
-  float2* S = Ci + K * DD;                           // K * P
+  float2* Wh = Vs + K * DD;                          // K * DD
+  float2* S = Wh + K * DD;                           // K * P
   float* aff = reinterpret_cast<float*>(S + K * P);  // K * kTile
   float* wq = aff + size_t(K) * kTile;   // K * kTile q, then m = a / q
   float* asum = wq + size_t(K) * kTile;  // K
@@ -137,7 +142,7 @@ em_scatter_kernel(const float* __restrict__ y_re,
 
   for (int i = tid; i < K * P; i += blockDim.x) S[i] = make_float2(0.f, 0.f);
   for (int k = tid; k < K; k += blockDim.x) asum[k] = 0.f;
-  load_model(v_re, v_im, inv_lam, logdet_in, weight, f, Vs, Ci, logdet, wgt,
+  load_model(v_re, v_im, inv_lam, logdet_in, weight, f, Vs, Wh, logdet, wgt,
              D, K);
 
   for (int t0 = 0; t0 < T; t0 += kTile) {
@@ -151,8 +156,12 @@ em_scatter_kernel(const float* __restrict__ y_re,
     __syncthreads();
 
     for (int t = tid; t < nt; t += blockDim.x) {
-      e_step_frame([&](int d) { return ys[d * kTile + t]; }, Ci, logdet, wgt,
-                   nullptr, 0, 0.f, aff + t, wq + t, kTile, D, K);
+      e_step_frame(
+          [&](int k) {
+            return projection_form([&](int d) { return ys[d * kTile + t]; },
+                                   Wh + k * DD, D);
+          },
+          logdet, wgt, nullptr, 0, 0.f, aff + t, wq + t, kTile, D, K);
       for (int k = 0; k < K; ++k)
         wq[k * kTile + t] = aff[k * kTile + t] / wq[k * kTile + t];
     }

@@ -20,9 +20,10 @@
 //     S_k = D sum / max(asum_k, tiny), the cold Jacobi at `sweeps`
 //     (a warp per class, jacobi.cuh), eigenvalue max-normalization and
 //     floor. Writes V, eig (unsorted) and asum.
-//   em_fc_step_kernel (one EM iteration): the inverse covariances
-//     V diag(1/l) V^H and log-determinants from the previous state, the
-//     E-step (a thread per frame: quadratic form, log-pdf, max-shift
+//   em_fc_step_kernel (one EM iteration): the scaled eigenbases
+//     W = V diag(l^{-1/2}) and log-determinants from the previous state,
+//     the E-step (a thread per frame: the quadratic form as the
+//     projection sum_i |(W^H y)_i|^2, log-pdf, max-shift
 //     softmax with the utterance's weight, source-activity mask, clip to
 //     [eps, 1 - eps]); the posterior is written out when the inline
 //     aligner needs it (clipped, before saliency, as the scan path's
@@ -59,7 +60,7 @@ constexpr int kThreads = 256;
 
 // The step kernel's shared memory, the larger of the two: y, the (K, T)
 // posterior and weights, and per class the eigenvectors, the scatter and
-// the inverse covariance (which is the warm rotation's scratch once the
+// the scaled eigenbasis (which is the warm rotation's scratch once the
 // E-step is done), eigenvalues, sums, log-determinants and weights.
 inline size_t step_smem_bytes(int D, int K, int T) {
   return sizeof(float2) * (size_t(D) * T + 3 * size_t(K) * D * D) +
@@ -143,8 +144,8 @@ em_fc_step_kernel(const float2* __restrict__ y,
   float2* ys = reinterpret_cast<float2*>(smem_raw);  // D * T
   float2* S = ys + size_t(D) * T;                    // K * DD scatter
   float2* V = S + K * DD;                            // K * DD eigvecs
-  float2* Ci = V + K * DD;  // K * DD inverse covariance, then scratch
-  float* aff = reinterpret_cast<float*>(Ci + K * DD);  // K * T
+  float2* Wh = V + K * DD;  // K * DD scaled eigenbasis, then scratch
+  float* aff = reinterpret_cast<float*>(Wh + K * DD);  // K * T
   float* wq = aff + size_t(K) * T;   // K * T quadratic form, then weights
   float* eig = wq + size_t(K) * T;   // K * D
   float* asum = eig + K * D;         // K
@@ -163,8 +164,8 @@ em_fc_step_kernel(const float2* __restrict__ y,
   __syncthreads();
   for (int k = warp; k < K; k += nwarps) {
     const float* lk = eig_in + (n * K + k) * D;
-    warp_inverse_covariance(V + k * DD, [&](int i) { return 1.f / lk[i]; },
-                            Ci + k * DD, D);
+    warp_scaled_basis(V + k * DD, [&](int i) { return 1.f / sqrtf(lk[i]); },
+                      Wh + k * DD, D);
     if (lane == 0) {
       float ld = 0.f;
       for (int i = 0; i < D; ++i) ld += logf(lk[i]);
@@ -177,9 +178,13 @@ em_fc_step_kernel(const float2* __restrict__ y,
   // ---- E-step: aff <- posterior, wq <- quadratic form; then saliency
   // and w = a / max(q, 10 tiny) ----------------------------------------
   for (int t = tid; t < T; t += blockDim.x) {
-    e_step_frame([&](int d) { return ys[d * T + t]; }, Ci, logdet, wgt,
-                 mask == nullptr ? nullptr : mask + n * KT + t, T,
-                 affiliation_eps, aff + t, wq + t, T, D, K);
+    e_step_frame(
+        [&](int k) {
+          return projection_form([&](int d) { return ys[d * T + t]; },
+                                 Wh + k * DD, D);
+        },
+        logdet, wgt, mask == nullptr ? nullptr : mask + n * KT + t, T,
+        affiliation_eps, aff + t, wq + t, T, D, K);
     const float s = (sal != nullptr) ? sal[n * T + t] : 1.f;
     for (int k = 0; k < K; ++k) {
       const float a = aff[k * T + t];
@@ -194,7 +199,7 @@ em_fc_step_kernel(const float2* __restrict__ y,
 
   // ---- Jacobi warm-started from the previous eigenbasis -------------
   for (int k = warp; k < K; k += nwarps) {
-    warp_warm_rotate(S + k * DD, V + k * DD, Ci + k * DD, D);
+    warp_warm_rotate(S + k * DD, V + k * DD, Wh + k * DD, D);
     warp_jacobi(S + k * DD, V + k * DD, D, warm_sweeps);
     warp_floor_eigenvalues(S + k * DD, eig + k * D, D, eigenvalue_floor);
   }

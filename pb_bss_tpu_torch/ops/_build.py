@@ -19,6 +19,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import time
 
 __all__ = ['CSRC', 'BUILD_DIR', 'KERNELS', 'SMEM_LIMIT', 'nvcc_command',
            'load', 'build_all']
@@ -34,11 +35,13 @@ SMEM_LIMIT = 232448
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points of each kernel library: name -> (argtypes, restype)
 KERNELS = {
     'em_loop': {
         'cacgmm_em_full_launch': (
-            [_P] * 9 + [_I] * 7 + [_F, _F, _P], _I),
+            [_P] * 9 + [_I] * 8 + [_F, _F, _P], _I),
+        'cacgmm_em_full_occupancy': ([_I] * 4, _I),
     },
     'gev': {
         'gev_launch': ([_P, _P, _P, _I, _I, _I, _P], _I),
@@ -48,8 +51,8 @@ KERNELS = {
     },
     'em_stream': {
         'em_stream_launch': (
-            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-             _I, _F, _P], _I),
+            [_P] * 10 + [_I] * 5 + [_L, _F, _P], _I),
+        'em_stream_capacity': ([_I, _I], _I),
     },
     'em_step': {
         'em_fc_init_launch': (
@@ -107,6 +110,19 @@ def _library_path(name):
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
 
 
+@functools.lru_cache(maxsize=None)
+def _split_compile():
+    """nvcc's option to compile the functions of one source in parallel
+    (one thread per core), where this nvcc has it: the whole-fit and
+    streamed EM kernels instantiate a template for every D in 1..16."""
+    try:
+        usage = subprocess.run([_nvcc(), '--help'], capture_output=True,
+                               text=True).stdout
+    except OSError:
+        return ()
+    return ('--split-compile=0',) if '--split-compile' in usage else ()
+
+
 def nvcc_command(name, output=None):
     """The nvcc command that builds kernel ``name`` (not run here)."""
     if name not in KERNELS:
@@ -115,7 +131,7 @@ def nvcc_command(name, output=None):
     return [
         _nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
         '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
-        '-Xptxas', '-v', '-I', str(CSRC),
+        *_split_compile(), '-Xptxas', '-v', '-I', str(CSRC),
         '-o', str(output), str(CSRC / f'{name}.cu'),
     ]
 
@@ -130,12 +146,15 @@ def _build(name):
     fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
     os.close(fd)
     try:
+        start = time.perf_counter()
         result = subprocess.run(
             nvcc_command(name, tmp), capture_output=True, text=True)
         if result.returncode != 0:
             raise RuntimeError(
                 f'nvcc failed to build {name}:\n{result.stderr}')
-        path.with_suffix('.log').write_text(result.stderr)
+        path.with_suffix('.log').write_text(
+            f'nvcc took {time.perf_counter() - start:.1f} s\n'
+            + result.stderr)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
@@ -155,8 +174,9 @@ def load(name):
 
 
 def build_log(name):
-    """The compiler's report (``-Xptxas -v``: registers, shared memory,
-    spills) of the last build of kernel ``name``."""
+    """The build's seconds and the compiler's report (``-Xptxas -v``:
+    registers, shared memory, spills) of the last build of kernel
+    ``name``."""
     return _library_path(name).with_suffix('.log').read_text()
 
 

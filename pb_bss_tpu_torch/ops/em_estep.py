@@ -7,10 +7,12 @@ Replaces the JAX package's Pallas TPU kernels
 kernel behind ``CACGMMTrainer.fit(use_pallas_em=True)``). Both keep the
 JAX package's real/imaginary plane interface.
 
-The quadratic form goes through the assembled inverse covariance
-``V diag(1/l) V^H`` (once per bin and class), not the projection
-``V^H y`` the plain twins use; the two agree up to f32 rounding. The
-E-step is unclipped, as the JAX kernels' is. The scatter kernel walks T
+The quadratic form is the projection on the scaled eigenbasis
+``W = V diag(sqrt(1/l))`` (built once per bin and class),
+``q = sum_i |(W^H y)_i|^2``, which equals the plain twins'
+``sum_i |(V^H y)_i|^2 / l_i`` up to f32 rounding; the JAX kernels'
+assembled inverse ``V diag(1/l) V^H`` cancels once an eigenvalue sits at
+the floor. The E-step is unclipped, as the JAX kernels' is. The scatter kernel walks T
 in shared-memory tiles and so takes any T; its shared memory depends on
 D and K only (:func:`scatter_fits`). It computes nearly what the
 streamed statistics pass (``em_stream.cu``) computes, but is its own

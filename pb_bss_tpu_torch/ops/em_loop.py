@@ -3,26 +3,33 @@
 Replaces the JAX package's Pallas TPU kernel
 ``pb_bss_tpu/ops/pallas_em_loop.py:cacgmm_em_full``. One CTA owns one
 (utterance, frequency bin) and runs every EM iteration with the bin's
-observations resident in shared memory: Hermitian M-step scatter,
-warm-started complex Jacobi (cold ``sweeps`` in iteration 0, then
-``warm_sweeps`` from the previous eigenbasis), eigenvalue
-max-normalization and floor, inverse-covariance E-step and max-shift
-softmax, with saliency weighting the statistics and the source-activity
-mask gating the E-step numerators. The final E-step is unclipped, so the
-returned affiliation equals ``predict`` on the returned model.
+observations resident in shared memory: Hermitian M-step scatter
+(lanes over entries, warps over frames, register sums), the parallel
+complex Jacobi with a lane per column (cold ``sweeps`` in iteration 0,
+then ``warm_sweeps`` from the previous eigenbasis), eigenvalue
+max-normalization and floor, the E-step with the quadratic form as the
+projection on the scaled eigenbasis and the max-shift softmax, with
+saliency weighting the statistics and the source-activity mask gating
+the E-step numerators. The final E-step is unclipped, so the returned
+affiliation equals ``predict`` on the returned model. The kernel is
+instantiated for every D in 1..16 (:data:`DIMS`); the CTA's warps
+follow T (:func:`_threads`).
 
 What bounds it on the H100: the observations are read from device
-memory once per fit, so the kernel is bound by fp32 FMAs and the
-log/exp of the E-step, not by bytes; the design keeps the whole
-working set of a bin in shared memory to get there.
+memory once per fit, so the kernel is bound by its instructions (the
+E-step's projections, the scatter's pair products, the Jacobi's serial
+chain), not by bytes; the design keeps the whole working set of a bin
+in shared memory and registers to get there.
 
-Gate (:func:`fits`): D <= 16 (a warp owns a D x D Jacobi) and the
-bin's working set, :func:`smem_bytes`, within the 227 KB of shared
-memory a block may opt into on the H100 — T <= 3178 frames at D=6,
-K=3 (:func:`max_frames`), 2600 with saliency and a source-activity mask,
-which live in shared memory too. It replaces the JAX package's VMEM tile
-budget (``pallas_em_loop.choose_tile_f``), which stops near 600 frames
-and counts the same two extras.
+Gate (:func:`fits`): D <= 16 and the bin's working set,
+:func:`smem_bytes`, within the 227 KB of shared memory a block may opt
+into on the H100 — T <= 3178 frames at D=6, K=3 (:func:`max_frames`),
+2600 with saliency and a source-activity mask. That is the first design's
+budget, which held both extras in shared memory; the kernel reads them
+from device memory and needs less (:func:`kernel_smem_bytes`), so the
+gate admits exactly the shapes it admitted before. It replaces the JAX
+package's VMEM tile budget (``pallas_em_loop.choose_tile_f``), which
+stops near 600 frames and counts the same two extras.
 
 On a CPU tensor the wrapper runs the plain PyTorch twin,
 :func:`cacgmm_em_full_reference`. On a CUDA tensor it launches the
@@ -36,13 +43,18 @@ from ._build import SMEM_LIMIT
 from .linalg import sort_ascending
 
 __all__ = ['cacgmm_em_full', 'cacgmm_em_full_reference', 'smem_bytes',
-           'max_frames', 'fits']
+           'kernel_smem_bytes', 'max_frames', 'fits', 'DIMS']
 
+DIMS = tuple(range(1, 17))  # the D the kernel is instantiated for
+_MAX_WARPS = 8  # kMaxThreads / 32 in csrc/em_loop.cu
+_SM_SMEM = 233472  # shared memory of an H100 SM; 1 KB of it per CTA is kept
+_SM_WARPS = 32  # warps an SM should hold: half its 64
 
 
 def smem_bytes(D, K, T, has_sal=False, has_mask=False):
-    """Shared memory one bin's CTA needs (csrc/em_loop.cu); saliency
-    adds T floats, the source-activity mask K T."""
+    """The gate's shared-memory budget of one bin: the first design's
+    working set (saliency adds T floats, the source-activity mask K T).
+    The kernel needs less (:func:`kernel_smem_bytes`)."""
     return 8 * (D * T + 4 * K * D * D) + 4 * (
         2 * K * T + K * D + 3 * K + has_sal * T + has_mask * K * T)
 
@@ -51,6 +63,30 @@ def max_frames(D, K, has_sal=False, has_mask=False):
     """Longest T the kernel takes at (D, K) with the given extras."""
     return (SMEM_LIMIT - 8 * 4 * K * D * D - 4 * (K * D + 3 * K)) \
         // (8 * D + 8 * K + 4 * has_sal + 4 * K * has_mask)
+
+
+def kernel_smem_bytes(D, K, T):
+    """Shared memory one bin's CTA takes (em_smem_bytes in
+    csrc/em_loop.cu): y with an odd row stride, the posterior times
+    saliency and the scatter weights, the scatter, eigenvectors and
+    scaled eigenbasis, and the per-class scalars."""
+    Tp = T if D == 1 else T | 1
+    return 8 * (D * Tp + 3 * K * D * D) + 4 * (2 * K * T + K * D + 4 * K)
+
+
+def _threads(D, K, T):
+    """Threads of one bin's CTA. The shared memory of a bin fixes how many
+    CTAs an SM holds; the CTA takes enough warps that those CTAs together
+    hold about 32 warps (at most eight a CTA), as few as spread the
+    frames over the same rounds of a thread per frame (at most one
+    partial warp a round), and at least the warps that run the K
+    Jacobis at once (floor(32 / D) classes to a warp)."""
+    ctas = max(1, min(32, _SM_SMEM // (kernel_smem_bytes(D, K, T) + 1024)))
+    warps = min(_MAX_WARPS, -(-_SM_WARPS // ctas))
+    rounds = -(-max(T, 1) // (32 * warps))
+    warps = -(-max(T, 1) // (32 * rounds))
+    jacobi = -(-K // (32 // D))
+    return 32 * min(_MAX_WARPS, max(warps, jacobi))
 
 
 def fits(D, K, T, has_sal=False, has_mask=False):
@@ -169,7 +205,7 @@ def cacgmm_em_full(y, affiliation, quadratic_form, *, iterations,
             0 if sal_ is None else sal_.data_ptr(),
             0 if mask_ is None else mask_.data_ptr(), weight.data_ptr(),
             eig.data_ptr(), vec.data_ptr(), aff.data_ptr(), N, D, K, T,
-            int(iterations), int(sweeps),
+            _threads(D, K, T), int(iterations), int(sweeps),
             -1 if warm_sweeps is None else int(warm_sweeps),
             float(eigenvalue_floor), float(affiliation_eps),
             torch.cuda.current_stream(y.device).cuda_stream)

@@ -13,12 +13,17 @@ the card), eigenvalue max-normalization and floor, and the mixture
 weight, per bin (``weight_mode='per_bin'``) or frequency-constant per
 utterance (``'fc'``).
 
-The kernel has no T limit: it holds only a tile of frames in shared
-memory. A CTA owns one (bin, time chunk) and writes its own partial
-sums, which the wrapper adds in a fixed order (deterministic, no
-atomics); the time split fills the card even for a single utterance.
-:func:`fits` is its shape gate (D <= 16 and the shared-memory budget,
-which every K < 20 meets).
+The kernel has no T limit: it streams y through a ring of frame tiles
+in shared memory. Its grid is four whole waves: four times as many CTAs
+as the card holds at once, each over an equal span of the bins' frames
+laid end to end (:func:`_partition`), so no wave runs nearly empty. Each piece of a bin
+that a CTA covers writes its partial sums to its own slot, and the
+wrapper adds a bin's slots in a fixed order (deterministic, no atomics).
+The kernel is instantiated for every D in 1..16 (:data:`DIMS`).
+:func:`fits` is its shape gate (D <= 16 and the first design's
+shared-memory budget, which every K < 20 meets); the kernel's own needs
+(:func:`kernel_smem_bytes`) stay within the card's limit wherever the
+gate admits a shape.
 
 On a CPU tensor the wrappers run their plain PyTorch twins
 (:func:`e_stats_reference`, and :mod:`.eigh`'s twin in the finish). On
@@ -28,6 +33,8 @@ twins, for comparisons on the card.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .._dtypes import tiny as _tiny
@@ -35,17 +42,42 @@ from ._build import SMEM_LIMIT
 from .eigh import default_sweeps, eigh_jacobi, eigh_jacobi_reference
 
 __all__ = ['cacgmm_em_long', 'cacgmm_em_long_reference', 'e_stats',
-           'e_stats_reference', 'mixture_weight', 'smem_bytes', 'fits']
+           'e_stats_reference', 'mixture_weight', 'smem_bytes',
+           'kernel_smem_bytes', 'fits', 'DIMS']
 
-TILE = 512  # frames per shared-memory tile (kTile in csrc/em_stream.cu)
-# CTAs a pass aims for: 132 SMs x ~5 resident CTAs, about three waves
-_TARGET_CTAS = 2048
+DIMS = tuple(range(1, 17))  # the D the kernel is instantiated for
+TILE = 256  # frames per shared-memory tile (kTile in csrc/em_stream.cu)
+_GROUP = 4  # classes summed in registers at once (kGroup)
+_STAGES = 2  # tiles in flight (kStages)
+_WARPS = 8  # warps per CTA (kThreads / 32)
+# waves of the grid: one, two, four and eight ran alike on the H100
+# (chip_smoke.py's splits; PERF.md); four keep the spans short
+_WAVES = 4
+# the gate's budget: the first streamed kernel's shared memory (512-frame
+# tiles holding the posterior of every class), kept so that the gate
+# admits the same shapes as before
+_GATE_TILE = 512
 
 
 def smem_bytes(D, K):
-    """Shared memory one CTA needs (csrc/em_stream.cu)."""
+    """The gate's shared-memory budget at (D, K): what the first design
+    of the kernel held per CTA. The kernel needs less
+    (:func:`kernel_smem_bytes`)."""
     P = D * (D + 1) // 2
-    return 8 * (D * TILE + K * D * D + K * P) + 4 * (2 * K * TILE + 3 * K)
+    return 8 * (D * _GATE_TILE + K * D * D + K * P) \
+        + 4 * (2 * K * _GATE_TILE + 3 * K)
+
+
+def kernel_smem_bytes(D, K):
+    """Shared memory one CTA of the kernel takes (stream_smem_bytes in
+    csrc/em_stream.cu): the tile ring (or, if larger, the cross-warp
+    reduction's scratch), the tile's scatter weights, log-pdfs and
+    quadratic forms, the scaled eigenbases and the per-class scalars."""
+    P = D * (D + 1) // 2
+    ring = max(_STAGES * D * (TILE + 1) * 2,
+               _WARPS * _GROUP * -(-P // 32) * 32 * 2)
+    return 4 * (ring + K * D * D * 2 + TILE * _GROUP + 2 * K * TILE
+                + 2 * K + _WARPS * _GROUP)
 
 
 def fits(D, K):
@@ -55,14 +87,57 @@ def fits(D, K):
     return D <= 16 and smem_bytes(D, K) <= SMEM_LIMIT
 
 
-def _chunking(N, T):
-    """(splits, chunk): the time axis of each bin cut into ``splits``
-    chunks of ``chunk`` frames (a multiple of the tile; every chunk
-    holds at least one frame)."""
-    tiles = max(1, -(-T // TILE))
-    splits = min(tiles, max(1, -(-_TARGET_CTAS // max(N, 1))))
-    chunk_tiles = -(-tiles // splits)
-    return -(-tiles // chunk_tiles), chunk_tiles * TILE
+def _partition(N, T, capacity):
+    """(ctas, span, slots) of one pass over N bins of T frames on a card
+    that holds ``capacity`` CTAs at once: the N T frames laid end to end
+    are cut into ``ctas`` spans of ``span`` frames, _WAVES whole waves of
+    ``capacity`` CTAs (the last span may be shorter; at least a tile
+    each), CTA g taking frames [g span, (g + 1) span). A bin's frames then
+    fall to at most ``slots`` consecutive CTAs; the one starting at CTA
+    floor(n T / span) + s writes the bin's slot s."""
+    return _spans(N, T, max(_WAVES * capacity, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _spans(N, T, target):
+    """_partition for a grid of about ``target`` CTAs, once per shape
+    (the slot count walks the bins)."""
+    total = N * T
+    span = max(-(-total // target), TILE)
+    ctas = -(-total // span)
+    slots = max(((n + 1) * T - 1) // span - n * T // span + 1
+                for n in range(N))
+    return ctas, span, slots
+
+
+def _segments(N, T, span):
+    """The (cta, bin, first frame, end frame, slot) of every piece of a
+    bin that a CTA covers, in the order the kernel walks them (CTA by
+    CTA, then by frame): the host's copy of the kernel's walk, for
+    tests."""
+    out = []
+    total = N * T
+    for g in range(-(-total // span)):
+        pos, end = g * span, min((g + 1) * span, total)
+        while pos < end:
+            n = pos // T
+            t0, t1 = pos - n * T, min(end - n * T, T)
+            out.append((g, n, t0, t1, g - n * T // span))
+            pos = n * T + t1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _capacity(device_index, D, K):
+    """CTAs of one pass resident at once on the card (the occupancy
+    query of the kernel's instantiation for D, times the SMs)."""
+    from ._build import load
+    with torch.cuda.device(device_index):
+        capacity = load('em_stream').em_stream_capacity(D, K)
+    if capacity <= 0:
+        raise RuntimeError(
+            f'em_stream occupancy query failed: CUDA error {-capacity}')
+    return capacity
 
 
 def e_stats_reference(y, *, affiliation=None, quadratic_form=None,
@@ -167,23 +242,26 @@ def e_stats(y, *, affiliation=None, quadratic_form=None, eigenvalues=None,
                     operand(weight, (N, K), torch.float32)]
     operands += [operand(saliency, (N, T), torch.float32),
                  operand(source_activity_mask, (N, K, T), torch.float32)]
-    splits, chunk = _chunking(N, T)
-    scatter = torch.empty((splits, N, K, D, D), dtype=torch.complex64,
+    if not (N and T):
+        return (torch.zeros((N, K, D, D), dtype=torch.complex64,
+                            device=y.device),
+                torch.zeros((N, K), dtype=torch.float32, device=y.device))
+    ctas, span, slots = _partition(
+        N, T, _capacity(y.device.index or 0, D, K))
+    # a bin covered by fewer CTAs leaves its last slots 0
+    scatter = torch.zeros((slots, N, K, D, D), dtype=torch.complex64,
                           device=y.device)
-    asum = torch.empty((splits, N, K), dtype=torch.float32, device=y.device)
-    if N and T:
-        from ._build import load
-        err = load('em_stream').em_stream_launch(
-            y_.data_ptr(),
-            *[0 if x is None else x.data_ptr() for x in operands],
-            scatter.data_ptr(), asum.data_ptr(), N, D, K, T, splits, chunk,
-            float(affiliation_eps),
-            torch.cuda.current_stream(y.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f'em_stream kernel launch failed: CUDA error {err}')
-        e_stats.launches += 1
-    # the second pass of the reduction: the split partials, in order
+    asum = torch.zeros((slots, N, K), dtype=torch.float32, device=y.device)
+    from ._build import load
+    err = load('em_stream').em_stream_launch(
+        y_.data_ptr(), *[0 if x is None else x.data_ptr() for x in operands],
+        scatter.data_ptr(), asum.data_ptr(), N, D, K, T, ctas, span,
+        float(affiliation_eps),
+        torch.cuda.current_stream(y.device).cuda_stream)
+    if err:
+        raise RuntimeError(f'em_stream kernel launch failed: CUDA error {err}')
+    e_stats.launches += 1
+    # the second pass of the reduction: each bin's slots, in order
     return scatter.sum(0), asum.sum(0)
 
 

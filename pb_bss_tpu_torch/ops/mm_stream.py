@@ -22,8 +22,7 @@ per bin or frequency-constant (``weight_mode='fc'``), saliency-aware. A
 fit of ``iterations`` M-steps launches the kernel ``iterations`` times.
 
 The kernel has no T limit: it holds a 512-frame tile in shared memory
-and splits the time axis of each bin into chunks exactly as the streamed
-cACGMM kernel does (:func:`pb_bss_tpu_torch.ops.em_stream._chunking`); a
+and splits the time axis of each bin into chunks (:func:`_chunking`); a
 CTA writes its own partial sums, which the wrapper adds in a fixed
 order (deterministic, no atomics). :func:`fits` is its shape gate.
 
@@ -42,7 +41,7 @@ import torch
 
 from .._dtypes import tiny as _tiny
 from ._build import SMEM_LIMIT
-from .em_stream import _chunking, mixture_weight
+from .em_stream import mixture_weight
 from .linalg import eigh
 
 __all__ = ['cwmm_em_long', 'cwmm_em_long_reference', 'cbmm_em_long',
@@ -50,6 +49,18 @@ __all__ = ['cwmm_em_long', 'cwmm_em_long_reference', 'cbmm_em_long',
            'smem_bytes', 'fits']
 
 TILE = 512  # frames per shared-memory tile (kTile in csrc/mm_stream.cu)
+# CTAs a pass aims for: 132 SMs x ~5 resident CTAs, about three waves
+_TARGET_CTAS = 2048
+
+
+def _chunking(N, T):
+    """(splits, chunk): the time axis of each bin cut into ``splits``
+    chunks of ``chunk`` frames (a multiple of the tile; every chunk
+    holds at least one frame)."""
+    tiles = max(1, -(-T // TILE))
+    splits = min(tiles, max(1, -(-_TARGET_CTAS // max(N, 1))))
+    chunk_tiles = -(-tiles // splits)
+    return -(-tiles // chunk_tiles), chunk_tiles * TILE
 
 
 def smem_bytes(D, K, family='watson'):

@@ -310,3 +310,44 @@ def test_default_generator_is_seeded_zero():
         Y, num_classes=3, iterations=2,
         generator=torch.Generator().manual_seed(0))
     assert torch.equal(a.weight, b.weight)
+
+
+@pytest.mark.parametrize('D', em_loop.DIMS)
+def test_kernel_instantiations_cover_the_gate(D):
+    """The kernel is instantiated for every D the gate admits, and its own
+    shared memory stays within the card's limit for every (K, T, extras)
+    the gate admits at that D (at the longest T, where it binds)."""
+    from pb_bss_tpu_torch.ops._build import SMEM_LIMIT
+    for K in (1, 2, 3, 4, 8, 19):
+        for extras in itertools.product((False, True), repeat=2):
+            T = em_loop.max_frames(D, K, *extras)
+            if T < 1:
+                continue
+            assert em_loop.fits(D, K, T, *extras)
+            assert em_loop.kernel_smem_bytes(D, K, T) <= SMEM_LIMIT
+            assert em_loop.kernel_smem_bytes(D, K, T) \
+                <= em_loop.smem_bytes(D, K, T, *extras)
+
+
+def test_threads_fill_the_rounds_of_frames():
+    """The CTA's threads follow T: whole warps, at most 8, at least one
+    warp per floor(32 / D) classes (up to 8), the thread-per-frame
+    rounds of the E-step leave at most one partial warp each, and the
+    CTAs that an SM's shared memory holds come to about 32 warps."""
+    for D, K, T in itertools.product((2, 6, 8, 16), (1, 2, 3, 8, 19),
+                                     (1, 31, 32, 33, 150, 300, 304, 1000,
+                                      3178)):
+        threads = em_loop._threads(D, K, T)
+        warps = threads // 32
+        assert threads % 32 == 0 and 1 <= warps <= 8
+        assert warps >= min(8, -(-K // (32 // D)))
+        rounds = -(-T // threads)
+        if warps > -(-K // (32 // D)):
+            # frames fill every round but the last warp of the last
+            assert rounds * threads - T < 32 * rounds
+    # the slice shape: 9 CTAs an SM by shared memory, 4 warps each, 3
+    # rounds of 128 threads for 304 frames
+    assert em_loop._threads(6, 3, 304) == 128
+    assert em_loop._threads(6, 3, 300) == 128
+    # the longest T: one CTA an SM, eight warps
+    assert em_loop._threads(6, 3, 3178) == 256

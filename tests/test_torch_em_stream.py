@@ -266,13 +266,55 @@ def test_stream_fit_predict_equals_predict(stream_route):
 
 
 def test_chunking_covers_every_frame_once():
+    """The streamed kernel's partition: every (bin, frame) falls to
+    exactly one CTA, the CTAs' spans are equal and make whole waves (no
+    nearly empty last wave), a bin's pieces take distinct slots below
+    ``slots``, and the walk is in a fixed order (CTA by CTA, frames
+    ascending)."""
+    for N, T_, capacity in ((1028, 3753, 660), (257, 3753, 660),
+                            (1, 100, 660), (9, 1200, 132), (65, 1000, 528),
+                            (3, 7, 5), (40, 300, 1)):
+        ctas, span, slots = em_stream._partition(N, T_, capacity)
+        assert ctas <= em_stream._WAVES * capacity or span == em_stream.TILE
+        assert (ctas - 1) * span < N * T_ <= ctas * span
+        segments = em_stream._segments(N, T_, span)
+        assert [s[0] for s in segments] == sorted(s[0] for s in segments)
+        seen = np.zeros((N, T_), int)
+        slot_of = {}
+        for g, n, t0, t1, slot in segments:
+            assert 0 <= t0 < t1 <= T_ and 0 <= slot < slots
+            assert g * span <= n * T_ + t0 and n * T_ + t1 <= (g + 1) * span
+            seen[n, t0:t1] += 1
+            assert slot_of.setdefault((n, slot), g) == g
+        assert (seen == 1).all()
+    # at the long path's shape: whole waves of the 528 resident CTAs, every
+    # CTA but the last over the same span
+    ctas, span, _ = em_stream._partition(1028, 3753, 528)
+    assert ctas == em_stream._WAVES * 528
+    assert span == -(-1028 * 3753 // ctas)
+    # the streamed Watson / Bingham kernel keeps the per-bin time chunks
+    from pb_bss_tpu_torch.ops import mm_stream
     for N, T_ in ((257, 3753), (1028, 3753), (1, 100), (9, 1200),
                   (5000, 20000)):
-        splits, chunk = em_stream._chunking(N, T_)
-        assert chunk % em_stream.TILE == 0
+        splits, chunk = mm_stream._chunking(N, T_)
+        assert chunk % mm_stream.TILE == 0
         assert (splits - 1) * chunk < T_ <= splits * chunk
-    assert em_stream._chunking(257, 3753) == (8, 512)
+    assert mm_stream._chunking(257, 3753) == (8, 512)
     assert em_stream.fits(16, 19) and not em_stream.fits(17, 3)
+
+
+@pytest.mark.parametrize('D', em_stream.DIMS)
+def test_kernel_instantiations_cover_the_gate(D):
+    """The kernel is instantiated for every D the gate admits, and its own
+    shared memory stays within the card's limit for every K the gate
+    admits at that D."""
+    from pb_bss_tpu_torch.ops._build import SMEM_LIMIT
+    assert em_stream.fits(D, 1) and not em_stream.fits(17, 1)
+    K = 1
+    while em_stream.fits(D, K):
+        assert em_stream.kernel_smem_bytes(D, K) <= SMEM_LIMIT
+        K += 1
+    assert K > 19
 
 
 @pytest.mark.slow

@@ -744,3 +744,186 @@ def test_integration_trainers_launch_their_kernels(cuda, trainer, route):
     aff = model.predict(obs, emb)
     assert torch.isfinite(aff).all()
     torch.testing.assert_close(aff.sum(-2), torch.ones_like(aff[:, 0]))
+
+
+# ---------------------------------------------------------------------
+# the redesigned whole-fit (K2) and streamed (K4) kernels across their
+# D instantiations, and the four cACGMM kernels at the eigenvalue floor
+# ---------------------------------------------------------------------
+
+def _extras(N, K, T, device, seed):
+    """Saliency (N, T) and a 0/1 source-activity mask (N, K, T) that
+    silences class 1 in every frame of the first two bins."""
+    g = torch.Generator(device).manual_seed(seed)
+    sal = 0.2 + 0.8 * torch.rand((N, T), device=device, generator=g)
+    mask = (torch.rand((N, K, T), device=device, generator=g) > 0.2).float()
+    mask[:, 0] = torch.maximum(mask[:, 0], 1 - mask.amax(1))
+    mask[:2, 1] = 0
+    return sal, mask
+
+
+@pytest.mark.parametrize('extras', [False, True], ids=['plain', 'sal+mask'])
+@pytest.mark.parametrize('K', [2, 3])
+@pytest.mark.parametrize('D', [2, 6, 8, 16])
+def test_em_kernel_instantiations_match_plain(cuda, D, K, extras):
+    """K2, one iteration, at each D the paths reach (every template
+    instantiation they run), with and without saliency and a mask."""
+    N, T = 17, 157
+    y, aff = _unit_norm_mixture(N, D, K, T, cuda)
+    qf = torch.ones_like(aff)
+    kwargs = {}
+    if extras:
+        sal, mask = _extras(N, K, T, cuda, seed=D)
+        kwargs = dict(saliency=sal, source_activity_mask=mask,
+                      affiliation_eps=0.)
+    sweeps = 6 if D <= 8 else 8
+    before = cacgmm_em_full.launches
+    out = cacgmm_em_full(y, aff, qf, iterations=1, sweeps=sweeps,
+                         warm_sweeps=2, **kwargs)
+    torch.cuda.synchronize()
+    assert cacgmm_em_full.launches == before + 1
+    ref = cacgmm_em_full_reference(y, aff, qf, iterations=1, sweeps=sweeps,
+                                   **kwargs)
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+    # one cold iteration: f32 rounding of two Jacobi orders and E-steps
+    torch.testing.assert_close(out[0], ref[0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(out[1], ref[1], atol=1e-4, rtol=0)
+    torch.testing.assert_close(out[3], ref[3], atol=2e-3, rtol=0)
+    if extras:
+        assert bool((out[3][:2, 1] == 0).all())
+    # a warm fit stays finite and its weights sum to one
+    out = cacgmm_em_full(y, aff, qf, iterations=5, sweeps=sweeps,
+                         warm_sweeps=2, **kwargs)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+    torch.testing.assert_close(out[0].sum(-1), torch.ones(N, device=cuda))
+
+
+@pytest.mark.parametrize('extras', [False, True], ids=['plain', 'sal+mask'])
+@pytest.mark.parametrize('K', [2, 3])
+@pytest.mark.parametrize('D', [2, 6, 8, 16])
+def test_stream_kernel_instantiations_match_plain(cuda, D, K, extras):
+    """K4, one pass in each mode, at each D the paths reach, with and
+    without saliency and a mask; and its partials repeat bit for bit."""
+    from pb_bss_tpu_torch.ops.em_stream import (
+        cacgmm_em_long_reference, e_stats, e_stats_reference)
+    N, T = 33, 1301
+    y, aff = _unit_norm_mixture(N, D, K, T, cuda)
+    qf = torch.ones_like(aff)
+    extra = {}
+    if extras:
+        sal, mask = _extras(N, K, T, cuda, seed=D + 1)
+        extra = dict(saliency=sal, source_activity_mask=mask)
+    weight, ev, vec = cacgmm_em_long_reference(y, aff, qf, iterations=1)
+    for kwargs in (dict(affiliation=aff, quadratic_form=qf),
+                   dict(eigenvalues=ev, eigenvectors=vec, weight=weight,
+                        affiliation_eps=1e-10)):
+        before = e_stats.launches
+        s_k, a_k = e_stats(y, **kwargs, **extra)
+        again = e_stats(y, **kwargs, **extra)
+        torch.cuda.synchronize()
+        assert e_stats.launches == before + 2
+        assert torch.equal(s_k, again[0]) and torch.equal(a_k, again[1])
+        assert torch.equal(s_k, s_k.conj().transpose(-1, -2))
+        s_p, a_p = e_stats_reference(y, **kwargs, **extra)
+        assert bool(torch.isfinite(s_k).all())
+        # f32 sums over T in two orders: 1e-4 of the largest entry
+        assert (s_k - s_p).abs().max() <= 1e-4 * s_p.abs().max()
+        torch.testing.assert_close(a_k, a_p, rtol=1e-4, atol=0)
+
+
+def _floor(make, *args, device):
+    return {k: torch.as_tensor(v, device=device)
+            for k, v in make(*args).items()}
+
+
+def test_em_kernel_at_the_floor_matches_plain(cuda):
+    """K2, one iteration from affiliations under which class 0's first
+    M-step is rank-deficient: an eigenvalue at the floor or within f32
+    rounding of zero, where an assembled inverse cancels. The M-step is
+    held against the twin's, the E-step against the twin's E-step on the
+    kernel's own model (the eigenvalue at zero is rounding noise in any
+    f32 eigensolver, and the posterior follows it)."""
+    from pb_bss_tpu_torch.models.cacgmm import CACGMM
+    from pb_bss_tpu_torch.models.complex_angular_central_gaussian import (
+        ComplexAngularCentralGaussian)
+    from pb_bss_tpu_torch.testing.em_floor import affiliations_at_floor
+    x = _floor(affiliations_at_floor, 65, 6, 3, 304, 110, device=cuda)
+    args = (x['y'], x['affiliation'], x['quadratic_form'])
+    out = cacgmm_em_full(*args, iterations=1, warm_sweeps=2,
+                         affiliation_eps=0.)
+    ref = cacgmm_em_full_reference(*args, iterations=1, affiliation_eps=0.)
+    model = CACGMM(weight=out[0][..., None], cacg=(
+        ComplexAngularCentralGaussian(covariance_eigenvectors=out[2],
+                                      covariance_eigenvalues=out[1])))
+    e_step = model._predict(x['y'], affiliation_eps=0.)[0]
+    torch.cuda.synchronize()
+    assert bool((ref[1][:, 0, 0] <= 1e-6).all())
+    torch.testing.assert_close(out[0], ref[0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(out[1], ref[1], atol=1e-4, rtol=0)
+    c_k, c_p = _covariance(out[2], out[1]), _covariance(ref[2], ref[1])
+    assert (c_k - c_p).abs().max() <= 1e-4 * c_p.abs().max()
+    torch.testing.assert_close(out[3], e_step, atol=2e-3, rtol=0)
+
+
+def test_stream_kernel_at_the_floor_matches_plain(cuda):
+    from pb_bss_tpu_torch.ops.em_stream import e_stats, e_stats_reference
+    from pb_bss_tpu_torch.testing.em_floor import model_at_floor
+    x = _floor(model_at_floor, 65, 6, 3, 1777, 111, device=cuda)
+    kw = dict(eigenvalues=x['eigenvalues'], eigenvectors=x['eigenvectors'],
+              weight=x['weight'], affiliation_eps=1e-10)
+    s_k, a_k = e_stats(x['y'], **kw)
+    s_p, a_p = e_stats_reference(x['y'], **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(s_k).all())
+    assert (s_k - s_p).abs().max() <= 1e-4 * s_p.abs().max()
+    torch.testing.assert_close(a_k, a_p, rtol=1e-4, atol=0)
+
+
+def test_fc_kernels_at_the_floor_match_plain(cuda):
+    from pb_bss_tpu_torch.ops import em_step
+    from pb_bss_tpu_torch.testing.em_floor import (
+        affiliations_at_floor, model_at_floor)
+    B, F, D, K, T = 2, 33, 6, 3, 304
+    x = _floor(affiliations_at_floor, B * F, D, K, T, 112, device=cuda)
+    args = (x['y'], x['affiliation'], x['quadratic_form'])
+    init = dict(sweeps=6, eigenvalue_floor=1e-10)
+    init_k = em_step.m_init(*args, **init)
+    init_p = em_step.m_init_reference(*args, **init)
+    x = _floor(model_at_floor, B * F, D, K, T, 113, device=cuda)
+    weight = x['weight'].reshape(B, F, K).mean(1)
+    step = dict(warm_sweeps=2, eigenvalue_floor=1e-10, affiliation_eps=1e-10)
+    args = (x['y'], x['eigenvalues'], x['eigenvectors'], weight)
+    step_k = em_step.em_step(*args, **step)
+    step_p = em_step.em_step_reference(*args, **step)
+    torch.cuda.synchronize()
+    for (vk, ek, ak), (vp, ep, ap) in ((init_k, init_p),
+                                       (step_k[:3], step_p[:3])):
+        assert bool(torch.isfinite(ek).all() and torch.isfinite(vk).all())
+        assert _lam_close(ek, ep, 1e-4)
+        c_k, c_p = _covariance(vk, ek), _covariance(vp, ep)
+        assert (c_k - c_p).abs().max() <= 1e-4 * c_p.abs().max()
+        torch.testing.assert_close(ak, ap, rtol=1e-4, atol=0)
+
+
+def test_e_step_kernels_at_the_floor_match_plain(cuda):
+    from pb_bss_tpu_torch.ops.em_estep import (
+        cacgmm_e_step, cacgmm_e_step_reference, cacgmm_em_scatter,
+        cacgmm_em_scatter_reference)
+    from pb_bss_tpu_torch.testing.em_floor import model_at_floor
+    x = _floor(model_at_floor, 65, 6, 3, 304, 114, device=cuda)
+    y, vec, ev = x['y'], x['eigenvectors'], x['eigenvalues']
+    args = (y.real.contiguous(), y.imag.contiguous(), vec.real.contiguous(),
+            vec.imag.contiguous(), 1. / ev, torch.log(ev).sum(-1),
+            x['weight'])
+    aff_k, qf_k = cacgmm_e_step(*args)
+    aff_p, qf_p = cacgmm_e_step_reference(*args)
+    s_k = cacgmm_em_scatter(*args)
+    s_p = cacgmm_em_scatter_reference(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(aff_k, aff_p, atol=1e-4, rtol=0)
+    torch.testing.assert_close(qf_k, qf_p, rtol=1e-4, atol=0)
+    scale = max(s_p[0].abs().max(), s_p[1].abs().max())
+    for i in (0, 1):
+        assert (s_k[i] - s_p[i]).abs().max() <= 1e-4 * scale
+    torch.testing.assert_close(s_k[2], s_p[2], rtol=1e-4, atol=0)
