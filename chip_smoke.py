@@ -49,11 +49,13 @@ limit, and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without a CUDA device, outside a checkout of the repository,
 or when any phase fails. Imports nothing of JAX.
 
-    python3 chip_smoke.py --only floor,cacgmm,splits,e2e [--package DIR]
+    python3 chip_smoke.py --only floor,cacgmm,cbmm,splits,e2e [--package DIR]
 
 runs only the named phases after the build (the floor checks, the cACGMM
-kernels' checks, the split of the whole-fit and streamed EM kernels'
-time, the cACGMM separate_batch end to end), with ``pb_bss_tpu_torch`` imported from DIR if given (another
+kernels' checks, the whole-fit Bingham kernel's checks, the split of the
+time of the whole-fit and streamed cACGMM EM kernels, the whole-fit
+Bingham EM and the frequency-constant EM, the cACGMM separate_batch end
+to end), with ``pb_bss_tpu_torch`` imported from DIR if given (another
 checkout, to time two versions in one call); it prints no kernels line.
 """
 from __future__ import annotations
@@ -1684,15 +1686,7 @@ def phase_kernels_mixtures():
     check_bingham(4 * 257 * 3, 3, seed=71)
     check_bingham(4 * 257 * 3, 8, seed=72)
     check_bingham(4 * 257 * 3, 6, seed=73, max_concentration=50.)
-    # K9: the slice and bench shapes, saliency with a class silenced in
-    # 16 bins, a finite bound, odd shapes
-    results['cbmm_slice'] = check_cbmm(8, 257, 6, 3, 304, seed=74,
-                                       control=True)
-    check_cbmm(8, 513, 6, 3, 300, seed=75, saliency=True, silence=True)
-    check_cbmm(1, 65, 6, 3, 304, seed=76, max_concentration=50.)
-    check_cbmm(1, 65, 3, 2, 777, seed=77)
-    check_cbmm(1, 65, 8, 4, 150, seed=78)
-    check_cbmm_conditioned(8 * 257, 6, 3, 304, seed=86)
+    results.update(phase_kernels_cbmm())
     # the Bingham K7: the long-T config (F=513, T=4000), fc weights at the
     # bench shape, saliency at an odd T; the whole streamed fit
     results['bingham_stream'] = check_bingham_stream(1, 513, 6, 3, 4000,
@@ -1731,6 +1725,21 @@ def phase_kernels_mixtures():
                            iterations=19, separable=True)
     check_integration_loop(130, 8, 4, 150, 7, 2, 'vmf', seed=101,
                            iterations=10, separable=True)
+    return results
+
+
+def phase_kernels_cbmm():
+    """K9 against its twin: the slice and bench shapes, saliency with a
+    class silenced in 16 bins, a finite bound, odd shapes, and the
+    isotropic fit."""
+    results = {}
+    results['cbmm_slice'] = check_cbmm(8, 257, 6, 3, 304, seed=74,
+                                       control=True)
+    check_cbmm(8, 513, 6, 3, 300, seed=75, saliency=True, silence=True)
+    check_cbmm(1, 65, 6, 3, 304, seed=76, max_concentration=50.)
+    check_cbmm(1, 65, 3, 2, 777, seed=77)
+    check_cbmm(1, 65, 8, 4, 150, seed=78)
+    check_cbmm_conditioned(8 * 257, 6, 3, 304, seed=86)
     return results
 
 
@@ -2710,7 +2719,8 @@ def time_e2e():
 
 
 def time_em_splits():
-    """The split of K2's and K4's time, with their own arguments only:
+    """The split of K2's, K4's, K9's and K5's time (the last two in
+    :func:`time_cbmm_fc_splits`), with their own arguments only:
     K2 (B=8, F=257, D=6, K=3) at 20 iterations against 1, warm_sweeps 2
     against 0, T=304 against 32, and at the bench.py shape (B=8, F=513,
     T=300); K4 (B=4, F=257, T=3753) from_init mode (the sums alone)
@@ -2768,8 +2778,51 @@ def time_em_splits():
         resident = em_stream._capacity(torch.cuda.current_device(), 6, 3)
         log(f'occupancy: K2 CTAs per SM at D=6, K=3, T=304 ({threads} '
             f'threads) {per_sm}; K4 resident CTAs at D=6, K=3 {resident}')
+    out.update(time_cbmm_fc_splits())
     log('timing splits (ms per call): '
         + '; '.join(f'{case} {ms:.4f}' for case, ms in out.items()))
+    return out
+
+
+def time_cbmm_fc_splits():
+    """The split of K9's and K5's time, with their own arguments only: K9
+    (B=8, F=257, D=6, K=3) at 20 iterations against 1, warm_steps 16
+    against 0 (the steady solve's chord steps) and T=304 against 32 (the
+    frames against the fixed work), and at the bench.py shape (F=513,
+    T=300); K5 (B=8, F=513, D=6, K=3) the 20-iteration fc fit, the init, a
+    step at warm_sweeps 2 against 0 and at T=300 against 32. Returns
+    {case: ms}."""
+    from pb_bss_tpu_torch.ops import em_step
+    from pb_bss_tpu_torch.ops.cbmm_loop import cbmm_em_full
+    out = {}
+    for F, T in ((257, 304), (257, 32), (513, 300)):
+        ins = [watson_inputs(8, F, 6, 3, T, 3200 + i)[:2]
+               for i in range(4)]
+        for iterations, warm_steps in ((20, 16), (1, 16), (20, 0)):
+            if T != 304 and (iterations, warm_steps) != (20, 16):
+                continue
+            out[f'K9 F={F} T={T} it={iterations} warm_steps={warm_steps}'] \
+                = cuda_time(lambda y, a: cbmm_em_full(
+                    y, a, iterations=iterations, warm_steps=warm_steps), ins)
+    B, F, D, K = 8, 513, 6, 3
+    fits = [em_inputs(B, F, D, K, 300, 3400 + i) for i in range(4)]
+    out['K5 fc fit F=513 T=300 it=20'] = cuda_time(
+        lambda y, a, q: em_step.cacgmm_em_fc(y, a, q, iterations=20), fits)
+    for T in (300, 32):
+        ins = [fold_inputs(B, F, D, K, T, 3300 + i)[:3] for i in range(6)]
+        init = dict(sweeps=6, eigenvalue_floor=1e-10)
+        if T == 300:
+            out[f'K5 init F=513 T={T}'] = cuda_time(
+                lambda y, a, q: em_step.m_init(y, a, q, **init), ins)
+        states = []
+        for y, aff, qf in ins:
+            vec, ev, asum = em_step.m_init(y, aff, qf, **init)
+            states.append((y, ev, vec, asum.reshape(B, F, K).sum(1) / (F * T)))
+        for warm in ((2, 0) if T == 300 else (2,)):
+            out[f'K5 step F=513 T={T} warm_sweeps={warm}'] = cuda_time(
+                lambda *x: em_step.em_step(
+                    *x, warm_sweeps=warm, eigenvalue_floor=1e-10,
+                    affiliation_eps=1e-10), states)
     return out
 
 
@@ -3250,8 +3303,8 @@ def main():
     parser.add_argument(
         '--only', default=None,
         help='comma-separated phases to run after the build instead of '
-             'the whole smoke test (floor, splits, cacgmm, e2e); prints no '
-             'kernels line')
+             'the whole smoke test (floor, splits, cacgmm, cbmm, e2e); '
+             'prints no kernels line')
     parser.add_argument(
         '--package', default=None,
         help='import pb_bss_tpu_torch from this directory (with --only: '
@@ -3273,7 +3326,8 @@ def main():
                  'repository')
     if args.only is not None:
         phases = {'floor': phase_floor, 'splits': time_em_splits,
-                  'cacgmm': phase_kernels_cacgmm, 'e2e': time_e2e}
+                  'cacgmm': phase_kernels_cacgmm, 'cbmm': phase_kernels_cbmm,
+                  'e2e': time_e2e}
         try:
             card = timed(phase_device)
             log('package:', importlib.util.find_spec(

@@ -8,7 +8,7 @@
 //   M-step  lanes over the upper-triangle entries (and one more lane for
 //           the affiliation sum), warps over frames: lane j adds
 //           w_k y_d conj(y_e) of its warp's frames into registers for a
-//           group of kGroup classes; then one cross-warp reduction, warp
+//           group of kScatterGroup classes; then one cross-warp reduction, warp
 //           by warp in a fixed order, and the covariance
 //           D sum / max(asum, tiny) (a division, never the sum times
 //           D / max(asum, tiny): at D >= 5 that factor overflows when a
@@ -58,6 +58,9 @@
 // has exactly one CTA per bin, so no padded lane can feed 0 * inf into a
 // reduction.
 //
+// The scatter, the Jacobi and the E-step are em_iter.cuh's, shared with
+// the frequency-constant-weight EM (em_step.cu).
+//
 // Layouts (all contiguous): y (N, D, T) complex64 as float2;
 // aff0/qf0/aff/mask (N, K, T) float; sal (N, T); weight (N, K); eig
 // (N, K, D) unsorted; V (N, K, D, D) complex64, eigenvectors in columns.
@@ -65,13 +68,11 @@
 #include <cmath>
 #include <cuda_runtime.h>
 
-#include "em_common.cuh"
+#include "em_iter.cuh"
 
 namespace {
 
 constexpr int kMaxThreads = 256;
-constexpr int kGroup = 4;  // classes summed in registers at once
-constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ constexpr int row_stride(int D, int T) {
   return D == 1 ? T : (T | 1);
@@ -81,111 +82,6 @@ inline size_t em_smem_bytes(int D, int K, int T) {
   const size_t DD = size_t(D) * D;
   return sizeof(float2) * (size_t(D) * row_stride(D, T) + 3 * K * DD) +
          sizeof(float) * (2 * size_t(K) * T + size_t(K) * D + 4 * K);
-}
-
-// The round-robin (circle) schedule of Dn = D + (D & 1) indices: step s
-// pairs (s, Dn - 1) and ((s + m) mod (Dn - 1), (s - m) mod (Dn - 1)) for
-// m = 1 .. Dn / 2 - 1; the Dn - 1 steps pair every two indices once. A
-// pair with the padding index D is skipped.
-__host__ __device__ constexpr int rr_a(int Dn, int s, int m) {
-  return m == 0 ? s : (s + m) % (Dn - 1);
-}
-__host__ __device__ constexpr int rr_b(int Dn, int s, int m) {
-  return m == 0 ? Dn - 1 : (s - m + Dn - 1) % (Dn - 1);
-}
-
-// The rotation of pair (p, q) from a_pp, a_qq, a_pq: the JAX package's
-// algebra (tau = (a_qq - a_pp) / 2|a_pq|, t = sign(tau) / (|tau| +
-// sqrt(1 + tau^2)) with t = 1 at tau = 0, c = 1 / sqrt(1 + t^2),
-// s = t c a_pq / |a_pq|, none when a_pq is zero) in the card's fast
-// reciprocal square roots: a Jacobi rotation only has to be applied
-// consistently to rows, columns and V, which the shared (c, s) ensure,
-// and the sweeps then converge to f32 rounding as with exact parameters.
-// An |a_pq| below 1e-18 (of entries ~1) counts as zero.
-__device__ __forceinline__ void rotation(float app, float aqq, float2 apq,
-                                         float* c_out, float2* s_out) {
-  const float n2 = fmaf(apq.x, apq.x, apq.y * apq.y);
-  const bool rotate = n2 > 1e-36f;
-  const float inv = rotate ? rsqrtf(n2) : 0.f;
-  const float tau = 0.5f * (aqq - app) * inv;
-  const float t = copysignf(
-      __frcp_rn(fabsf(tau) + sqrtf(fmaf(tau, tau, 1.f))), tau);
-  const float c = rotate ? rsqrtf(fmaf(t, t, 1.f)) : 1.f;
-  const float sr = rotate ? t * c * inv : 0.f;
-  *c_out = c;
-  *s_out = make_float2(sr * apq.x, sr * apq.y);
-}
-
-// `sweeps` parallel Jacobi sweeps on the Hermitian matrices whose columns
-// the lanes hold: lane `base + j` holds column j of A (a) and of V (v) of
-// its class, j = lane - base < D (`own` false for lanes without a
-// column). In each step the two lanes of a pair compute its rotation from
-// their own entries (each lane's diagonal and its entry in the partner's
-// row), the step's D / 2 rotations reach every lane by shuffle for the
-// row updates, and the two lanes exchange their columns by shuffle.
-// Afterwards a[j].x is the lane's eigenvalue.
-template <int D>
-__device__ __forceinline__ void column_jacobi(float2 (&a)[D], float2 (&v)[D],
-                                              int base, int j, bool own,
-                                              int sweeps) {
-  constexpr int Dn = D + (D & 1);
-  constexpr int M = Dn / 2;
-  for (int sweep = 0; sweep < sweeps; ++sweep) {
-#pragma unroll
-    for (int s = 0; s < Dn - 1; ++s) {
-      // this lane's partner in step s of the circle schedule
-      int partner = j == Dn - 1 ? s
-          : j == s ? Dn - 1 : (2 * s - j + 2 * (Dn - 1)) % (Dn - 1);
-      if (!own || partner >= D) partner = j;
-      const bool is_p = j < partner;
-      float2 diag = a[0], off = a[0];
-#pragma unroll
-      for (int i = 1; i < D; ++i) {
-        if (i == j) diag = a[i];
-        if (i == partner) off = a[i];
-      }
-      // the partner's diagonal, and A[p][q] from the q lane (its entry in
-      // row p)
-      const float other = __shfl_sync(kFull, diag.x, base + partner);
-      const float2 off_q = make_float2(
-          __shfl_sync(kFull, off.x, base + partner),
-          __shfl_sync(kFull, off.y, base + partner));
-      float c = 1.f;
-      float2 sv = make_float2(0.f, 0.f);
-      if (partner != j)
-        rotation(is_p ? diag.x : other, is_p ? other : diag.x,
-                 is_p ? off_q : off, &c, &sv);
-      // rows p and q of the lane's column, for every pair of the step:
-      // A[p] = c A[p] - s A[q]; A[q] = conj(s) A[p] + c A[q]
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int p0 = rr_a(Dn, s, m), q0 = rr_b(Dn, s, m);
-        const int p = p0 < q0 ? p0 : q0, q = p0 < q0 ? q0 : p0;
-        if (q < D) {
-          const float cm = __shfl_sync(kFull, c, base + q);
-          const float2 sm = make_float2(__shfl_sync(kFull, sv.x, base + q),
-                                        __shfl_sync(kFull, sv.y, base + q));
-          const float2 rp = a[p], rq = a[q];
-          a[p] = c_sub(c_scale(cm, rp), c_mul(sm, rq));
-          a[q] = c_add(c_mul(c_conj(sm), rp), c_scale(cm, rq));
-        }
-      }
-      // columns: A[:,p] = c A[:,p] - conj(s) A[:,q];
-      // A[:,q] = s A[:,p] + c A[:,q] (V the same), the partner's column
-      // by shuffle
-      const float2 coef = is_p ? make_float2(-sv.x, sv.y) : sv;
-      const int src = base + partner;
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        const float2 xa = make_float2(__shfl_sync(kFull, a[i].x, src),
-                                      __shfl_sync(kFull, a[i].y, src));
-        const float2 xv = make_float2(__shfl_sync(kFull, v[i].x, src),
-                                      __shfl_sync(kFull, v[i].y, src));
-        a[i] = c_add(c_scale(c, a[i]), c_mul(coef, xa));
-        v[i] = c_add(c_scale(c, v[i]), c_mul(coef, xv));
-      }
-    }
-  }
 }
 
 // Registers: up to 64 a thread for D <= 6, so that a 160-thread CTA of
@@ -204,9 +100,6 @@ cacgmm_em_full_kernel(const float2* __restrict__ y,
                       int iterations, int sweeps, int warm_sweeps,
                       float eigenvalue_floor, float affiliation_eps) {
   constexpr int DD = D * D;
-  constexpr int P = D * (D + 1) / 2;
-  constexpr int E = (P + 1 + 31) / 32;  // entries (and the sum) per lane
-  constexpr int kClassesPerWarp = 32 / D;
   extern __shared__ float4 smem_raw[];
   const int Tp = row_stride(D, T);
   float2* ys = reinterpret_cast<float2*>(smem_raw);  // D * Tp
@@ -224,27 +117,11 @@ cacgmm_em_full_kernel(const float2* __restrict__ y,
   const size_t n = blockIdx.x;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int nwarps = nthreads >> 5;
   const size_t KT = size_t(K) * T;
   const float tiny = FLT_MIN;
   const bool has_sal = sal_in != nullptr;
   const float* sal = has_sal ? sal_in + n * T : nullptr;
   const float* mask = mask_in != nullptr ? mask_in + n * KT : nullptr;
-
-  // this lane's scatter entries: (d, e) of r = lane + 32 j, or the
-  // affiliation sum (r == P); lanes past it point at (0, 0), unused
-  int ed[E], ee[E], er[E];
-#pragma unroll
-  for (int j = 0; j < E; ++j) {
-    er[j] = lane + 32 * j;
-    upper_entry(er[j] < P ? er[j] : 0, D, &ed[j], &ee[j]);
-  }
-  // this lane's Jacobi column: column jc of the warp's class jslot
-  const int jslot = lane / D;
-  const int jc = lane - jslot * D;
-  const int jbase = jslot * D;
 
   for (int d = 0; d < D; ++d)
     for (int t = tid; t < T; t += nthreads)
@@ -259,165 +136,41 @@ cacgmm_em_full_kernel(const float2* __restrict__ y,
   for (int it = 0; it < iterations; ++it) {
     const bool warm = it > 0 && warm_sweeps >= 0;
 
-    // ---- M-step sums: lanes over entries, warps over frames -----------
-    for (int g0 = 0; g0 < K; g0 += kGroup) {
-      const int G = min(kGroup, K - g0);
-      float2 acc[E][kGroup];
-#pragma unroll
-      for (int j = 0; j < E; ++j)
-#pragma unroll
-        for (int c = 0; c < kGroup; ++c) acc[j][c] = make_float2(0.f, 0.f);
-#pragma unroll 4
-      for (int t = warp; t < T; t += nwarps) {
-        float w[kGroup], a[kGroup];
-#pragma unroll
-        for (int c = 0; c < kGroup; ++c) {
-          w[c] = c < G ? wq[(g0 + c) * T + t] : 0.f;
-          a[c] = c < G ? aw[(g0 + c) * T + t] : 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < E; ++j) {
-          const bool is_sum = er[j] == P;
-          float2 p = c_mul_conj(ys[ed[j] * Tp + t], ys[ee[j] * Tp + t]);
-          if (is_sum) p = make_float2(1.f, 0.f);
-#pragma unroll
-          for (int c = 0; c < kGroup; ++c) {
-            const float f = is_sum ? a[c] : w[c];
-            acc[j][c].x = fmaf(f, p.x, acc[j][c].x);
-            acc[j][c].y = fmaf(f, p.y, acc[j][c].y);
-          }
-        }
-      }
-      // the cross-warp reduction, warp by warp in a fixed order
-      for (int w = 0; w < nwarps; ++w) {
-        if (warp == w) {
-#pragma unroll
-          for (int j = 0; j < E; ++j) {
-#pragma unroll
-            for (int c = 0; c < kGroup; ++c) {
-              if (c >= G || er[j] > P) continue;
-              const int k = g0 + c;
-              if (er[j] == P) {
-                wsum[k] = (w == 0 ? 0.f : wsum[k]) + acc[j][c].x;
-              } else {
-                float2* su = Su + k * P + er[j];
-                *su = w == 0 ? acc[j][c] : c_add(*su, acc[j][c]);
-              }
-            }
-          }
-        }
-        __syncthreads();
-      }
-    }
-
-    // ---- covariance D sum / max(asum, tiny), Hermitian; mixture weight
-    for (int id = tid; id < K * DD; id += nthreads) {
-      const int k = id / DD;
-      const int d = (id - k * DD) / D;
-      const int e = id - k * DD - d * D;
-      const int lo = min(d, e), hi = max(d, e);
-      const float2 s = Su[k * P + lo * D - lo * (lo - 1) / 2 + hi - lo];
-      const float den = fmaxf(wsum[k], tiny);
-      const float re = float(D) * s.x / den;
-      const float im = float(D) * s.y / den;
-      S[id] = d == e ? make_float2(re, 0.f)
-                     : make_float2(re, d < e ? im : -im);
-    }
+    // ---- M-step sums, covariance D sum / max(asum, tiny), weight ------
+    scatter_sums<D>(ys, Tp, aw, wq, Su, wsum, K, T);
+    covariance_from_sums<D>(Su, wsum, S, K, float(D));
     for (int k = tid; k < K; k += nthreads)
       wgt[k] = mixture_weight(wsum, k, K, has_sal, float(T));
     __syncthreads();
 
-    // ---- eigh: the column Jacobi, a lane per column, floor(32 / D)
-    // classes to a warp ---------------------------------------------------
-    for (int k0 = warp * kClassesPerWarp; k0 < K;
-         k0 += nwarps * kClassesPerWarp) {
-      const bool jown = jslot < kClassesPerWarp && k0 + jslot < K;
-      const int k = jown ? k0 + jslot : 0;
-      const float2* Sk = S + k * DD;
-      const float2* Vk = V + k * DD;
-      float2 a[D], v[D];
-      if (!jown) {
+    // ---- eigh: the column Jacobi; normalization, floor, log-determinant
+    // and the scaled eigenbasis W = V diag(l^{-1/2}) --------------------
+    column_eigh<D>(
+        S, V, K, warm, warm ? warm_sweeps : sweeps,
+        [&](int k, int jc, float lam, const float2 (&v)[D], int jbase,
+            bool jown) {
+          float ld;
+          const float ev =
+              floored_eigenvalue<D>(lam, jbase, eigenvalue_floor, &ld);
+          if (jown) {
+            eig[k * D + jc] = ev;
+            if (jc == 0) logdet[k] = ld;
+            const float scale = 1.f / sqrtf(ev);
 #pragma unroll
-        for (int i = 0; i < D; ++i) {
-          a[i] = make_float2(0.f, 0.f);
-          v[i] = make_float2(0.f, 0.f);
-        }
-      } else if (warm) {
-        // A = V^H S V: this lane's column V^H (S v_j)
-        float2 sv[D];
-#pragma unroll
-        for (int i = 0; i < D; ++i) v[i] = Vk[i * D + jc];
-#pragma unroll
-        for (int r = 0; r < D; ++r) {
-          float2 acc = make_float2(0.f, 0.f);
-#pragma unroll
-          for (int b = 0; b < D; ++b)
-            acc = c_add(acc, c_mul(Sk[r * D + b], v[b]));
-          sv[r] = acc;
-        }
-#pragma unroll
-        for (int i = 0; i < D; ++i) {
-          float2 acc = make_float2(0.f, 0.f);
-#pragma unroll
-          for (int r = 0; r < D; ++r)
-            acc = c_add(acc, c_conj_mul(Vk[r * D + i], sv[r]));
-          a[i] = i == jc ? make_float2(acc.x, 0.f) : acc;
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < D; ++i) {
-          a[i] = Sk[i * D + jc];
-          v[i] = make_float2(i == jc ? 1.f : 0.f, 0.f);
-        }
-      }
-      column_jacobi<D>(a, v, jbase, jc, jown, warm ? warm_sweeps : sweeps);
-      float lam = 0.f;
-#pragma unroll
-      for (int i = 0; i < D; ++i)
-        if (i == jc) lam = a[i].x;
-      float lmax = -INFINITY;
-      for (int m = 0; m < D; ++m)
-        lmax = fmaxf(lmax, __shfl_sync(kFull, lam, jbase + m));
-      lmax = fmaxf(lmax, tiny);
-      const float ev = fmaxf(lam / lmax, eigenvalue_floor);
-      float ld = 0.f;
-      for (int m = 0; m < D; ++m)
-        ld += logf(__shfl_sync(kFull, ev, jbase + m));
-      if (jown) {
-        eig[k * D + jc] = ev;
-        if (jc == 0) logdet[k] = ld;
-        const float scale = 1.f / sqrtf(ev);
-#pragma unroll
-        for (int i = 0; i < D; ++i) {
-          V[k * DD + i * D + jc] = v[i];
-          Wh[k * DD + jc * D + i] = c_scale(scale, c_conj(v[i]));
-        }
-      }
-    }
+            for (int i = 0; i < D; ++i) {
+              V[k * DD + i * D + jc] = v[i];
+              Wh[k * DD + jc * D + i] = c_scale(scale, c_conj(v[i]));
+            }
+          }
+        });
     __syncthreads();
 
-    // ---- E-step: a thread per frame -----------------------------------
+    // ---- E-step: a thread per frame; the last one is unclipped and is
+    // written out --------------------------------------------------------
     const bool last = it == iterations - 1;
-    const float eps = last ? 0.f : affiliation_eps;
-    for (int t = tid; t < T; t += nthreads) {
-      float2 yf[D];
-#pragma unroll
-      for (int d = 0; d < D; ++d) yf[d] = ys[d * Tp + t];
-      e_step_frame(
-          [&](int k) { return projection_form<D>(yf, Wh + k * DD); }, logdet,
-          wgt, mask != nullptr ? mask + t : nullptr, T, eps, aw + t, wq + t,
-          T, D, K);
-      const float s = has_sal ? sal[t] : 1.f;
-      for (int k = 0; k < K; ++k) {
-        const float a = aw[k * T + t];
-        if (last) {
-          aff_out[n * KT + size_t(k) * T + t] = a;
-        } else {
-          aw[k * T + t] = a * s;
-          wq[k * T + t] = a * s / fmaxf(wq[k * T + t], 10.f * tiny);
-        }
-      }
-    }
+    e_step_pass<D>(ys, Tp, Wh, logdet, wgt, mask, sal,
+                   last ? 0.f : affiliation_eps, aw, wq,
+                   last ? aff_out + n * KT : nullptr, !last, K, T);
     __syncthreads();
   }
 

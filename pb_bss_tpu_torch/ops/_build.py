@@ -21,16 +21,20 @@ import subprocess
 import tempfile
 import time
 
-__all__ = ['CSRC', 'BUILD_DIR', 'KERNELS', 'SMEM_LIMIT', 'nvcc_command',
-           'load', 'build_all']
+__all__ = ['CSRC', 'BUILD_DIR', 'KERNELS', 'SMEM_LIMIT', 'SM_SMEM',
+           'SM_WARPS', 'nvcc_command', 'load', 'build_all']
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = CSRC.parent / '_kernels'
-_HEADERS = ('jacobi.cuh', 'em_common.cuh', 'watson.cuh', 'bingham.cuh',
-            'integration.cuh')
+_HEADERS = ('jacobi.cuh', 'em_common.cuh', 'em_iter.cuh', 'watson.cuh',
+            'bingham.cuh', 'integration.cuh')
 # bytes of shared memory one block may opt into on the H100 (sm_90), the
 # budget of every kernel's shape gate
 SMEM_LIMIT = 232448
+# shared memory of an H100 SM (1 KB of it is kept per CTA), and the warps
+# the CTA-shape choosers aim to keep on one: half its 64
+SM_SMEM = 233472
+SM_WARPS = 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,9 +60,9 @@ KERNELS = {
     },
     'em_step': {
         'em_fc_init_launch': (
-            [_P] * 7 + [_I] * 5 + [_F, _P], _I),
+            [_P] * 7 + [_I] * 7 + [_F, _P], _I),
         'em_fc_step_launch': (
-            [_P] * 10 + [_I] * 6 + [_F, _F, _P], _I),
+            [_P] * 10 + [_I] * 8 + [_F, _F, _P], _I),
     },
     'em_estep': {
         'em_e_step_launch': ([_P] * 9 + [_I] * 4 + [_P], _I),
@@ -76,7 +80,7 @@ KERNELS = {
     },
     'cbmm_loop': {
         'cbmm_em_full_launch': (
-            [_P] * 8 + [_I] * 10 + [_F] * 8 + [_P], _I),
+            [_P] * 8 + [_I] * 11 + [_F] * 8 + [_P], _I),
     },
     'integration_em': {
         'integration_stats_launch': (

@@ -9,9 +9,11 @@ Hermitian scatter, the warm-started complex Jacobi (cold ``sweeps`` in
 iteration 0, then ``warm_sweeps`` from the previous eigenbasis), the
 ascending sort of the moments (floored at 0) with their eigenvector
 columns, the minimum spacing, the moment inversion by chord Gauss-Newton
-(the chord kernel K8's device code, ``csrc/bingham.cuh``: ``cold_rounds``
-rounds of ``cold_steps`` steps from ``-1/s`` in iteration 0, then one round
-of ``warm_steps`` from the previous eigenvalues), the floor and spacing
+(the chord kernel K8's algorithm, ``csrc/bingham.cuh``, with each cascade
+on a whole warp and a round's finite-difference cascades of all classes
+at once: ``cold_rounds`` rounds of ``cold_steps`` steps from ``-1/s`` in
+iteration 0, then one round of ``warm_steps`` from the previous
+eigenvalues), the floor and spacing
 under a finite ``max_concentration``, the log normalizer from one more
 cascade and the E-step ``y^H V diag(lambda) V^H y - log c`` with a
 max-shift softmax and the ``affiliation_eps`` clip. Saliency weights the
@@ -19,15 +21,19 @@ statistics and L1-normalizes the mixture weight. The final E-step is
 unclipped: it is ``CBMM.predict``, so the fit returns its posterior with
 no extra pass.
 
-What bounds it on the H100: the fp32 operations of the cascades (about
-12 kFLOP each at D=6, 49 per class in the first iteration and 23 after
-it), not the observations, which are read once per fit.
+What bounds it on the H100: the cascades (about 12 kFLOP each at D=6, 49
+per class in the first iteration and 23 after it, a round's first D of
+them at once), by the shared-memory loads through which a warp's lanes
+exchange a cascade's entries, not by their operations nor by the
+observations, which are read once per fit (PERF.md).
 
 Gate (:func:`fits`): 2 <= D <= 8 and the bin's working set,
 :func:`smem_bytes`, within the 227 KB of shared memory a block may opt
 into on the H100 (:func:`max_frames`: T <= 3750 at D=6, K=3; 3515 with
 saliency). It replaces the JAX package's VMEM tile budget
-(``pallas_cbmm_loop.choose_tile_f_cbmm``).
+(``pallas_cbmm_loop.choose_tile_f_cbmm``). The kernel takes
+:func:`kernel_smem_bytes` for its CTA's warps (:func:`_threads`), which at
+one warp is within the gate's formula.
 
 On a CPU tensor the wrapper runs the plain PyTorch twin,
 :func:`cbmm_em_full_reference`. On a CUDA tensor it launches the kernel
@@ -41,22 +47,50 @@ import numpy as np
 import torch
 
 from .._dtypes import tiny as _tiny
-from ._build import SMEM_LIMIT
+from ._build import SM_SMEM, SM_WARPS, SMEM_LIMIT
 from .bingham import FD_STEP, chord_round, grad_cascade, lam_of_u
 from .linalg import eigh_jacobi
 
 __all__ = ['cbmm_em_full', 'cbmm_em_full_reference',
-           'cbmm_em_step_reference', 'smem_bytes', 'max_frames', 'fits',
-           'solve_bounds']
+           'cbmm_em_step_reference', 'smem_bytes', 'kernel_smem_bytes',
+           'max_frames', 'fits', 'solve_bounds']
 
 GROUP_FLOATS = 384  # kGroupFloats of csrc/bingham.cuh
+CLASS_FLOATS = 163  # kClassFloats of csrc/cbmm_loop.cu
+EXCHANGE_FLOATS = 152  # kExchange of csrc/cbmm_loop.cu, per warp
+_MAX_WARPS = 8  # kMaxThreads / 32 of csrc/cbmm_loop.cu
 
 
 def smem_bytes(D, K, T, has_sal=False):
-    """Shared memory one bin's CTA needs (csrc/cbmm_loop.cu); saliency adds
-    T floats."""
+    """The gate's shared-memory budget of one bin (the first design's
+    working set: y, the scatter, eigenvectors and scratch matrices, the
+    affiliations, 19 scalars and a 384-float solve scratch per class);
+    saliency adds T floats. The kernel takes :func:`kernel_smem_bytes`."""
     return 8 * (D * T + 3 * K * D * D) + 4 * (
         K * T + has_sal * T + 19 * K + K * GROUP_FLOATS)
+
+
+def kernel_smem_bytes(D, K, T, has_sal=False, warps=1):
+    """Shared memory one bin's CTA of ``warps`` warps takes
+    (cbmm_smem_bytes in csrc/cbmm_loop.cu): a warp's cascade exchange
+    rows, the per-class solve state and scalars, the affiliations (and
+    saliency), y and the per-class matrices."""
+    return 4 * (EXCHANGE_FLOATS * warps + CLASS_FLOATS * K + K * T
+                + has_sal * T) + 8 * (D * T + 3 * K * D * D)
+
+
+def _threads(D, K, T, has_sal=False):
+    """Threads of one bin's CTA: a warp per class at least (the chord
+    steps run a warp per class), and as many as let the CTAs that an SM's
+    shared memory holds come to about 32 warps (at most eight a CTA);
+    fewer where the exchange rows of more would not fit."""
+    ctas = max(1, min(32, SM_SMEM // (
+        kernel_smem_bytes(D, K, T, has_sal) + 1024)))
+    warps = max(min(K, _MAX_WARPS), min(_MAX_WARPS, -(-SM_WARPS // ctas)))
+    while warps > 1 and \
+            kernel_smem_bytes(D, K, T, has_sal, warps) > SMEM_LIMIT:
+        warps -= 1
+    return 32 * warps
 
 
 def max_frames(D, K, has_sal=False):
@@ -280,7 +314,8 @@ def cbmm_em_full(y, affiliation, *, iterations, sweeps=6, warm_sweeps=2,
             y_.data_ptr(), a_.data_ptr(),
             0 if sal_ is None else sal_.data_ptr(), weight.data_ptr(),
             lam.data_ptr(), vec.data_ptr(), log_c.data_ptr(), aff.data_ptr(),
-            N, D, K, T, int(iterations), int(sweeps), int(warm_sweeps),
+            N, D, K, T, _threads(D, K, T, has_sal), int(iterations),
+            int(sweeps), int(warm_sweeps),
             int(cold_rounds), int(cold_steps), int(warm_steps),
             float(spacing_eps), lower, upper, FD_STEP,
             float(affiliation_eps), cap_init,

@@ -39,16 +39,14 @@ from __future__ import annotations
 
 import torch
 
-from ._build import SMEM_LIMIT
+from ._build import SM_SMEM, SM_WARPS, SMEM_LIMIT
 from .linalg import sort_ascending
 
 __all__ = ['cacgmm_em_full', 'cacgmm_em_full_reference', 'smem_bytes',
-           'kernel_smem_bytes', 'max_frames', 'fits', 'DIMS']
+           'kernel_smem_bytes', 'max_frames', 'fits', 'cta_threads', 'DIMS']
 
 DIMS = tuple(range(1, 17))  # the D the kernel is instantiated for
-_MAX_WARPS = 8  # kMaxThreads / 32 in csrc/em_loop.cu
-_SM_SMEM = 233472  # shared memory of an H100 SM; 1 KB of it per CTA is kept
-_SM_WARPS = 32  # warps an SM should hold: half its 64
+_MAX_WARPS = 8  # kMaxThreads / 32 in csrc/em_loop.cu and csrc/em_step.cu
 
 
 def smem_bytes(D, K, T, has_sal=False, has_mask=False):
@@ -74,19 +72,26 @@ def kernel_smem_bytes(D, K, T):
     return 8 * (D * Tp + 3 * K * D * D) + 4 * (2 * K * T + K * D + 4 * K)
 
 
-def _threads(D, K, T):
-    """Threads of one bin's CTA. The shared memory of a bin fixes how many
-    CTAs an SM holds; the CTA takes enough warps that those CTAs together
-    hold about 32 warps (at most eight a CTA), as few as spread the
-    frames over the same rounds of a thread per frame (at most one
-    partial warp a round), and at least the warps that run the K
-    Jacobis at once (floor(32 / D) classes to a warp)."""
-    ctas = max(1, min(32, _SM_SMEM // (kernel_smem_bytes(D, K, T) + 1024)))
-    warps = min(_MAX_WARPS, -(-_SM_WARPS // ctas))
+def cta_threads(smem, D, K, T):
+    """Threads of one bin's CTA for a kernel of the cACGMM iteration body
+    (``csrc/em_iter.cuh``) that takes ``smem`` bytes of shared memory a
+    bin. The shared memory fixes how many CTAs an SM holds; the CTA takes
+    enough warps that those CTAs together hold about 32 warps (at most
+    eight a CTA), as few as spread the frames over the same rounds of a
+    thread per frame (at most one partial warp a round), and at least the
+    warps that run the K Jacobis at once (floor(32 / D) classes to a
+    warp)."""
+    ctas = max(1, min(32, SM_SMEM // (smem + 1024)))
+    warps = min(_MAX_WARPS, -(-SM_WARPS // ctas))
     rounds = -(-max(T, 1) // (32 * warps))
     warps = -(-max(T, 1) // (32 * rounds))
     jacobi = -(-K // (32 // D))
     return 32 * min(_MAX_WARPS, max(warps, jacobi))
+
+
+def _threads(D, K, T):
+    """Threads of one bin's CTA of the whole-fit kernel."""
+    return cta_threads(kernel_smem_bytes(D, K, T), D, K, T)
 
 
 def fits(D, K, T, has_sal=False, has_mask=False):

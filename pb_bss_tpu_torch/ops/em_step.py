@@ -1,5 +1,7 @@
 """cACGMM EM with frequency-constant mixture weights, one CUDA launch per
-EM iteration (kernels ``csrc/em_step.cu``).
+EM iteration (kernels ``csrc/em_step.cu``, on the whole-fit kernel's
+iteration body ``csrc/em_iter.cuh``: the register scatter, the column
+Jacobi and the E-step, templated on D in 1..16).
 
 Replaces the JAX package's Pallas TPU kernels
 ``pb_bss_tpu/ops/pallas_em_step.py:cacgmm_em_fc`` (``_m_init_kernel``
@@ -26,12 +28,15 @@ A fit of ``iterations`` M-steps launches :func:`m_init` once and
 resumes from a model).
 
 What bounds it on the H100: each launch reads y once (59 MB at B=8,
-F=513, D=6, T=300), so by the card's peaks a step is bound by the bytes.
-Gate (:func:`fits`): D <= 16 and the bin's working set,
-:func:`smem_bytes`, within the 227 KB of shared memory a block may opt
-into: T <= 3190 at D=6, K=3 (:func:`max_frames`). Past it, fits without
-an aligner take the streamed kernel's ``'fc'`` mode and fits with one
-the scan path.
+F=513, D=6, T=300), ~1 GFLOP of work, so by the card's peaks a step is
+bound by the operations. Gate (:func:`fits`): D <= 16 and the bin's
+working set, :func:`smem_bytes`, within the 227 KB of shared memory a
+block may opt into: T <= 3190 at D=6, K=3 (:func:`max_frames`). The
+kernels take :func:`kernel_smem_bytes`: y's rows at an odd stride where
+that still fits (:func:`row_stride`), the gate's formula where not. The
+CTA's warps follow the bin's shared memory and T (:func:`_threads`, the
+whole-fit kernel's chooser). Past the gate, fits without an aligner take
+the streamed kernel's ``'fc'`` mode and fits with one the scan path.
 
 On a CPU tensor the wrappers run their plain PyTorch twins
 (:func:`m_init_reference`, :func:`em_step_reference`). On a CUDA tensor
@@ -45,18 +50,41 @@ import torch
 
 from .._dtypes import tiny as _tiny
 from ._build import SMEM_LIMIT
+from .em_loop import cta_threads
 from .linalg import eigh_jacobi, sort_ascending
 
 __all__ = ['cacgmm_em_fc', 'cacgmm_em_fc_reference', 'm_init',
            'm_init_reference', 'em_step', 'em_step_reference', 'smem_bytes',
-           'max_frames', 'fits']
-
+           'kernel_smem_bytes', 'row_stride', 'max_frames', 'fits']
 
 
 def smem_bytes(D, K, T):
-    """Shared memory one bin's CTA needs (csrc/em_step.cu, the step
-    kernel; the init kernel needs less)."""
+    """The gate's shared memory of one bin: y, the covariance, the
+    eigenvectors and the scaled eigenbasis, the posterior and the weights,
+    the eigenvalues and 3 K scalars (:func:`kernel_smem_bytes` at
+    ``Tp = T``)."""
     return 8 * (D * T + 3 * K * D * D) + 4 * (2 * K * T + K * D + 3 * K)
+
+
+def kernel_smem_bytes(D, K, T, Tp):
+    """Shared memory one bin's CTA takes (fc_smem_bytes in
+    csrc/em_step.cu, both kernels) with y's rows at stride ``Tp``."""
+    return smem_bytes(D, K, T) + 8 * D * (Tp - T)
+
+
+def row_stride(D, K, T):
+    """The stride of y's rows in shared memory: T rounded up to odd (the
+    channels of a frame in distinct banks) where the bin's working set
+    still fits, else T."""
+    Tp = T if D == 1 else T | 1
+    return Tp if kernel_smem_bytes(D, K, T, Tp) <= SMEM_LIMIT else T
+
+
+def _threads(D, K, T):
+    """Threads of one bin's CTA: the whole-fit kernel's choice from the
+    bin's shared memory and T (ops/em_loop.cta_threads)."""
+    return cta_threads(kernel_smem_bytes(D, K, T, row_stride(D, K, T)), D,
+                       K, T)
 
 
 def max_frames(D, K):
@@ -140,7 +168,8 @@ def m_init(y, affiliation, quadratic_form, *, sweeps, eigenvalue_floor,
             y_.data_ptr(),
             *[0 if x is None else x.data_ptr() for x in operands],
             vec.data_ptr(), eig.data_ptr(), asum.data_ptr(), N, D, K, T,
-            int(sweeps), float(eigenvalue_floor),
+            row_stride(D, K, T), _threads(D, K, T), int(sweeps),
+            float(eigenvalue_floor),
             torch.cuda.current_stream(y.device).cuda_stream)
         if err:
             raise RuntimeError(
@@ -240,7 +269,8 @@ def em_step(y, eigenvalues, eigenvectors, weight, *, warm_sweeps,
             *[0 if x is None else x.data_ptr() for x in operands],
             vec.data_ptr(), eig.data_ptr(), asum.data_ptr(),
             0 if emitted is None else emitted.data_ptr(), N, N // B, D, K,
-            T, int(warm_sweeps), float(eigenvalue_floor),
+            T, row_stride(D, K, T), _threads(D, K, T), int(warm_sweeps),
+            float(eigenvalue_floor),
             float(affiliation_eps),
             torch.cuda.current_stream(y.device).cuda_stream)
         if err:

@@ -188,3 +188,42 @@ def test_twin_matches_the_pallas_kernel_in_interpret_mode():
                     atol=0.5)
     d = np.abs(ours[4].numpy() - np.asarray(ref[4]))
     assert d.mean() < 5e-3 and d.max() < 0.2
+
+
+@pytest.mark.parametrize('D', [2, 6, 8, 16])
+def test_kernel_shared_memory_matches_the_gate(D):
+    """The kernel's shared memory (cbmm_smem_bytes in csrc/cbmm_loop.cu)
+    for the CTA the host picks stays within the card's limit at the gate's
+    largest T, and at one warp within the gate's formula; D=16 is past the
+    gate."""
+    from pb_bss_tpu_torch.ops._build import SMEM_LIMIT
+    if D > 8:
+        assert not cbmm_loop.fits(D, 3, 10)
+        return
+    for K, has_sal in itertools.product((1, 3, 5), (False, True)):
+        T = cbmm_loop.max_frames(D, K, has_sal)
+        assert cbmm_loop.fits(D, K, T, has_sal)
+        warps = cbmm_loop._threads(D, K, T, has_sal) // 32
+        assert cbmm_loop.kernel_smem_bytes(D, K, T, has_sal, warps) \
+            <= SMEM_LIMIT
+        assert cbmm_loop.kernel_smem_bytes(D, K, T, has_sal, 1) \
+            <= cbmm_loop.smem_bytes(D, K, T, has_sal)
+    # the slice shape: 8 CTAs an SM, 4 warps each
+    assert cbmm_loop._threads(6, 3, 304) == 128
+
+
+def test_threads_give_a_warp_per_class():
+    """The CTA: whole warps, at most 8, at least one per class (the chord
+    steps run a warp per class) up to 8 wherever they fit, and the Jacobi's
+    column lanes of every class (floor(32 / D) classes a warp)."""
+    from pb_bss_tpu_torch.ops._build import SMEM_LIMIT
+    for D, K, has_sal in itertools.product(range(2, 9), (1, 2, 3, 5, 8),
+                                           (False, True)):
+        for T in (1, 32, 150, 304, cbmm_loop.max_frames(D, K, has_sal)):
+            threads = cbmm_loop._threads(D, K, T, has_sal)
+            warps = threads // 32
+            assert threads % 32 == 0 and 1 <= warps <= 8
+            if cbmm_loop.kernel_smem_bytes(D, K, T, has_sal, min(K, 8)) \
+                    <= SMEM_LIMIT:
+                assert warps >= min(K, 8)
+                assert warps * (32 // D) >= min(K, 8 * (32 // D))

@@ -5,6 +5,8 @@ per-iteration kernels (tests/test_ops/test_pallas_em_step.py) with its
 tolerances: the port's route (``use_fused_em=True``, the twins on the
 CPU) against the JAX scan path (``use_fused_em=False``) from the same
 explicit initialization."""
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -317,3 +319,41 @@ def test_twin_matches_pallas_interpret():
         torch.as_tensor(qf), iterations=3)
     assert_allclose(out[0].numpy(), np.asarray(ref[0]), atol=1e-5)
     assert_allclose(out[1].numpy(), np.asarray(ref[1]), atol=1e-4)
+
+
+@pytest.mark.parametrize('D', [2, 6, 8, 16])
+def test_kernel_shared_memory_matches_the_gate(D):
+    """Both kernels' shared memory (fc_smem_bytes in csrc/em_step.cu) is
+    the gate's formula with y's rows at the stride the host picks, and
+    stays within the card's limit at the gate's largest T: the odd stride
+    where it fits, T where it does not."""
+    from pb_bss_tpu_torch.ops._build import SMEM_LIMIT
+    for K in (1, 3, 5):
+        for T in (1, 300, 301, em_step.max_frames(D, K)):
+            assert em_step.fits(D, K, T)
+            Tp = em_step.row_stride(D, K, T)
+            assert Tp in (T, T | 1)
+            assert em_step.kernel_smem_bytes(D, K, T, T) \
+                == em_step.smem_bytes(D, K, T)
+            assert em_step.kernel_smem_bytes(D, K, T, Tp) <= SMEM_LIMIT
+            if em_step.smem_bytes(D, K, T) + 8 * D <= SMEM_LIMIT:
+                assert Tp == T | 1
+    # the bench shape: the odd stride, 4 warps
+    assert em_step.row_stride(6, 3, 300) == 301
+    assert em_step._threads(6, 3, 300) == 128
+
+
+def test_threads_give_whole_warps_and_the_jacobi_lanes():
+    """The CTA: whole warps, at most 8, and at least the warps whose lanes
+    hold every class's columns at once (floor(32 / D) classes a warp), up
+    to 8; a thread-per-frame round of the E-step leaves at most one
+    partial warp."""
+    for D, K in itertools.product(range(1, 17), (1, 2, 3, 5, 8)):
+        for T in (1, 32, 157, 300, 1000, em_step.max_frames(D, K)):
+            threads = em_step._threads(D, K, T)
+            warps = threads // 32
+            assert threads % 32 == 0 and 1 <= warps <= 8
+            assert warps >= min(8, -(-K // (32 // D)))
+            if warps > -(-K // (32 // D)):
+                rounds = -(-T // threads)
+                assert rounds * threads - T < 32 * rounds

@@ -927,3 +927,100 @@ def test_e_step_kernels_at_the_floor_match_plain(cuda):
     for i in (0, 1):
         assert (s_k[i] - s_p[i]).abs().max() <= 1e-4 * scale
     torch.testing.assert_close(s_k[2], s_p[2], rtol=1e-4, atol=0)
+
+
+# ---------------------------------------------------------------------
+# the redesigned frequency-constant EM (K5) and whole-fit Bingham EM
+# (K9) across their D instantiations
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize('extras', [False, True],
+                         ids=['plain', 'sal+mask+posterior'])
+@pytest.mark.parametrize('K', [1, 3, 5])
+@pytest.mark.parametrize('D', list(range(1, 17)))
+def test_fc_kernel_instantiations_match_plain(cuda, D, K, extras):
+    """K5's init and one step at each D its wrapper reaches (1..16), with
+    and without saliency, a source-activity mask and the emitted
+    posterior, against their twins. The step runs as many sweeps as the
+    init, so that the column Jacobi's round-robin order and the twin's
+    cyclic one both converge to f32 rounding."""
+    from pb_bss_tpu_torch.ops import em_step
+    B, F, T = 2, 9, 157
+    N = B * F
+    y, aff = _unit_norm_mixture(N, D, K, T, cuda)
+    qf = torch.ones_like(aff)
+    sal = mask = None
+    if extras:
+        sal, mask = _extras(N, K, T, cuda, seed=D) if K > 1 else (
+            _extras(N, 2, T, cuda, seed=D)[0], None)
+    sweeps = 6 if D <= 8 else 8
+    init = dict(sweeps=sweeps, eigenvalue_floor=1e-10, saliency=sal)
+    before = (em_step.m_init.launches, em_step.em_step.launches)
+    vec_k, ev_k, asum_k = em_step.m_init(y, aff, qf, **init)
+    vec_p, ev_p, asum_p = em_step.m_init_reference(y, aff, qf, **init)
+    weight = asum_p.reshape(B, F, K).sum(1)
+    weight = weight / weight.sum(-1, keepdim=True)
+    step = dict(warm_sweeps=sweeps, eigenvalue_floor=1e-10,
+                affiliation_eps=0. if extras else 1e-10, saliency=sal,
+                source_activity_mask=mask, emit_affiliation=extras)
+    out_k = em_step.em_step(y, ev_p, vec_p, weight, **step)
+    out_p = em_step.em_step_reference(y, ev_p, vec_p, weight, **step)
+    torch.cuda.synchronize()
+    assert (em_step.m_init.launches, em_step.em_step.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(asum_k, asum_p, rtol=1e-4, atol=0)
+    torch.testing.assert_close(out_k[2], out_p[2], rtol=1e-4, atol=1e-6)
+    if extras:
+        torch.testing.assert_close(out_k[3], out_p[3], atol=2e-3, rtol=0)
+        if mask is not None:
+            assert bool((out_k[3][:2, 1] == 0).all())
+    else:
+        assert out_k[3] is None
+    for (vk, ek), (vp, ep) in (((vec_k, ev_k), (vec_p, ev_p)),
+                               ((out_k[0], out_k[1]), (out_p[0], out_p[1]))):
+        assert bool(torch.isfinite(ek).all() and torch.isfinite(vk).all())
+        # two f32 Jacobi orders and sums over T in two orders: 1e-4 of the
+        # largest eigenvalue and covariance entry
+        assert _lam_close(ek.sort(-1).values, ep.sort(-1).values, 1e-4)
+        ck, cp = _covariance(vk, ek), _covariance(vp, ep)
+        assert (ck - cp).abs().max() <= 1e-4 * cp.abs().max()
+
+
+@pytest.mark.parametrize('extras', [False, True], ids=['plain', 'sal+mc'])
+@pytest.mark.parametrize('K', [1, 3, 5])
+@pytest.mark.parametrize('D', list(range(2, 9)))
+def test_bingham_whole_fit_kernel_instantiations_match_plain(cuda, D, K,
+                                                             extras):
+    """K9, one cold iteration, at each D its wrapper reaches (2..8), with
+    and without saliency and a finite max_concentration, against its twin:
+    the weights to 1e-5, the eigenvalues (where |lambda| < 300: a moment
+    <~ 1e-3 leaves its eigenvalue flat) to 5e-2 relative and 1e-3 at the
+    median, the eigenvectors phase-aligned, the posteriors on average;
+    then a 3-iteration fit stays finite with weights summing to one."""
+    from pb_bss_tpu_torch.ops.cbmm_loop import (
+        cbmm_em_full, cbmm_em_full_reference)
+    N, T = 17, 150
+    y, aff = _cbmm_mixture(N, D, K, T, cuda, seed=D)
+    kw = {}
+    if extras:
+        g = torch.Generator(cuda).manual_seed(20 + D)
+        kw = dict(saliency=0.2 + 0.8 * torch.rand((N, T), device=cuda,
+                                                   generator=g),
+                  max_concentration=50.)
+    before = cbmm_em_full.launches
+    out = cbmm_em_full(y, aff, iterations=1, **kw)
+    torch.cuda.synchronize()
+    assert cbmm_em_full.launches == before + 1
+    ref = cbmm_em_full_reference(y, aff, iterations=1, **kw)
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+    torch.testing.assert_close(out[0], ref[0], atol=1e-5, rtol=0)
+    rel = (out[1] - ref[1]).abs() / (1 + ref[1].abs())
+    well = ref[1].abs() < 300
+    assert rel[well].max() < 5e-2 and rel.median() < 1e-3
+    inner = torch.einsum('...dk,...dk->...k', out[2].conj(), ref[2]).abs()
+    assert inner.min() > 1 - 1e-3, inner.min()
+    assert (out[4] - ref[4]).abs().mean() < 5e-3
+    out = cbmm_em_full(y, aff, iterations=3, **kw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+    torch.testing.assert_close(out[0].sum(-1), torch.ones(N, device=cuda))
