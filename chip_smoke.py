@@ -54,7 +54,8 @@ or when any phase fails. Imports nothing of JAX.
 runs only the named phases after the build (the floor checks, the cACGMM
 kernels' checks, the whole-fit Bingham kernel's checks, the split of the
 time of the whole-fit and streamed cACGMM EM kernels, the whole-fit
-Bingham EM and the frequency-constant EM, the cACGMM separate_batch end
+Bingham EM, the frequency-constant EM, the streamed Watson and Bingham
+statistics and the Bingham chord solve, the cACGMM separate_batch end
 to end), with ``pb_bss_tpu_torch`` imported from DIR if given (another
 checkout, to time two versions in one call); it prints no kernels line.
 """
@@ -895,6 +896,54 @@ def check_cwmm(B, F, D, K, T, seed, saliency=False, silence=False,
     return err_a
 
 
+def watson_states(F, T, seed, count, D=6, K=3):
+    """``count`` inputs of a Watson step-mode K7 pass over one recording
+    of F bins and T frames, from the twin's first M-step: (y, initial
+    affiliations, mode, concentration, log Z, weight)."""
+    from pb_bss_tpu_torch.models.complex_watson import ComplexWatson
+    from pb_bss_tpu_torch.ops.mm_stream import cwmm_em_long_reference
+    states = []
+    for i in range(count):
+        y, aff, _ = watson_inputs(1, F, D, K, T, seed + i)
+        N = y.shape[0]
+        weight, mode, kappa = cwmm_em_long_reference(y, aff, iterations=1)
+        kappa = kappa.reshape(N, K)
+        states.append((y, aff, mode.reshape(N, K, D), kappa,
+                       ComplexWatson.log_norm_tran_vu(kappa, D),
+                       weight.reshape(N, K)))
+    return states
+
+
+def watson_step(stats):
+    """A Watson step-mode pass of ``stats`` on one of watson_states'."""
+    return lambda y, a, m, k, z, w: stats(y, mode=m, concentration=k,
+                                          log_norm=z, weight=w)
+
+
+def bingham_states(F, T, seed, count, D=6, K=3):
+    """``count`` inputs of a Bingham step-mode K7 pass over one recording
+    of F bins and T frames, from the twin's first M-step: (y, initial
+    affiliations, eigenvectors, eigenvalues, log c, weight)."""
+    from pb_bss_tpu_torch.models.complex_bingham import ComplexBingham
+    from pb_bss_tpu_torch.ops.mm_stream import cbmm_em_long_reference
+    states = []
+    for i in range(count):
+        y, aff, _ = watson_inputs(1, F, D, K, T, seed + i)
+        weight, lam, vec = cbmm_em_long_reference(y, aff, iterations=1)
+        log_c = ComplexBingham(covariance_eigenvectors=vec,
+                               covariance_eigenvalues=lam).log_norm()
+        states.append((y, aff, vec, lam, log_c, weight))
+    return states
+
+
+def bingham_step(stats):
+    """A Bingham step-mode pass of ``stats`` (the posterior clip at 1e-3)
+    on one of bingham_states'."""
+    return lambda y, a, v, l, c, w: stats(
+        y, eigenvectors=v, eigenvalues=l, log_norm=c, weight=w,
+        affiliation_eps=1e-3)
+
+
 def check_watson_stream(B, F, D, K, T, seed, weight_mode='per_bin',
                         saliency=False):
     """One K7 statistics pass in each mode (from-init, then step from the
@@ -1053,6 +1102,25 @@ def check_bingham(B, D, seed, max_concentration=math.inf):
         if name == 'warm':
             worst = err
     return worst
+
+
+def chord_problems(B, D, seed, count):
+    """``count`` warm K8 problems of B (bin, class) pairs: (s, x0), the
+    sorted moments and the twin's cold solution perturbed by 5%."""
+    import torch
+    from pb_bss_tpu_torch.models.complex_bingham import find_eigenvalues
+    from pb_bss_tpu_torch.ops.bingham import bingham_chord_solve_reference
+    solves = []
+    for i in range(count):
+        s = bingham_moments(B, D, seed + i)
+        lam = find_eigenvalues(s, _chord=bingham_chord_solve_reference)
+        g = torch.Generator('cuda').manual_seed(seed + i)
+        x0 = lam * (1 + 0.05 * torch.randn((B, 1), device='cuda',
+                                           generator=g))
+        x0 = torch.sort(torch.cat([x0[:, :-1], torch.zeros_like(x0[:, :1])],
+                                  -1), -1).values
+        solves.append((s, x0))
+    return solves
 
 
 def bingham_state_errors(out, ref):
@@ -2720,12 +2788,12 @@ def time_e2e():
 
 def time_em_splits():
     """The split of K2's, K4's, K9's and K5's time (the last two in
-    :func:`time_cbmm_fc_splits`), with their own arguments only:
+    :func:`time_cbmm_fc_splits`) and of K7's and K8's
+    (:func:`time_stream_chord_splits`), with their own arguments only:
     K2 (B=8, F=257, D=6, K=3) at 20 iterations against 1, warm_sweeps 2
     against 0, T=304 against 32, and at the bench.py shape (B=8, F=513,
     T=300); K4 (B=4, F=257, T=3753) from_init mode (the sums alone)
     against model mode (E-step and sums). Returns {case: ms}."""
-    import torch
     from pb_bss_tpu_torch.ops.em_loop import cacgmm_em_full
     from pb_bss_tpu_torch.ops.em_stream import (
         cacgmm_em_long_reference, e_stats)
@@ -2775,10 +2843,11 @@ def time_em_splits():
     if hasattr(lib, 'cacgmm_em_full_occupancy'):
         threads = em_loop._threads(6, 3, 304)
         per_sm = lib.cacgmm_em_full_occupancy(6, 3, 304, threads)
-        resident = em_stream._capacity(torch.cuda.current_device(), 6, 3)
         log(f'occupancy: K2 CTAs per SM at D=6, K=3, T=304 ({threads} '
-            f'threads) {per_sm}; K4 resident CTAs at D=6, K=3 {resident}')
+            f'threads) {per_sm}; K4 resident CTAs at D=6, K=3 '
+            f'{resident_ctas("em_stream", 6, 3)}')
     out.update(time_cbmm_fc_splits())
+    out.update(time_stream_chord_splits())
     log('timing splits (ms per call): '
         + '; '.join(f'{case} {ms:.4f}' for case, ms in out.items()))
     return out
@@ -2823,6 +2892,62 @@ def time_cbmm_fc_splits():
                 lambda *x: em_step.em_step(
                     *x, warm_sweeps=warm, eigenvalue_floor=1e-10,
                     affiliation_eps=1e-10), states)
+    return out
+
+
+def resident_ctas(name, *shape):
+    """CTAs of one pass of the streamed kernel library ``name`` (K4's or
+    K7's) resident on the card at once, or None where the package timed
+    (``--package``) predates the shared plan ``ops/_plan.py``."""
+    import torch
+    try:
+        from pb_bss_tpu_torch.ops import _plan
+    except ImportError:
+        return None
+    return _plan.capacity(name, torch.cuda.current_device(), *shape)
+
+
+def time_stream_chord_splits():
+    """The split of K7's and K8's time, with their own arguments only: K7
+    (B=1, F=513, D=6, K=3) in from-init mode (the sums alone) against
+    step mode (E-step and sums), Watson against Bingham, T=4000 against
+    512 (the frames against the fixed work), and at T=4000 the wrapper's
+    host time per call (no synchronization inside the window) against
+    the kernel's device time per launch (the profiler); K8 (D=6) a warm
+    solve of 3,084 problems at 16 steps against 0 (the step chain against
+    the finite-difference phase) and of 24,672 problems at 16 steps
+    (whether the card is filled or latency sets the pace). Returns {case:
+    ms}."""
+    from pb_bss_tpu_torch.ops import bingham
+    from pb_bss_tpu_torch.ops.mm_stream import mm_stats
+    out = {}
+    log('occupancy: K7 resident CTAs at D=6, K=3: Watson '
+        f'{resident_ctas("mm_stream", 6, 3, 0)}, Bingham '
+        f'{resident_ctas("mm_stream", 6, 3, 1)}')
+    for T in (4000, 512):
+        ws = watson_states(513, T, 3500 + T, 4)
+        cases = (('from_init', lambda y, a, *_: mm_stats(y, affiliation=a),
+                  ws),
+                 ('watson step', watson_step(mm_stats), ws),
+                 ('bingham step', bingham_step(mm_stats),
+                  bingham_states(513, T, 3600 + T, 4)))
+        for name, call, states in cases:
+            out[f'K7 {name} T={T}'] = cuda_time(call, states)
+            kernel, every, host = device_ms_per_launch(call, states[0],
+                                                       'mm_stream')
+            out[f'K7 {name} T={T} device per launch'] = kernel
+            if T == 4000:
+                out[f'K7 {name} T={T} host per call'] = host
+                out[f'K7 {name} T={T} device per call, all kernels'] = every
+    # K8
+    D = 6
+    bounds = dict(lower=-32768. / (D - 1), upper=-1e-3)
+    for B in (3084, 24672):
+        solves = chord_problems(B, D, 3700 + B, 4) * 5
+        for steps in ((16, 0) if B == 3084 else (16,)):
+            out[f'K8 P={B} steps={steps}'] = cuda_time(
+                lambda s, x: bingham.bingham_chord_solve(
+                    s, x, iterations=steps, **bounds), solves)
     return out
 
 
@@ -2912,6 +3037,31 @@ def device_times(prof, key):
     return out
 
 
+def device_ms_per_launch(call, state, key, reps=20):
+    """(device ms per launch of the kernels whose name holds ``key``,
+    device ms of all kernels per call, host ms per call) of ``reps``
+    calls of call(*state): the profiler for the device, the host clock
+    around the calls (no synchronization inside the window) for the
+    host."""
+    import torch
+    call(*state)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call(*state)
+    host = 1e3 * (time.perf_counter() - t0) / reps
+    sync()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call(*state)
+        sync()
+    kernel = sum(us for us, _ in device_times(prof, key).values())
+    every = device_times(prof, '')['all kernels'][0]
+    return kernel / reps / 1e3, every / reps / 1e3, host
+
+
 def time_fc_stages():
     """Host clock of a 20-iteration fc fit with and without each inline
     aligner on one 4.8 s utterance (F=257, T=304), and the device time
@@ -2966,13 +3116,11 @@ def time_cwmm():
     long-T config (F=513, T=4000, step mode), and K2 with saliency and a
     source-activity mask at the slice shape, each against its twin.
     Returns {kernel: (ms, plain_ms, bound)}."""
-    from pb_bss_tpu_torch.models.complex_watson import ComplexWatson
     from pb_bss_tpu_torch.ops.cwmm_loop import (
         cwmm_em_full, cwmm_em_full_reference)
     from pb_bss_tpu_torch.ops.em_loop import (
         cacgmm_em_full, cacgmm_em_full_reference)
-    from pb_bss_tpu_torch.ops.mm_stream import (
-        cwmm_em_long_reference, mm_stats, mm_stats_reference)
+    from pb_bss_tpu_torch.ops.mm_stream import mm_stats, mm_stats_reference
     D, K = 6, 3
     out = {}
 
@@ -3010,26 +3158,22 @@ def time_cwmm():
         f'kernel {ms2:.3f} ms, plain {plain2:.3f} ms')
 
     # K7: one step-mode pass at F=513, T=4000 from the twin's first M-step
-    states = []
-    for i in range(5):
-        y, aff, _ = watson_inputs(1, 513, D, K, 4000, 1400 + i)
-        N, _, T = y.shape
-        weight, mode, kappa = cwmm_em_long_reference(y, aff, iterations=1)
-        kappa = kappa.reshape(N, K)
-        states.append((y, mode.reshape(N, K, D), kappa,
-                       ComplexWatson.log_norm_tran_vu(kappa, D),
-                       weight.reshape(N, K)))
-
-    def step(stats):
-        return lambda y, m, k, z, w: stats(y, mode=m, concentration=k,
-                                           log_norm=z, weight=w)
-    ms7 = cuda_time(step(mm_stats), states)
-    plain7 = cuda_time(step(mm_stats_reference), states[:3])
+    states = watson_states(513, 4000, 1400, 5)
+    call7 = cuda_time(watson_step(mm_stats), states)
+    plain7 = cuda_time(watson_step(mm_stats_reference), states[:3])
+    # the wrapper's host work can exceed the kernel's time: the kernel's
+    # own time is its device time per launch
+    ms7, every7, host7 = device_ms_per_launch(
+        watson_step(mm_stats), states[0], 'mm_stream')
+    y = states[0][0]
+    N, _, T = y.shape
     log(f'timing K7 statistics pass N={N} D={D} K={K} T={T} (step mode): '
-        f'kernel {ms7:.4f} ms, plain {plain7:.4f} ms')
+        f'kernel {ms7:.4f} ms (device, per launch; every kernel of a call '
+        f'{every7:.4f}), wrapper call {call7:.4f} ms (host {host7:.4f} '
+        f'ms), plain {plain7:.4f} ms')
     P = D * (D + 1) // 2
     # y and the model in; the upper-triangle sums and asum out
-    k7_bytes = nbytes(*states[0]) + N * K * (8 * P + 4)
+    k7_bytes = nbytes(y, *states[0][2:]) + N * K * (8 * P + 4)
     out['cwmm_em_long'] = (ms7, plain7,
                            bound(k7_bytes, cwmm_flops(N * T, K, D)))
     return out
@@ -3069,9 +3213,6 @@ def time_cbmm():
     each against its twin; and the streamed fit of config 3e (5
     iterations) with its kernels against its twins. Returns {kernel: (ms,
     plain_ms, bound)}."""
-    import torch
-    from pb_bss_tpu_torch.models.complex_bingham import (
-        ComplexBingham, find_eigenvalues)
     from pb_bss_tpu_torch.ops.bingham import (
         bingham_chord_solve, bingham_chord_solve_reference, cascade_flops,
         solve_cascades)
@@ -3084,16 +3225,7 @@ def time_cbmm():
 
     # K8: warm solves from the twin's cold solution perturbed by 5%
     B = 4 * 257 * 3
-    solves = []
-    for i in range(6):
-        s = bingham_moments(B, D, 1500 + i)
-        lam = find_eigenvalues(s, _chord=bingham_chord_solve_reference)
-        g = torch.Generator('cuda').manual_seed(1500 + i)
-        x0 = lam * (1 + 0.05 * torch.randn((B, 1), device='cuda',
-                                           generator=g))
-        x0 = torch.sort(torch.cat([x0[:, :-1], torch.zeros_like(x0[:, :1])],
-                                  -1), -1).values
-        solves.append((s, x0))
+    solves = chord_problems(B, D, 1500, 6)
     bounds = dict(iterations=16, lower=-32768. / (D - 1), upper=-1e-3)
     ms8 = cuda_time(lambda s, x: bingham_chord_solve(s, x, **bounds),
                     solves)
@@ -3127,25 +3259,19 @@ def time_cbmm():
 
     # the Bingham K7: one step-mode pass at F=513, T=4000 from the twin's
     # first M-step
-    states = []
-    for i in range(5):
-        y, aff, _ = watson_inputs(1, 513, D, K, 4000, 1800 + i)
-        N, _, T = y.shape
-        weight, lam, vec = cbmm_em_long_reference(y, aff, iterations=1)
-        log_c = ComplexBingham(covariance_eigenvectors=vec,
-                               covariance_eigenvalues=lam).log_norm()
-        states.append((y, vec, lam, log_c, weight))
-
-    def step(stats):
-        return lambda y, v, l, c, w: stats(
-            y, eigenvectors=v, eigenvalues=l, log_norm=c, weight=w,
-            affiliation_eps=1e-3)
-    ms7 = cuda_time(step(mm_stats), states)
-    plain7 = cuda_time(step(mm_stats_reference), states[:3])
+    states = bingham_states(513, 4000, 1800, 5)
+    call7 = cuda_time(bingham_step(mm_stats), states)
+    plain7 = cuda_time(bingham_step(mm_stats_reference), states[:3])
+    ms7, every7, host7 = device_ms_per_launch(
+        bingham_step(mm_stats), states[0], 'mm_stream')
+    y = states[0][0]
+    N, _, T = y.shape
     log(f'timing K7 bingham statistics pass N={N} D={D} K={K} T={T} (step '
-        f'mode): kernel {ms7:.4f} ms, plain {plain7:.4f} ms')
+        f'mode): kernel {ms7:.4f} ms (device, per launch; every kernel of a '
+        f'call {every7:.4f}), wrapper call {call7:.4f} ms (host '
+        f'{host7:.4f} ms), plain {plain7:.4f} ms')
     P_ = D * (D + 1) // 2
-    k7_bytes = nbytes(*states[0]) + N * K * (8 * P_ + 4)
+    k7_bytes = nbytes(y, *states[0][2:]) + N * K * (8 * P_ + 4)
     out['cbmm_em_long'] = (ms7, plain7, bound(
         k7_bytes, em_flops(N * T, K, D, form='assembled')
         + N * K * 8 * D ** 3))

@@ -1,31 +1,17 @@
 // The complex Bingham pieces shared by the chord-solve kernel (bingham.cu),
 // the whole-fit Bingham EM (cbmm_loop.cu) and the Bingham family of the
 // streamed statistics (mm_stream.cu): the block-Frechet divided-difference
-// cascade, one chord Gauss-Newton round of the moment inversion, and the
-// E-step of one frame.
+// cascade on one thread, the inverse normal matrix of a chord round, and
+// the E-step of one frame.
 //
 // Replaces pb_bss_tpu/ops/pallas_bingham.py (_grad_cascade, _lam_of_u,
 // _chord_round), whose problems lay in the TPU's lanes with the cascade
-// state in VMEM planes. Here a GROUP of 8 lanes of one warp owns one
-// problem (one (bin, class) moment vector): lane i holds row i of the
-// cascade's matrices in registers (rows >= D idle). The Taylor phase
-// multiplies by the bidiagonal J, a shift-and-scale of each row, so it
-// needs no communication; each of the 15 squarings (E, X) <- (E E,
-// E X + X E) publishes the rows to the group's shared scratch (double
-// buffered, one __syncwarp of the group per squaring) and every lane
-// forms its new rows from them. A whole cascade in one thread's
-// registers would spill (4 matrices of up to 64 floats); a lane per row
-// keeps 4 rows of 8.
-//
-// Every lane of a group computes the chord round's small linear algebra
-// (the residual, J^T r, Minv J^T r, the clipped update) redundantly on
-// the same values, so u stays identical across the group without
-// broadcasts; the finite-difference Jacobian and the inverse normal matrix
-// live in the group's scratch, written by the group's first lane.
-//
-// Every lane of a group must call these functions together (they
-// synchronize the group with __syncwarp over its 8 lanes); groups of one
-// warp are independent.
+// state in VMEM planes. Here the cascade's state lives in one thread's
+// registers (chord_cascade<D>): E's upper triangle and X, 21 + 36 floats at
+// D=6, 36 + 64 at D=8. It needs neither shared memory nor shuffles, so it
+// has no bank conflicts; what bounds it is the latency of its ~6 k fp32
+// instructions a cascade at D=6, issued by the few warps that carry a
+// problem's serial chain.
 #pragma once
 
 #include <cfloat>
@@ -34,17 +20,8 @@
 
 #include "jacobi.cuh"
 
-constexpr int kGroup = 8;         // lanes per problem, one per matrix row
-constexpr int kRowStride = 8;     // padded row stride of the group scratch
 constexpr int kSquarings = 15;    // exact domain |lambda| <= 2^15
 constexpr int kTaylorTerms = 13;
-// floats of shared scratch per group: J and Minv (8 x 8 each) and the
-// double-buffered exchange of the E and X rows (2 x 2 x 8 x 8)
-constexpr int kGroupFloats = 2 * 64 + 4 * 64;
-
-__device__ __forceinline__ unsigned group_mask() {
-  return 0xffu << (threadIdx.x & 24);
-}
 
 __device__ __forceinline__ float clip_diff(float v, float lower,
                                            float upper) {
@@ -64,215 +41,153 @@ __device__ __forceinline__ void lam_of_u(const float (&u)[D > 1 ? D - 1 : 1],
   }
 }
 
-// grad log Z at the ascending nodes lam (each <= 0) into g (every lane of
-// the group receives all D entries); returns dd = exp[lam_1..lam_D]
-// (floored at FLT_MIN). ex: the group's 256-float exchange scratch.
+// grad log Z at the ascending nodes lam (each <= 0) into g; returns dd =
+// exp[lam_1..lam_D] (floored at FLT_MIN). expm of the doubled-node
+// bidiagonal [[J, C], [0, J]] as [[E, X], [0, E]]: 13 Taylor terms at the
+// scaling 2^-15 (a shift-and-scale of each row, T <- T J / k and TX <- (T
+// e_{D-1} e_0^T + TX J) / k), then 15 squarings (E, X) <- (E E, E X + X E);
+// g_i = X[i][i] / E[0][D-1].
+//
+// One thread runs the whole cascade. Every row index is known where the
+// code is compiled, so the thread skips every entry known to be zero (T_k =
+// J^k / k! has bandwidth k, TX_k fills the corner (D - 1 - i) + j <= k - 1,
+// E is upper triangular) and squares in place: X's new rows first,
+// ascending, each from X's old rows >= i and the old E, then E's, each from
+// E's old rows >= i, a temporary row at a time. Every entry's sum runs over
+// m ascending, E's product before X's, as the first port's row-per-lane
+// cascade summed it; a product with an exact zero leaves a sum as it is, so
+// the values are that cascade's as far as FMA contraction allows.
 template <int D>
-__device__ float bingham_cascade(const float (&lam)[D], float (&g)[D],
-                                 float* ex) {
-  const unsigned mask = group_mask();
-  const int lane = threadIdx.x & 31;
-  const int base = lane & ~7;
-  const int i = lane & 7;  // the row this lane owns
-  const bool owns = i < D;
+__device__ __forceinline__ float chord_cascade(const float (&lam)[D],
+                                               float (&g)[D]) {
   const float cs = 1.f / 32768.f;
-  float t[D], tx[D], e[D], x[D];
-  // Taylor init: term_1 = A = cs J (row i: cs lam_i at i, cs at i + 1);
-  // E = I + A; the Frechet part starts as cs e_{D-1} e_0^T
+  float e[D][D], x[D][D];
+  // Taylor: each row on its own (the terms of one row need no other row)
 #pragma unroll
-  for (int j = 0; j < D; ++j) {
-    const float a = (j == i) ? cs * lam[j] : (j == i + 1 ? cs : 0.f);
-    t[j] = owns ? a : 0.f;
-    e[j] = owns ? ((j == i ? 1.f : 0.f) + a) : 0.f;
-    tx[j] = (i == D - 1 && j == 0) ? cs : 0.f;
-    x[j] = tx[j];
-  }
-#pragma unroll
-  for (int k = 2; k <= kTaylorTerms; ++k) {
-    const float csk = float(1.0 / 32768.0 / k);
-    const float t_last = t[D - 1];
-    // M A = cs (M * lam_cols + shift(M)): new column j from old j, j - 1
-#pragma unroll
-    for (int j = D - 1; j >= 0; --j) {
-      const float xn = ((j == 0 ? t_last : 0.f) + tx[j] * lam[j] +
-                        (j > 0 ? tx[j - 1] : 0.f)) * csk;
-      const float tn = (t[j] * lam[j] + (j > 0 ? t[j - 1] : 0.f)) * csk;
-      tx[j] = xn;
-      t[j] = tn;
-    }
+  for (int i = 0; i < D; ++i) {
+    float t[D], tx[D];
+    // term_1 = A = cs J (row i: cs lam_i at i, cs at i + 1); E = I + A; the
+    // Frechet part starts as cs e_{D-1} e_0^T
 #pragma unroll
     for (int j = 0; j < D; ++j) {
-      e[j] += t[j];
-      x[j] += tx[j];
+      const float a = (j == i) ? cs * lam[j] : (j == i + 1 ? cs : 0.f);
+      t[j] = a;
+      e[i][j] = (j == i ? 1.f : 0.f) + a;
+      tx[j] = (i == D - 1 && j == 0) ? cs : 0.f;
+      x[i][j] = tx[j];
+    }
+#pragma unroll
+    for (int k = 2; k <= kTaylorTerms; ++k) {
+      const float csk = float(1.0 / 32768.0 / k);
+      const float t_last = t[D - 1];
+      // M A = cs (M * lam_cols + shift(M)): new column j from old j, j - 1
+#pragma unroll
+      for (int j = D - 1; j >= 0; --j) {
+        if ((D - 1 - i) + j <= k - 1)
+          tx[j] = ((j == 0 ? t_last : 0.f) + tx[j] * lam[j] +
+                   (j > 0 ? tx[j - 1] : 0.f)) * csk;
+        if (j >= i && j <= i + k)
+          t[j] = (t[j] * lam[j] + (j > 0 ? t[j - 1] : 0.f)) * csk;
+      }
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        if (j >= i && j <= i + k) e[i][j] += t[j];
+        if ((D - 1 - i) + j <= k - 1) x[i][j] += tx[j];
+      }
     }
   }
-  // squarings: (E, X) <- (E E, E X + X E); E stays upper triangular
+  // squarings
 #pragma unroll 1
-  for (int s = 0; s < kSquarings; ++s) {
-    float* bufE = ex + (s & 1) * (2 * kRowStride * kRowStride);
-    float* bufX = bufE + kRowStride * kRowStride;
-    if (owns) {
+  for (int q = 0; q < kSquarings; ++q) {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      float row[D];
 #pragma unroll
       for (int j = 0; j < D; ++j) {
-        bufE[i * kRowStride + j] = e[j];
-        bufX[i * kRowStride + j] = x[j];
+        float acc = 0.f;
+#pragma unroll
+        for (int m = 0; m < D; ++m) {
+          if (m >= i) acc = fmaf(e[i][m], x[m][j], acc);
+          if (m <= j) acc = fmaf(x[i][m], e[m][j], acc);
+        }
+        row[j] = acc;
       }
-    }
-    __syncwarp(mask);
-    float ne[D], nx[D];
 #pragma unroll
-    for (int j = 0; j < D; ++j) ne[j] = nx[j] = 0.f;
-#pragma unroll
-    for (int m = 0; m < D; ++m) {
-      float er[D], xr[D];
-#pragma unroll
-      for (int j = 0; j < D; ++j) {
-        er[j] = bufE[m * kRowStride + j];
-        xr[j] = bufX[m * kRowStride + j];
-      }
-      const float wm = (m >= i) ? e[m] : 0.f;
-#pragma unroll
-      for (int j = 0; j < D; ++j) {
-        ne[j] += wm * er[j];
-        nx[j] += wm * xr[j];
-        nx[j] += x[m] * er[j];
-      }
+      for (int j = 0; j < D; ++j) x[i][j] = row[j];
     }
 #pragma unroll
-    for (int j = 0; j < D; ++j) {
-      e[j] = owns ? ne[j] : 0.f;
-      x[j] = owns ? nx[j] : 0.f;
+    for (int i = 0; i < D; ++i) {
+      float row[D];
+#pragma unroll
+      for (int j = i; j < D; ++j) {
+        float acc = 0.f;
+#pragma unroll
+        for (int m = i; m <= j; ++m) acc = fmaf(e[i][m], e[m][j], acc);
+        row[j] = acc;
+      }
+#pragma unroll
+      for (int j = i; j < D; ++j) e[i][j] = row[j];
     }
   }
-  float x_diag = 0.f;
-#pragma unroll
-  for (int j = 0; j < D; ++j)
-    if (j == i) x_diag = x[j];
-  const float dd = fmaxf(__shfl_sync(mask, e[D - 1], base), FLT_MIN);
+  const float dd = fmaxf(e[0][D - 1], FLT_MIN);
   const float inv_dd = 1.f / dd;
 #pragma unroll
-  for (int j = 0; j < D; ++j)
-    g[j] = __shfl_sync(mask, x_diag, base + j) * inv_dd;
+  for (int j = 0; j < D; ++j) g[j] = x[j][j] * inv_dd;
   return dd;
 }
 
-// One chord round on u (diffs, in place) for the sorted moments s: the
-// residual and D-1 finite-difference cascades (relative step
-// fd_step * max(1, |u|); a column whose clipped step is below 1% of the
-// intended one is zeroed), the inverse of J^T J (1 + 1e-5) + 1e-20 by an
-// unrolled Cholesky (first lane of the group), then `iterations` steps
-// u <- clip(u - clip(Minv J^T (g(u) - s), +-1e3)). scratch: the group's
-// kGroupFloats floats.
+// The inverse of J^T J (1 + 1e-5) + 1e-20 for the Jacobian rows Jm
+// (D - 1 rows of D, stride 8) into Mi (D - 1 rows of D - 1, stride 8), by
+// one thread: an unrolled Cholesky and D - 1 pairs of triangular solves.
 template <int D>
-__device__ void bingham_chord_round(const float (&s)[D],
-                                    float (&u)[D > 1 ? D - 1 : 1],
-                                    int iterations, float lower, float upper,
-                                    float fd_step, float* scratch) {
+__device__ __forceinline__ void normal_inverse(const float* Jm, float* Mi) {
   constexpr int D1 = D - 1;
-  const unsigned mask = group_mask();
-  const bool leader = (threadIdx.x & 7) == 0;
-  float* Jm = scratch;                             // D1 rows of D
-  float* Mi = scratch + kRowStride * kRowStride;   // D1 rows of D1
-  float* ex = scratch + 2 * kRowStride * kRowStride;
-  float lam[D], g0[D], g[D];
-
-  lam_of_u<D>(u, lam);
-  bingham_cascade<D>(lam, g0, ex);
-#pragma unroll 1
-  for (int c = 0; c < D1; ++c) {
-    float us[D1];
-    float h = 0.f, h_int = 0.f;
+  float L[D1][D1];
 #pragma unroll
-    for (int j = 0; j < D1; ++j) {
-      const float shift = (j == c) ? fd_step * fmaxf(1.f, fabsf(u[j])) : 0.f;
-      us[j] = clip_diff(u[j] + shift, lower, upper);
-      h += us[j] - u[j];
-      h_int += shift;
-    }
-    lam_of_u<D>(us, lam);
-    bingham_cascade<D>(lam, g, ex);
-    const bool dead = fabsf(h) < 0.01f * fabsf(h_int);
-    const float inv_h = dead ? 0.f : 1.f / h;
-    if (leader) {
+  for (int a = 0; a < D1; ++a) {
 #pragma unroll
-      for (int d = 0; d < D; ++d)
-        Jm[c * kRowStride + d] = (g[d] - g0[d]) * inv_h;
-    }
-  }
-  __syncwarp(mask);
-  if (leader) {
-    float L[D1][D1];
-#pragma unroll
-    for (int a = 0; a < D1; ++a) {
-#pragma unroll
-      for (int b = a; b < D1; ++b) {
-        float acc = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d)
-          acc += Jm[a * kRowStride + d] * Jm[b * kRowStride + d];
-        if (b == a) acc = acc * (1.f + 1e-5f) + 1e-20f;
-        L[b][a] = acc;  // J^T J, lower triangle
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < D1; ++a) {
-      float acc = L[a][a];
-#pragma unroll
-      for (int k = 0; k < a; ++k) acc -= L[a][k] * L[a][k];
-      const float inv_diag = rsqrtf(fmaxf(acc, FLT_MIN));
-      L[a][a] = 1.f / inv_diag;
-#pragma unroll
-      for (int b = a + 1; b < D1; ++b) {
-        float acc2 = L[b][a];
-#pragma unroll
-        for (int k = 0; k < a; ++k) acc2 -= L[b][k] * L[a][k];
-        L[b][a] = acc2 * inv_diag;
-      }
-    }
-#pragma unroll
-    for (int col = 0; col < D1; ++col) {
-      float y[D1], xs[D1];
-#pragma unroll
-      for (int a = 0; a < D1; ++a) {
-        float acc = (a == col) ? 1.f : 0.f;
-#pragma unroll
-        for (int k = 0; k < a; ++k) acc -= L[a][k] * y[k];
-        y[a] = acc / L[a][a];
-      }
-#pragma unroll
-      for (int a = D1 - 1; a >= 0; --a) {
-        float acc = y[a];
-#pragma unroll
-        for (int k = a + 1; k < D1; ++k) acc -= L[k][a] * xs[k];
-        xs[a] = acc / L[a][a];
-      }
-#pragma unroll
-      for (int a = 0; a < D1; ++a) Mi[a * kRowStride + col] = xs[a];
-    }
-  }
-  __syncwarp(mask);
-#pragma unroll 1
-  for (int it = 0; it < iterations; ++it) {
-    lam_of_u<D>(u, lam);
-    bingham_cascade<D>(lam, g, ex);
-    float r[D], b[D1];
-#pragma unroll
-    for (int d = 0; d < D; ++d) r[d] = g[d] - s[d];
-#pragma unroll
-    for (int a = 0; a < D1; ++a) {
+    for (int b = a; b < D1; ++b) {
       float acc = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc += Jm[a * kRowStride + d] * r[d];
-      b[a] = acc;
+      for (int d = 0; d < D; ++d) acc += Jm[a * 8 + d] * Jm[b * 8 + d];
+      if (b == a) acc = acc * (1.f + 1e-5f) + 1e-20f;
+      L[b][a] = acc;  // J^T J, lower triangle
     }
+  }
+#pragma unroll
+  for (int a = 0; a < D1; ++a) {
+    float acc = L[a][a];
+#pragma unroll
+    for (int k = 0; k < a; ++k) acc -= L[a][k] * L[a][k];
+    const float inv_diag = rsqrtf(fmaxf(acc, FLT_MIN));
+    L[a][a] = 1.f / inv_diag;
+#pragma unroll
+    for (int b = a + 1; b < D1; ++b) {
+      float acc2 = L[b][a];
+#pragma unroll
+      for (int k = 0; k < a; ++k) acc2 -= L[b][k] * L[a][k];
+      L[b][a] = acc2 * inv_diag;
+    }
+  }
+#pragma unroll
+  for (int col = 0; col < D1; ++col) {
+    float y[D1], xs[D1];
 #pragma unroll
     for (int a = 0; a < D1; ++a) {
-      float delta = 0.f;
+      float acc = (a == col) ? 1.f : 0.f;
 #pragma unroll
-      for (int k = 0; k < D1; ++k) delta += Mi[a * kRowStride + k] * b[k];
-      delta = fminf(fmaxf(delta, -1e3f), 1e3f);
-      u[a] = clip_diff(u[a] - delta, lower, upper);
+      for (int k = 0; k < a; ++k) acc -= L[a][k] * y[k];
+      y[a] = acc / L[a][a];
     }
+#pragma unroll
+    for (int a = D1 - 1; a >= 0; --a) {
+      float acc = y[a];
+#pragma unroll
+      for (int k = a + 1; k < D1; ++k) acc -= L[k][a] * xs[k];
+      xs[a] = acc / L[a][a];
+    }
+#pragma unroll
+    for (int a = 0; a < D1; ++a) Mi[a * 8 + col] = xs[a];
   }
 }
 

@@ -154,7 +154,7 @@ static_assert(kZeroRow + 8 <= kExchange, "the exchange rows fit");
 // grad log Z at the ascending nodes lam (each <= 0) into g (every lane
 // receives all D entries), by one warp; returns dd = exp[lam_1..lam_D]
 // (floored at FLT_MIN). The block-Frechet cascade of bingham.cuh's
-// bingham_cascade (13 Taylor terms, 15 squarings at the scaling 2^-15)
+// chord_cascade (13 Taylor terms, 15 squarings at the scaling 2^-15)
 // with the entries over the lanes: each Taylor term and each squaring
 // publishes the lanes' entries to the warp's exchange rows ex and forms
 // the new ones from them. E's (and T's) lower triangle and the zero row
@@ -261,61 +261,6 @@ __device__ float warp_cascade(const CascadeLanes<D>& L,
   for (int q = 0; q < D; ++q) g[q] = Xb[q * kRow + q] * inv_dd;
   __syncwarp();
   return dd;
-}
-
-// The inverse of J^T J (1 + 1e-5) + 1e-20 for the Jacobian rows Jm
-// (D - 1 rows of D, stride 8) into Mi (D - 1 rows of D - 1, stride 8), by
-// one thread: bingham_chord_round's unrolled Cholesky.
-template <int D>
-__device__ __forceinline__ void normal_inverse(const float* Jm, float* Mi) {
-  constexpr int D1 = D - 1;
-  float L[D1][D1];
-#pragma unroll
-  for (int a = 0; a < D1; ++a) {
-#pragma unroll
-    for (int b = a; b < D1; ++b) {
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc += Jm[a * 8 + d] * Jm[b * 8 + d];
-      if (b == a) acc = acc * (1.f + 1e-5f) + 1e-20f;
-      L[b][a] = acc;  // J^T J, lower triangle
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < D1; ++a) {
-    float acc = L[a][a];
-#pragma unroll
-    for (int k = 0; k < a; ++k) acc -= L[a][k] * L[a][k];
-    const float inv_diag = rsqrtf(fmaxf(acc, FLT_MIN));
-    L[a][a] = 1.f / inv_diag;
-#pragma unroll
-    for (int b = a + 1; b < D1; ++b) {
-      float acc2 = L[b][a];
-#pragma unroll
-      for (int k = 0; k < a; ++k) acc2 -= L[b][k] * L[a][k];
-      L[b][a] = acc2 * inv_diag;
-    }
-  }
-#pragma unroll
-  for (int col = 0; col < D1; ++col) {
-    float y[D1], xs[D1];
-#pragma unroll
-    for (int a = 0; a < D1; ++a) {
-      float acc = (a == col) ? 1.f : 0.f;
-#pragma unroll
-      for (int k = 0; k < a; ++k) acc -= L[a][k] * y[k];
-      y[a] = acc / L[a][a];
-    }
-#pragma unroll
-    for (int a = D1 - 1; a >= 0; --a) {
-      float acc = y[a];
-#pragma unroll
-      for (int k = a + 1; k < D1; ++k) acc -= L[k][a] * xs[k];
-      xs[a] = acc / L[a][a];
-    }
-#pragma unroll
-    for (int a = 0; a < D1; ++a) Mi[a * 8 + col] = xs[a];
-  }
 }
 
 // Registers: up to 64 a thread for D <= 6 (four 256-thread CTAs, or eight

@@ -13,24 +13,12 @@
 // a log and an exp, plus the D(D+1)/2 pair products of the scatter shared
 // by the classes: ~1,300 float32 operations a frame at D=6, K=3, ~75 us at
 // 67 TFLOP/s. The two are close, so the design keeps the copies of y off
-// the critical path and spends as few instructions a frame as it can:
+// the critical path and spends as few instructions a frame as it can: the
+// streamed pass of stream.cuh (whole waves of equal spans, a cp.async
+// ring of tiles, register sums, one fixed-order reduction a segment; its
+// grid from ops/_plan.py, four times the CTAs resident at once), with
+// this kernel's E-step:
 //
-//   work    a grid of whole waves (four times the CTAs resident at once,
-//           from the occupancy query; ops/em_stream.py), each CTA owning
-//           an equal span of `span` frames of the bins laid end to end
-//           (bin n's frames are n T .. n T + T - 1): every CTA does the
-//           same work, so there is no nearly empty last wave. A span
-//           covers the tail of a bin, whole bins and the head of another
-//           (or a piece of one bin); each piece of a bin
-//           (a segment) writes its partial sums to its own slot, slot =
-//           CTA index - the first CTA on the bin (< `slots`). The wrapper
-//           adds a bin's slots in a fixed order (a deterministic two-pass
-//           reduction, no float atomics), so runs repeat bit for bit.
-//   copies  y streams through a two-stage ring of kTile-frame tiles in
-//           shared memory with cp.async: the next tile is in flight while
-//           this one computes. The tile keeps y's (channel, frame) layout
-//           with an odd row stride (kTile + 1), so the D channels of one
-//           frame fall in distinct banks for the scatter.
 //   E-step  a thread per frame, D a template parameter: the frame in
 //           registers, for each class the projection
 //           q = sum_i |(W^H y)_i|^2 on the scaled eigenbasis
@@ -40,21 +28,7 @@
 //           the numerators, max(den, tiny), the clip to [eps, 1 - eps]
 //           (model mode); or the given posteriors and quadratic forms
 //           (from_init mode). Saliency multiplies the posterior; the
-//           thread keeps the affiliation sums in registers and writes the
-//           scatter weights w = a / max(q, 10 tiny) to shared memory.
-//   sums    lanes over upper-triangle entries, warps over frames: lane
-//           j owns entries r = j, j + 32, ... and adds w_k y_d conj(y_e)
-//           of its warp's frames into registers, for a group of kGroup
-//           classes (more classes take another pass over the segment).
-//           No shuffle reduction per tile: one cross-warp reduction
-//           through shared memory per segment, in a fixed order.
-//
-// Tensor cores are not used: one tile's scatter is at most 32 x 32 in
-// real terms, below wgmma's 64-row tile, and TF32 would round it to
-// ~1e-3, which the EM amplifies.
-//
-// There is no padding: loops run over the real frames of each segment,
-// so no padded frame can feed 0 * inf into a sum.
+//           scatter weight is w = a / max(q, 10 tiny).
 //
 // Layouts (all contiguous): y (N, D, T) complex64 as float2;
 // aff0/qf0/mask (N, K, T) float; sal (N, T) float; eigval (N, K, D);
@@ -67,53 +41,23 @@
 #include <cuda_runtime.h>
 
 #include "em_common.cuh"
+#include "stream.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 256;  // frames per tile: one per thread in the E-step
-constexpr int kRow = kTile + 1;  // the tile's row stride, odd
-constexpr int kStages = 2;
-constexpr int kGroup = 4;  // classes accumulated in registers at once
+using stream::kGroup;
+using stream::kRow;
+using stream::kThreads;
+using stream::kTile;
 
-__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Upper-triangle entries per class and per lane.
-__host__ __device__ constexpr int entries(int D) { return D * (D + 1) / 2; }
-__host__ __device__ constexpr int per_lane(int D) {
-  return (entries(D) + 31) / 32;
-}
-
-// Shared memory of one CTA, in float-sized words: the ring (also the
-// cross-warp reduction's scratch), the scatter weights of a tile
-// (kTile x kGroup, 16-byte aligned for float4 reads), the log-pdfs and
-// quadratic forms of a tile (K x kTile each), the scaled eigenbases,
-// log-determinants, weights, and the affiliation sums of the reduction.
-__host__ __device__ inline size_t ring_words(int D) {
-  const size_t ring = size_t(kStages) * D * kRow * 2;
-  const size_t scratch = size_t(kWarps) * kGroup * per_lane(D) * 32 * 2;
-  return ring > scratch ? ring : scratch;
-}
-
+// Shared memory of one CTA, in float-sized words: the pass's ring, scatter
+// weights and reduction (stream.cuh), the log-pdfs and quadratic forms of
+// a tile (K x kTile each), the scaled eigenbases, log-determinants and
+// weights.
 inline size_t stream_smem_bytes(int D, int K) {
-  const size_t words = ring_words(D) + size_t(K) * D * D * 2 +
-                       size_t(kTile) * kGroup + 2 * size_t(K) * kTile +
-                       2 * size_t(K) + kWarps * kGroup;
+  const size_t words = stream::ring_words(D) + stream::kPassWords +
+                       size_t(K) * D * D * 2 + 2 * size_t(K) * kTile +
+                       2 * size_t(K);
   return 4 * words;
 }
 
@@ -132,209 +76,75 @@ em_stream_kernel(const float2* __restrict__ y,
                  float2* __restrict__ scatter_out,
                  float* __restrict__ asum_out, int N, int K, int T,
                  long long span, float affiliation_eps) {
-  constexpr int P = entries(D);
-  constexpr int E = per_lane(D);
   constexpr int DD = D * D;
   extern __shared__ float4 smem_raw[];
   float2* ring = reinterpret_cast<float2*>(smem_raw);
-  float2* scratch = ring;  // reused once a segment's tiles are done
-  float* wq = reinterpret_cast<float*>(smem_raw) + ring_words(D);
+  float* wq = reinterpret_cast<float*>(smem_raw) + stream::ring_words(D);
   float* lp = wq + kTile * kGroup;                     // K * kTile
   float* qv = lp + K * kTile;                          // K * kTile
   float2* Wh = reinterpret_cast<float2*>(qv + K * kTile);  // K * DD
   float* logdet = reinterpret_cast<float*>(Wh + K * DD);   // K
   float* wgt = logdet + K;                                 // K
-  float* red_a = wgt + K;                            // kWarps * kGroup
+  float* red_a = wgt + K;                      // kWarps * kGroup
 
   const bool from_init = aff0 != nullptr;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
   const float tiny = FLT_MIN;
 
-  // this lane's upper-triangle entries (d_j, e_j); entries past P point
-  // at (0, 0) and are never written out
-  int ed[E], ee[E];
-#pragma unroll
-  for (int j = 0; j < E; ++j) {
-    const int r = lane + 32 * j;
-    upper_entry(r < P ? r : 0, D, &ed[j], &ee[j]);
-  }
-
-  const long long total = static_cast<long long>(N) * T;
-  const long long begin = static_cast<long long>(blockIdx.x) * span;
-  const long long end = begin + span < total ? begin + span : total;
-
-  for (long long pos = begin; pos < end;) {
-    const int n = static_cast<int>(pos / T);
-    const int t_begin = static_cast<int>(pos - static_cast<long long>(n) * T);
-    const long long bin_end = static_cast<long long>(n + 1) * T;
-    const int t_end = static_cast<int>((end < bin_end ? end : bin_end) -
-                                       static_cast<long long>(n) * T);
-    const int slot = blockIdx.x -
-                     static_cast<int>(static_cast<long long>(n) * T / span);
-    pos = static_cast<long long>(n) * T + t_end;
-
-    // ---- the segment's model: scaled eigenbases, log-determinants,
-    // weights ---------------------------------------------------------------
-    __syncthreads();  // the previous segment is done with Wh and scratch
-    if (!from_init) {
-      for (int id = tid; id < K * DD; id += kThreads) {
-        const int k = id / DD;
-        const int i = (id - k * DD) / D;
-        const int d = id - k * DD - i * D;
-        const size_t nk = static_cast<size_t>(n) * K + k;
-        Wh[id] = c_scale(1.f / sqrtf(eigval[nk * D + i]),
-                         c_conj(eigvec[nk * DD + d * D + i]));
-      }
-      for (int k = tid; k < K; k += kThreads) {
-        const float* lk = eigval + (static_cast<size_t>(n) * K + k) * D;
-        float ld = 0.f;
-        for (int i = 0; i < D; ++i) ld += logf(lk[i]);
-        logdet[k] = ld;
-        wgt[k] = weight[static_cast<size_t>(n) * K + k];
-      }
+  // ---- the segment's model: scaled eigenbases, log-determinants, weights
+  auto setup = [&](int n) {
+    if (from_init) return;
+    for (int id = tid; id < K * DD; id += kThreads) {
+      const int k = id / DD;
+      const int i = (id - k * DD) / D;
+      const int d = id - k * DD - i * D;
+      const size_t nk = static_cast<size_t>(n) * K + k;
+      Wh[id] = c_scale(1.f / sqrtf(eigval[nk * D + i]),
+                       c_conj(eigvec[nk * DD + d * D + i]));
     }
-    __syncthreads();
+    for (int k = tid; k < K; k += kThreads) {
+      const float* lk = eigval + (static_cast<size_t>(n) * K + k) * D;
+      float ld = 0.f;
+      for (int i = 0; i < D; ++i) ld += logf(lk[i]);
+      logdet[k] = ld;
+      wgt[k] = weight[static_cast<size_t>(n) * K + k];
+    }
+  };
 
-    const int tiles = (t_end - t_begin + kTile - 1) / kTile;
-    const float2* yn = y + static_cast<size_t>(n) * D * T;
-    auto issue = [&](int i) {
-      const int t0 = t_begin + i * kTile;
-      const int nt = min(kTile, t_end - t0);
-      float2* dst = ring + (i % kStages) * D * kRow;
-      if (tid < nt) {
-#pragma unroll
-        for (int d = 0; d < D; ++d)
-          cp_async8(dst + d * kRow + tid, yn + static_cast<size_t>(d) * T +
-                                              t0 + tid);
-      }
-    };
-
-    for (int g0 = 0; g0 < K; g0 += kGroup) {
-      const int G = min(kGroup, K - g0);
-      float2 acc[E][kGroup];
-      float asum[kGroup];
+  // ---- E-step of one frame -------------------------------------------
+  auto frame = [&](int n, const float2* ys, int t, size_t g, float s, int g0,
+                   int G, float (&a)[kGroup], float (&w)[kGroup]) {
+    if (from_init) {
 #pragma unroll
       for (int c = 0; c < kGroup; ++c) {
-        asum[c] = 0.f;
-#pragma unroll
-        for (int j = 0; j < E; ++j) acc[j][c] = make_float2(0.f, 0.f);
-      }
-
-      issue(0);
-      cp_async_commit();
-      for (int i = 0; i < tiles; ++i) {
-        if (i + 1 < tiles) issue(i + 1);
-        cp_async_commit();  // possibly empty: keeps the group count
-        cp_async_wait<1>();
-        __syncthreads();
-        const float2* ys = ring + (i % kStages) * D * kRow;
-        const int t0 = t_begin + i * kTile;
-        const int nt = min(kTile, t_end - t0);
-
-        // ---- E-step: a thread per frame ------------------------------
-        if (tid < nt) {
-          const int t = tid;
-          const size_t g = static_cast<size_t>(t0) + t;
-          const float s = (sal != nullptr)
-              ? sal[static_cast<size_t>(n) * T + g] : 1.f;
-          if (from_init) {
-#pragma unroll
-            for (int c = 0; c < kGroup; ++c) {
-              float w = 0.f;
-              if (c < G) {
-                const size_t at =
-                    (static_cast<size_t>(n) * K + g0 + c) * T + g;
-                const float a = aff0[at] * s;
-                asum[c] += a;
-                w = a / fmaxf(qf0[at], 10.f * tiny);
-              }
-              wq[t * kGroup + c] = w;
-            }
-          } else {
-            float2 yf[D];
-#pragma unroll
-            for (int d = 0; d < D; ++d) yf[d] = ys[d * kRow + t];
-            e_step_frame(
-                [&](int k) { return projection_form<D>(yf, Wh + k * DD); },
-                logdet, wgt,
-                mask == nullptr
-                    ? nullptr
-                    : mask + static_cast<size_t>(n) * K * T + g,
-                T, affiliation_eps, lp + t, qv + t, kTile, D, K);
-#pragma unroll
-            for (int c = 0; c < kGroup; ++c) {
-              float w = 0.f;
-              if (c < G) {
-                const float a = lp[(g0 + c) * kTile + t] * s;
-                asum[c] += a;
-                w = a / fmaxf(qv[(g0 + c) * kTile + t], 10.f * tiny);
-              }
-              wq[t * kGroup + c] = w;
-            }
-          }
-        }
-        __syncthreads();
-
-        // ---- sums: lanes over entries, warps over frames --------------
-#pragma unroll 4
-        for (int t = warp; t < nt; t += kWarps) {
-          const float4 w4 = *reinterpret_cast<const float4*>(wq + t * kGroup);
-          const float w[kGroup] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-          for (int j = 0; j < E; ++j) {
-            const float2 p = c_mul_conj(ys[ed[j] * kRow + t],
-                                        ys[ee[j] * kRow + t]);
-#pragma unroll
-            for (int c = 0; c < kGroup; ++c) {
-              acc[j][c].x = fmaf(w[c], p.x, acc[j][c].x);
-              acc[j][c].y = fmaf(w[c], p.y, acc[j][c].y);
-            }
-          }
-        }
-        __syncthreads();  // this stage is free for the tile after next
-      }
-      cp_async_wait<0>();
-
-      // ---- one cross-warp reduction for the segment, in warp order -----
-#pragma unroll
-      for (int c = 0; c < kGroup; ++c) {
-#pragma unroll
-        for (int j = 0; j < E; ++j)
-          scratch[((warp * kGroup + c) * E + j) * 32 + lane] = acc[j][c];
-        const float a = warp_sum(asum[c]);
-        if (lane == 0) red_a[warp * kGroup + c] = a;
-      }
-      __syncthreads();
-      float2* out = scatter_out +
-                    (static_cast<size_t>(slot) * N + n) * K * DD;
-      for (int id = tid; id < G * P; id += kThreads) {
-        const int c = id / P;
-        const int r = id - c * P;
-        const int j = r / 32;
-        const int l = r - 32 * j;
-        float2 v = make_float2(0.f, 0.f);
-        for (int w = 0; w < kWarps; ++w)
-          v = c_add(v, scratch[((w * kGroup + c) * E + j) * 32 + l]);
-        int d, e;
-        upper_entry(r, D, &d, &e);
-        float2* Sk = out + (g0 + c) * DD;
-        if (d == e) {
-          Sk[d * D + d] = make_float2(v.x, 0.f);
-        } else {
-          Sk[d * D + e] = v;
-          Sk[e * D + d] = c_conj(v);
+        if (c < G) {
+          const size_t at = (static_cast<size_t>(n) * K + g0 + c) * T + g;
+          a[c] = aff0[at] * s;
+          w[c] = a[c] / fmaxf(qf0[at], 10.f * tiny);
         }
       }
-      if (tid < G) {
-        float a = 0.f;
-        for (int w = 0; w < kWarps; ++w) a += red_a[w * kGroup + tid];
-        asum_out[(static_cast<size_t>(slot) * N + n) * K + g0 + tid] = a;
-      }
-      __syncthreads();  // scratch (the ring) is free again
+      return;
     }
-  }
+    float2 yf[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) yf[d] = ys[d * kRow + t];
+    e_step_frame(
+        [&](int k) { return projection_form<D>(yf, Wh + k * DD); },
+        logdet, wgt,
+        mask == nullptr ? nullptr
+                        : mask + static_cast<size_t>(n) * K * T + g,
+        T, affiliation_eps, lp + t, qv + t, kTile, D, K);
+#pragma unroll
+    for (int c = 0; c < kGroup; ++c) {
+      if (c < G) {
+        a[c] = lp[(g0 + c) * kTile + t] * s;
+        w[c] = a[c] / fmaxf(qv[(g0 + c) * kTile + t], 10.f * tiny);
+      }
+    }
+  };
+
+  stream::pass<D, false>(y, sal, ring, wq, red_a, scatter_out, asum_out, N,
+                         K, T, span, setup, frame);
 }
 
 template <int D>
@@ -371,23 +181,9 @@ cudaError_t launch(int ctas, size_t bytes, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// Calls f.template operator()<D>() for the runtime D in 1..16.
-#define EM_STREAM_DISPATCH(D, CALL)                                      \
-  switch (D) {                                                           \
-    case 1: return CALL(1); case 2: return CALL(2);                      \
-    case 3: return CALL(3); case 4: return CALL(4);                      \
-    case 5: return CALL(5); case 6: return CALL(6);                      \
-    case 7: return CALL(7); case 8: return CALL(8);                      \
-    case 9: return CALL(9); case 10: return CALL(10);                    \
-    case 11: return CALL(11); case 12: return CALL(12);                  \
-    case 13: return CALL(13); case 14: return CALL(14);                  \
-    case 15: return CALL(15); case 16: return CALL(16);                  \
-    default: return cudaErrorInvalidValue;                               \
-  }
-
 cudaError_t resident_any(int D, size_t bytes, int* blocks) {
 #define CALL(DV) resident<DV>(bytes, blocks)
-  EM_STREAM_DISPATCH(D, CALL)
+  STREAM_DISPATCH(D, CALL)
 #undef CALL
 }
 
@@ -422,6 +218,6 @@ extern "C" int em_stream_launch(
 #define CALL(DV)                                                          \
   int(launch<DV>(ctas, bytes, s, y, aff0, qf0, eigval, eigvec, weight,    \
                  sal, mask, scatter, asum, N, K, T, span, affiliation_eps))
-  EM_STREAM_DISPATCH(D, CALL)
+  STREAM_DISPATCH(D, CALL)
 #undef CALL
 }

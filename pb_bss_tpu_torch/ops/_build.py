@@ -26,8 +26,8 @@ __all__ = ['CSRC', 'BUILD_DIR', 'KERNELS', 'SMEM_LIMIT', 'SM_SMEM',
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = CSRC.parent / '_kernels'
-_HEADERS = ('jacobi.cuh', 'em_common.cuh', 'em_iter.cuh', 'watson.cuh',
-            'bingham.cuh', 'integration.cuh')
+_HEADERS = ('jacobi.cuh', 'em_common.cuh', 'em_iter.cuh', 'stream.cuh',
+            'watson.cuh', 'bingham.cuh', 'integration.cuh')
 # bytes of shared memory one block may opt into on the H100 (sm_90), the
 # budget of every kernel's shape gate
 SMEM_LIMIT = 232448
@@ -73,7 +73,9 @@ KERNELS = {
             [_P] * 8 + [_I] * 7 + [_F, _F, _I, _F, _F, _P], _I),
     },
     'mm_stream': {
-        'mm_stream_launch': ([_P] * 11 + [_I] * 7 + [_F, _P], _I),
+        'mm_stream_launch': (
+            [_P] * 11 + [_I] * 5 + [_L, _I, _F, _P], _I),
+        'mm_stream_capacity': ([_I] * 3, _I),
     },
     'bingham': {
         'bingham_chord_launch': ([_P] * 3 + [_I] * 3 + [_F] * 3 + [_P], _I),

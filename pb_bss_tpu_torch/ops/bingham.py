@@ -24,7 +24,10 @@ exp[lambda_1..lambda_D, lambda_i]``, so ``grad_i log Z = X[i, i] / E[0,
 D-1]``. The Taylor phase multiplies by the bidiagonal ``J`` as a column
 shift-and-scale, the squaring phase is ``(E, X) <- (E E, E X + X E)``.
 
-On a CPU tensor :func:`bingham_chord_solve` runs the plain twin
+On the card a group of D lanes owns a problem: the round's D
+finite-difference cascades run at once, a lane each, and each chord
+step's cascade runs on one thread. On a CPU tensor
+:func:`bingham_chord_solve` runs the plain twin
 (:func:`bingham_chord_solve_reference`, the same rounds as batched
 PyTorch ops over the problems). On a CUDA tensor it launches the kernel
 or raises; it never falls back.

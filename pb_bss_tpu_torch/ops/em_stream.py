@@ -16,9 +16,11 @@ utterance (``'fc'``).
 The kernel has no T limit: it streams y through a ring of frame tiles
 in shared memory. Its grid is four whole waves: four times as many CTAs
 as the card holds at once, each over an equal span of the bins' frames
-laid end to end (:func:`_partition`), so no wave runs nearly empty. Each piece of a bin
-that a CTA covers writes its partial sums to its own slot, and the
-wrapper adds a bin's slots in a fixed order (deterministic, no atomics).
+laid end to end (:func:`_partition`, the plan of :mod:`._plan`, which
+the streamed Watson / Bingham kernel shares), so no wave runs nearly
+empty. Each piece of a bin that a CTA covers writes its partial sums to
+its own slot, and the wrapper adds a bin's slots in a fixed order
+(deterministic, no atomics).
 The kernel is instantiated for every D in 1..16 (:data:`DIMS`).
 :func:`fits` is its shape gate (D <= 16 and the first design's
 shared-memory budget, which every K < 20 meets); the kernel's own needs
@@ -33,11 +35,10 @@ twins, for comparisons on the card.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from .._dtypes import tiny as _tiny
+from . import _plan
 from ._build import SMEM_LIMIT
 from .eigh import default_sweeps, eigh_jacobi, eigh_jacobi_reference
 
@@ -46,13 +47,8 @@ __all__ = ['cacgmm_em_long', 'cacgmm_em_long_reference', 'e_stats',
            'kernel_smem_bytes', 'fits', 'DIMS']
 
 DIMS = tuple(range(1, 17))  # the D the kernel is instantiated for
-TILE = 256  # frames per shared-memory tile (kTile in csrc/em_stream.cu)
-_GROUP = 4  # classes summed in registers at once (kGroup)
-_STAGES = 2  # tiles in flight (kStages)
-_WARPS = 8  # warps per CTA (kThreads / 32)
-# waves of the grid: one, two, four and eight ran alike on the H100
-# (chip_smoke.py's splits; PERF.md); four keep the spans short
-_WAVES = 4
+TILE = _plan.TILE  # frames per shared-memory tile
+_WAVES = _plan.WAVES  # waves of the grid
 # the gate's budget: the first streamed kernel's shared memory (512-frame
 # tiles holding the posterior of every class), kept so that the gate
 # admits the same shapes as before
@@ -70,14 +66,10 @@ def smem_bytes(D, K):
 
 def kernel_smem_bytes(D, K):
     """Shared memory one CTA of the kernel takes (stream_smem_bytes in
-    csrc/em_stream.cu): the tile ring (or, if larger, the cross-warp
-    reduction's scratch), the tile's scatter weights, log-pdfs and
-    quadratic forms, the scaled eigenbases and the per-class scalars."""
-    P = D * (D + 1) // 2
-    ring = max(_STAGES * D * (TILE + 1) * 2,
-               _WARPS * _GROUP * -(-P // 32) * 32 * 2)
-    return 4 * (ring + K * D * D * 2 + TILE * _GROUP + 2 * K * TILE
-                + 2 * K + _WARPS * _GROUP)
+    csrc/em_stream.cu): the pass's own (:func:`._plan.pass_words`), the
+    tile's log-pdfs and quadratic forms, the scaled eigenbases and the
+    per-class scalars."""
+    return 4 * (_plan.pass_words(D) + K * D * D * 2 + 2 * K * TILE + 2 * K)
 
 
 def fits(D, K):
@@ -89,55 +81,12 @@ def fits(D, K):
 
 def _partition(N, T, capacity):
     """(ctas, span, slots) of one pass over N bins of T frames on a card
-    that holds ``capacity`` CTAs at once: the N T frames laid end to end
-    are cut into ``ctas`` spans of ``span`` frames, _WAVES whole waves of
-    ``capacity`` CTAs (the last span may be shorter; at least a tile
-    each), CTA g taking frames [g span, (g + 1) span). A bin's frames then
-    fall to at most ``slots`` consecutive CTAs; the one starting at CTA
-    floor(n T / span) + s writes the bin's slot s."""
-    return _spans(N, T, max(_WAVES * capacity, 1))
+    that holds ``capacity`` CTAs at once: :func:`._plan.partition` with
+    _WAVES whole waves of tiles of TILE frames."""
+    return _plan.partition(N, T, capacity, TILE, _WAVES)
 
 
-@functools.lru_cache(maxsize=None)
-def _spans(N, T, target):
-    """_partition for a grid of about ``target`` CTAs, once per shape
-    (the slot count walks the bins)."""
-    total = N * T
-    span = max(-(-total // target), TILE)
-    ctas = -(-total // span)
-    slots = max(((n + 1) * T - 1) // span - n * T // span + 1
-                for n in range(N))
-    return ctas, span, slots
-
-
-def _segments(N, T, span):
-    """The (cta, bin, first frame, end frame, slot) of every piece of a
-    bin that a CTA covers, in the order the kernel walks them (CTA by
-    CTA, then by frame): the host's copy of the kernel's walk, for
-    tests."""
-    out = []
-    total = N * T
-    for g in range(-(-total // span)):
-        pos, end = g * span, min((g + 1) * span, total)
-        while pos < end:
-            n = pos // T
-            t0, t1 = pos - n * T, min(end - n * T, T)
-            out.append((g, n, t0, t1, g - n * T // span))
-            pos = n * T + t1
-    return out
-
-
-@functools.lru_cache(maxsize=None)
-def _capacity(device_index, D, K):
-    """CTAs of one pass resident at once on the card (the occupancy
-    query of the kernel's instantiation for D, times the SMs)."""
-    from ._build import load
-    with torch.cuda.device(device_index):
-        capacity = load('em_stream').em_stream_capacity(D, K)
-    if capacity <= 0:
-        raise RuntimeError(
-            f'em_stream occupancy query failed: CUDA error {-capacity}')
-    return capacity
+_segments = _plan.segments
 
 
 def e_stats_reference(y, *, affiliation=None, quadratic_form=None,
@@ -247,7 +196,7 @@ def e_stats(y, *, affiliation=None, quadratic_form=None, eigenvalues=None,
                             device=y.device),
                 torch.zeros((N, K), dtype=torch.float32, device=y.device))
     ctas, span, slots = _partition(
-        N, T, _capacity(y.device.index or 0, D, K))
+        N, T, _plan.capacity('em_stream', y.device.index or 0, D, K))
     # a bin covered by fewer CTAs leaves its last slots 0
     scatter = torch.zeros((slots, N, K, D, D), dtype=torch.complex64,
                           device=y.device)

@@ -21,10 +21,18 @@ the first M-step, warm 16-step solves after it), and the mixture weight
 per bin or frequency-constant (``weight_mode='fc'``), saliency-aware. A
 fit of ``iterations`` M-steps launches the kernel ``iterations`` times.
 
-The kernel has no T limit: it holds a 512-frame tile in shared memory
-and splits the time axis of each bin into chunks (:func:`_chunking`); a
-CTA writes its own partial sums, which the wrapper adds in a fixed
-order (deterministic, no atomics). :func:`fits` is its shape gate.
+The kernel has no T limit: it runs the streamed cACGMM kernel's pass
+(``csrc/stream.cuh``), y streamed through a ring of frame tiles in shared
+memory by a grid of whole waves, each CTA over an equal span of the bins'
+frames laid end to end (the plan of :mod:`._plan`, shared with
+:mod:`.em_stream`); each piece of a bin that a CTA covers writes its
+partial sums (each scatter's upper triangle) to its own slot, and the
+wrapper adds a bin's slots in a fixed order (deterministic, no atomics)
+and mirrors the triangle. It is instantiated for every D
+in 1..16 (:data:`DIMS`), each family on its own. :func:`fits` is its
+shape gate (D <= 16 and the first design's shared-memory budget); the
+kernel's own needs (:func:`kernel_smem_bytes`) stay within the card's
+limit wherever the gate admits a shape.
 
 On a CPU tensor :func:`mm_stats` runs its plain PyTorch twin
 (:func:`mm_stats_reference`). On a CUDA tensor it launches the kernel or
@@ -40,35 +48,40 @@ import math
 import torch
 
 from .._dtypes import tiny as _tiny
+from . import _plan
 from ._build import SMEM_LIMIT
 from .em_stream import mixture_weight
 from .linalg import eigh
 
 __all__ = ['cwmm_em_long', 'cwmm_em_long_reference', 'cbmm_em_long',
            'cbmm_em_long_reference', 'mm_stats', 'mm_stats_reference',
-           'smem_bytes', 'fits']
+           'smem_bytes', 'kernel_smem_bytes', 'fits', 'DIMS']
 
-TILE = 512  # frames per shared-memory tile (kTile in csrc/mm_stream.cu)
-# CTAs a pass aims for: 132 SMs x ~5 resident CTAs, about three waves
-_TARGET_CTAS = 2048
-
-
-def _chunking(N, T):
-    """(splits, chunk): the time axis of each bin cut into ``splits``
-    chunks of ``chunk`` frames (a multiple of the tile; every chunk
-    holds at least one frame)."""
-    tiles = max(1, -(-T // TILE))
-    splits = min(tiles, max(1, -(-_TARGET_CTAS // max(N, 1))))
-    chunk_tiles = -(-tiles // splits)
-    return -(-tiles // chunk_tiles), chunk_tiles * TILE
+DIMS = tuple(range(1, 17))  # the D the kernel is instantiated for
+TILE = _plan.TILE  # frames per shared-memory tile
+# the gate's budget: the first streamed kernel's shared memory (512-frame
+# tiles holding the posterior of every class), kept so that the gate
+# admits the same shapes as before
+_GATE_TILE = 512
 
 
 def smem_bytes(D, K, family='watson'):
-    """Shared memory one CTA needs (csrc/mm_stream.cu); the Bingham step
-    mode adds the K forms V diag(lambda) V^H."""
+    """The gate's shared-memory budget at (D, K): what the first design
+    of the kernel held per CTA (the Bingham step mode adds the K forms V
+    diag(lambda) V^H). The kernel needs less (:func:`kernel_smem_bytes`)."""
     P = D * (D + 1) // 2
     forms = K * D * D if family == 'bingham' else 0
-    return 8 * (D * TILE + K * P + K * D + forms) + 4 * (K * TILE + 4 * K)
+    return 8 * (D * _GATE_TILE + K * P + K * D + forms) \
+        + 4 * (K * _GATE_TILE + 4 * K)
+
+
+def kernel_smem_bytes(D, K, family='watson'):
+    """Shared memory one CTA of the kernel takes (mm_smem_bytes in
+    csrc/mm_stream.cu): the pass's own (:func:`._plan.pass_words`), the
+    tile's posteriors, the model (the K modes, or the K forms in the
+    Bingham step mode) and the per-class scalars."""
+    model = K * D * D if family == 'bingham' else K * D
+    return 4 * (_plan.pass_words(D) + K * TILE + 2 * model + 3 * K)
 
 
 def fits(D, K, has_sal=False, family='watson'):
@@ -215,25 +228,28 @@ def mm_stats(y, *, affiliation=None, mode=None, concentration=None,
         operands[4] = operand(weight, (N // bins_per_weight, K),
                               torch.float32)
     operands[5] = operand(saliency, (N, T), torch.float32)
-    splits, chunk = _chunking(N, T)
-    P = D * (D + 1) // 2
-    upper = torch.empty((splits, N, K, P), dtype=torch.complex64,
-                        device=y.device)
-    asum = torch.empty((splits, N, K), dtype=torch.float32, device=y.device)
-    if N and T:
-        from ._build import load
-        err = load('mm_stream').mm_stream_launch(
-            y_.data_ptr(),
-            *[0 if x is None else x.data_ptr() for x in operands],
-            upper.data_ptr(), asum.data_ptr(), N, D, K, T, splits, chunk,
-            int(bins_per_weight),
-            float(affiliation_eps) if step_bingham else 0.,
-            torch.cuda.current_stream(y.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f'mm_stream kernel launch failed: CUDA error {err}')
-        mm_stats.launches += 1
-    # the second pass of the reduction: the split partials, in order
+    if not (N and T):
+        return (torch.zeros((N, K, D, D), dtype=torch.complex64,
+                            device=y.device),
+                torch.zeros((N, K), dtype=torch.float32, device=y.device))
+    ctas, span, slots = _plan.partition(N, T, _plan.capacity(
+        'mm_stream', y.device.index or 0, D, K, int(step_bingham)))
+    # a bin covered by fewer CTAs leaves its last slots 0
+    upper = torch.zeros((slots, N, K, D * (D + 1) // 2),
+                        dtype=torch.complex64, device=y.device)
+    asum = torch.zeros((slots, N, K), dtype=torch.float32, device=y.device)
+    from ._build import load
+    err = load('mm_stream').mm_stream_launch(
+        y_.data_ptr(), *[0 if x is None else x.data_ptr() for x in operands],
+        upper.data_ptr(), asum.data_ptr(), N, D, K, T, ctas, span,
+        int(bins_per_weight),
+        float(affiliation_eps) if step_bingham else 0.,
+        torch.cuda.current_stream(y.device).cuda_stream)
+    if err:
+        raise RuntimeError(f'mm_stream kernel launch failed: CUDA error {err}')
+    mm_stats.launches += 1
+    # the second pass of the reduction: each bin's slots, in order; then
+    # the lower triangle from the upper
     return _mirror(upper.sum(0), D), asum.sum(0)
 
 

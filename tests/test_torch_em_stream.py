@@ -292,14 +292,18 @@ def test_chunking_covers_every_frame_once():
     ctas, span, _ = em_stream._partition(1028, 3753, 528)
     assert ctas == em_stream._WAVES * 528
     assert span == -(-1028 * 3753 // ctas)
-    # the streamed Watson / Bingham kernel keeps the per-bin time chunks
-    from pb_bss_tpu_torch.ops import mm_stream
+    # the streamed Watson / Bingham kernel walks the shared plan: spans of
+    # whole tiles that cover its frames, on the same 528 resident CTAs
+    from pb_bss_tpu_torch.ops import _plan, mm_stream
     for N, T_ in ((257, 3753), (1028, 3753), (1, 100), (9, 1200),
                   (5000, 20000)):
-        splits, chunk = mm_stream._chunking(N, T_)
-        assert chunk % mm_stream.TILE == 0
-        assert (splits - 1) * chunk < T_ <= splits * chunk
-    assert mm_stream._chunking(257, 3753) == (8, 512)
+        ctas, span, slots = _plan.partition(N, T_, 528, mm_stream.TILE)
+        assert span >= mm_stream.TILE and ctas <= _plan.WAVES * 528
+        assert (ctas - 1) * span < N * T_ <= ctas * span
+        assert slots <= -(-T_ // span) + 1  # the CTAs a bin can touch
+    assert _plan.partition(257, 3753, 528, mm_stream.TILE) == (2111, 457, 10)
+    assert _plan.partition(5000, 20000, 528, mm_stream.TILE) \
+        == (2112, 47349, 2)
     assert em_stream.fits(16, 19) and not em_stream.fits(17, 3)
 
 

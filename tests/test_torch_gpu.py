@@ -459,11 +459,12 @@ def _residual(lam, s):
     return (grad_cascade(lam.cpu())[0] - s.cpu()).abs().max(-1).values
 
 
-@pytest.mark.parametrize('D', [3, 6, 8])
+@pytest.mark.parametrize('D', list(range(2, 9)))
 def test_bingham_chord_kernel_matches_plain(cuda, D):
-    """K8 against its twin: the same fixed point grad log Z = s, so the
-    residual is the criterion (the finite-difference Jacobians differ by
-    ulps under FMA contraction); structure exact."""
+    """K8 against its twin, at every D its wrapper takes: the same fixed
+    point grad log Z = s, so the residual is the criterion (the
+    finite-difference Jacobians differ by ulps under FMA contraction);
+    structure exact."""
     from pb_bss_tpu_torch.ops.bingham import (
         bingham_chord_solve, bingham_chord_solve_reference)
     s, x0 = _bingham_problems(777, D, cuda, seed=D)
@@ -579,6 +580,60 @@ def test_bingham_stream_kernel_one_pass_matches_plain(cuda, mode):
     assert (s_k - s_p).abs().max() <= 1e-4 * s_p.abs().max()
     assert torch.equal(s_k, s_k.conj().transpose(-1, -2))
     torch.testing.assert_close(a_k, a_p, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize('saliency', [False, True], ids=['plain', 'sal'])
+@pytest.mark.parametrize('family', ['watson', 'bingham'])
+@pytest.mark.parametrize('D', list(range(1, 17)))
+def test_mixture_stream_kernel_instantiations_match_plain(cuda, D, family,
+                                                          saliency):
+    """K7, one pass in each mode (from-init, step with per-bin weights,
+    step with weights shared by groups of bins), at each D its gate takes,
+    in both families, with and without saliency, against its twin to the
+    tolerances of the one-pass tests above; and its partials repeat bit for
+    bit."""
+    from pb_bss_tpu_torch.ops.mm_stream import mm_stats, mm_stats_reference
+    N, K, T = 34, 3, 1301
+    y, aff = _unit_norm_mixture(N, D, K, T, cuda)
+    g = torch.Generator(cuda).manual_seed(40 + D)
+    sal = (0.2 + 0.8 * torch.rand((N, T), device=cuda, generator=g)
+           if saliency else None)
+    if family == 'watson':
+        m = torch.randn((N, K, D), dtype=torch.complex64, device=cuda,
+                        generator=g)
+        model = dict(mode=m / torch.linalg.vector_norm(m, dim=-1,
+                                                       keepdim=True),
+                     concentration=1. + 30. * torch.rand(
+                         (N, K), device=cuda, generator=g))
+    else:
+        vec = torch.linalg.qr(torch.randn(
+            (N, K, D, D), dtype=torch.complex64, device=cuda,
+            generator=g))[0]
+        lam = -torch.sort(30. * torch.rand((N, K, D), device=cuda,
+                                           generator=g), -1,
+                          descending=True).values
+        model = dict(eigenvectors=vec, eigenvalues=lam - lam[..., -1:],
+                     affiliation_eps=1e-3)
+    log_norm = 5. * torch.rand((N, K), device=cuda, generator=g)
+    modes = [dict(affiliation=aff)]
+    for rows in (N, 2):
+        weight = torch.rand((rows, K), device=cuda, generator=g) + 0.2
+        modes.append(dict(model, log_norm=log_norm,
+                          weight=weight / weight.sum(-1, keepdim=True),
+                          bins_per_weight=N // rows))
+    for kwargs in modes:
+        before = mm_stats.launches
+        s_k, a_k = mm_stats(y, saliency=sal, **kwargs)
+        again = mm_stats(y, saliency=sal, **kwargs)
+        torch.cuda.synchronize()
+        assert mm_stats.launches == before + 2
+        assert torch.equal(s_k, again[0]) and torch.equal(a_k, again[1])
+        assert torch.equal(s_k, s_k.conj().transpose(-1, -2))
+        s_p, a_p = mm_stats_reference(y, saliency=sal, **kwargs)
+        assert bool(torch.isfinite(s_k).all())
+        # f32 sums over T in two orders: 1e-4 of the largest entry
+        assert (s_k - s_p).abs().max() <= 1e-4 * s_p.abs().max()
+        torch.testing.assert_close(a_k, a_p, rtol=1e-4, atol=0)
 
 
 @pytest.mark.parametrize('route', ['whole', 'fc', 'long'])

@@ -9,6 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from numpy.testing import assert_allclose
 
 from pb_bss_tpu.models import complex_watson as jcw
@@ -221,6 +223,64 @@ def test_kernel_gate():
     assert mm_stream.fits(6, 3) and mm_stream.fits(16, 19)
     assert mm_stream.fits(6, 3, has_sal=True)
     assert not mm_stream.fits(17, 3)
+
+
+@pytest.mark.parametrize('family', ['watson', 'bingham'])
+@pytest.mark.parametrize('D', mm_stream.DIMS)
+def test_kernel_instantiations_cover_the_gate(D, family):
+    """The kernel is instantiated for every D the gate admits, and its own
+    shared memory stays within the card's limit for every K the gate
+    admits at that D, in each family."""
+    from pb_bss_tpu_torch.ops._build import SMEM_LIMIT
+    assert not mm_stream.fits(D, 1 + max(
+        k for k in range(1, 200) if mm_stream.fits(D, k, family=family)),
+        family=family)
+    for k in range(1, 200):
+        if mm_stream.fits(D, k, family=family):
+            assert mm_stream.kernel_smem_bytes(D, k, family) <= SMEM_LIMIT
+    assert mm_stream.kernel_smem_bytes(D, 3, 'bingham') \
+        == mm_stream.kernel_smem_bytes(D, 3) + 4 * 2 * 3 * (D * D - D)
+
+
+@settings(max_examples=80, deadline=None)
+@given(N=st.integers(1, 300), T=st.integers(1, 4500),
+       capacity=st.integers(1, 1200))
+def test_stream_plan_covers_every_frame_once(N, T, capacity):
+    """K7's plan (ops/_plan.py, shared with K4): every (bin, frame) falls
+    to exactly one CTA; the spans are equal and make whole waves; the
+    walk runs CTA by CTA, frames ascending; a bin's pieces take the slots
+    0, 1, ... below ``slots`` in the order of their frames, each slot
+    written by the CTA that the kernel computes for it."""
+    from pb_bss_tpu_torch.ops import _plan
+    ctas, span, slots = _plan.partition(N, T, capacity, mm_stream.TILE)
+    assert span >= mm_stream.TILE
+    assert ctas <= _plan.WAVES * capacity or span == mm_stream.TILE
+    assert (ctas - 1) * span < N * T <= ctas * span
+    segments = _plan.segments(N, T, span)
+    assert [s[0] for s in segments] == sorted(s[0] for s in segments)
+    pieces = {}
+    for g, n, t0, t1, slot in segments:
+        assert 0 <= t0 < t1 <= T and 0 <= slot < slots
+        assert g * span <= n * T + t0 and n * T + t1 <= (g + 1) * span
+        assert g == n * T // span + slot
+        pieces.setdefault(n, []).append((t0, t1, slot))
+    assert sorted(pieces) == list(range(N))
+    for n, parts in pieces.items():
+        assert [p[2] for p in parts] == list(range(len(parts)))
+        assert parts[0][0] == 0 and parts[-1][1] == T
+        assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))
+
+
+def test_stream_plan_at_the_timing_cell():
+    """One recording of 513 bins and 4000 frames on a card holding 528
+    CTAs: four whole waves, every CTA but the last over the same span, and
+    the plan cached per shape."""
+    from pb_bss_tpu_torch.ops import _plan
+    ctas, span, slots = _plan.partition(513, 4000, 528, mm_stream.TILE)
+    assert ctas == _plan.WAVES * 528
+    assert span == -(-513 * 4000 // ctas) and slots == 6
+    assert _plan.partition(513, 4000, 528, mm_stream.TILE) \
+        is _plan.partition(513, 4000, 528, mm_stream.TILE)
 
 
 @pytest.mark.slow
