@@ -49,15 +49,18 @@ limit, and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without a CUDA device, outside a checkout of the repository,
 or when any phase fails. Imports nothing of JAX.
 
-    python3 chip_smoke.py --only floor,cacgmm,cbmm,splits,e2e [--package DIR]
+    python3 chip_smoke.py --only floor,cacgmm,cbmm,cwmm,integration,splits,e2e \
+        [--package DIR]
 
 runs only the named phases after the build (the floor checks, the cACGMM
-kernels' checks, the whole-fit Bingham kernel's checks, the split of the
-time of the whole-fit and streamed cACGMM EM kernels, the whole-fit
-Bingham EM, the frequency-constant EM, the streamed Watson and Bingham
-statistics and the Bingham chord solve, the cACGMM separate_batch end
-to end), with ``pb_bss_tpu_torch`` imported from DIR if given (another
-checkout, to time two versions in one call); it prints no kernels line.
+kernels' checks, the whole-fit Bingham, Watson and integration kernels'
+checks, the split of the time of the whole-fit and streamed cACGMM EM
+kernels, the whole-fit Bingham EM, the frequency-constant EM, the
+streamed Watson and Bingham statistics, the Bingham chord solve, the
+whole-fit Watson EM and the whole-fit integration EM, the cACGMM
+separate_batch end to end), with ``pb_bss_tpu_torch`` imported from DIR
+if given (another checkout, to time two versions in one call); it prints
+no kernels line.
 """
 from __future__ import annotations
 
@@ -855,32 +858,69 @@ def watson_errors(out, ref):
 
 
 def check_cwmm(B, F, D, K, T, seed, saliency=False, silence=False,
-               iterations=20):
-    """K6 against its plain twin: one (cold) iteration tightly, then
-    ``iterations`` (the kernel's Jacobi warm-started) by the argmax of
-    the posteriors. Returns the one-iteration max abs affiliation
-    error."""
+               iterations=20, control=False):
+    """K6 against its plain twin, as K9 and K12 are held.
+
+    1. One (cold) iteration tightly.
+    2. The warm iterations, one at a time: the kernel's fit of n
+       iterations (its posterior and its eigenvectors in its own column
+       order) is the state its iteration n + 1 starts from; the twin's
+       warm step from that state (:func:`cwmm_em_step_reference`) is held
+       against the kernel's fit of n + 1 iterations at n = 1 and n =
+       iterations - 1, at the one-iteration tolerances. With ``control``,
+       the step with no sweep after the rotation (frozen eigenvectors)
+       must exceed them at n = 1.
+    3. ``iterations`` by the argmax of the posteriors against the twin's
+       cold fit.
+
+    Returns the one-iteration max abs affiliation error."""
     import torch
     from pb_bss_tpu_torch.ops.cwmm_loop import (
-        cwmm_em_full, cwmm_em_full_reference)
+        cwmm_em_full, cwmm_em_full_reference, cwmm_em_step_reference)
     y, aff, sal = watson_inputs(B, F, D, K, T, seed, saliency, silence)
     label = (f'B={B} F={F} D={D} K={K} T={T}'
              f'{" +saliency" if saliency else ""}'
              f'{" +class silenced in 16 bins" if silence else ""}')
-    out_k = cwmm_em_full(y, aff, iterations=1, warm_sweeps=2, saliency=sal)
+
+    def agrees(errors):
+        # the same statistics in two summation orders and two f32 Jacobi
+        # runs; kappa through the table's slope
+        err_w, align, rel_k, err_a = errors
+        return (err_w < 1e-5 and align > 1 - 1e-3 and rel_k < 1e-3
+                and err_a < 2e-3)
+
+    def errors(out, ref):
+        return (*watson_errors(out, ref),
+                (out[3] - ref[3]).abs().max().item())
+
+    def fmt(e):
+        return (f'aff {e[3]:.2e} weight {e[0]:.2e} min|m_k^H m_p| '
+                f'{e[1]:.6f} kappa rel {e[2]:.2e}')
+
+    fits = {n: cwmm_em_full(y, aff, iterations=n, warm_sweeps=2,
+                            saliency=sal, return_eigenvectors=True)
+            for n in (1, 2, iterations - 1, iterations)}
     out_p = cwmm_em_full_reference(y, aff, iterations=1, saliency=sal)
     sync()
-    err_w, align, rel_k = watson_errors(out_k, out_p)
-    err_a = (out_k[3] - out_p[3]).abs().max().item()
-    log(f'K6 1 iter  {label}: aff {err_a:.2e} weight {err_w:.2e} '
-        f'min|m_k^H m_p| {align:.6f} kappa rel {rel_k:.2e}')
-    # one cold iteration: the same statistics in two summation orders and
-    # two f32 Jacobi runs; kappa through the table's slope
-    if not (err_w < 1e-5 and align > 1 - 1e-3 and rel_k < 1e-3
-            and err_a < 2e-3):
+    one = errors(fits[1], out_p)
+    log(f'K6 1 iter  {label}: {fmt(one)}')
+    if not agrees(one):
         fail(f'K6 one-iteration mismatch at {label}')
-    out_k = cwmm_em_full(y, aff, iterations=iterations, warm_sweeps=2,
-                         saliency=sal)
+    for n in (1, iterations - 1):
+        start = fits[n]
+        got = errors(fits[n + 1], cwmm_em_step_reference(
+            y, start[3], start[4], warm_sweeps=2, saliency=sal))
+        frozen = errors(fits[n + 1], cwmm_em_step_reference(
+            y, start[3], start[4], warm_sweeps=0, saliency=sal))
+        sync()
+        log(f'K6 warm step {n} -> {n + 1} {label}: {fmt(got)}; control (no '
+            f'sweep) {fmt(frozen)}')
+        if not agrees(got):
+            fail(f'K6 warm step {n} -> {n + 1} mismatch at {label}')
+        if control and n == 1 and agrees(frozen):
+            fail(f'K6 warm step {n} -> {n + 1} at {label}: the control '
+                 'agrees, which would not catch a wrong warm M-step')
+    out_k = fits[iterations]
     out_p = cwmm_em_full_reference(y, aff, iterations=iterations,
                                    saliency=sal)
     sync()
@@ -893,7 +933,7 @@ def check_cwmm(B, F, D, K, T, seed, saliency=False, silence=False,
         f'{f"; silenced weight {silenced:.1e}" if silence else ""}')
     if not (finite and wsum < 1e-4 and agree > 0.9 and silenced == 0.):
         fail(f'K6 {iterations}-iteration check failed at {label}')
-    return err_a
+    return one[3]
 
 
 def watson_states(F, T, seed, count, D=6, K=3):
@@ -1731,14 +1771,7 @@ def phase_kernels_cacgmm():
 def phase_kernels_mixtures():
     """The other mixtures' kernels against their twins: K6, K7, K8, K9,
     K10, K12."""
-    results = {}
-    # K6: the bench and CWMM config-2 shape, the slice shape, saliency with
-    # a class silenced in 16 bins, odd shapes
-    results['cwmm_bench'] = check_cwmm(8, 513, 6, 3, 300, seed=50)
-    results['cwmm_slice'] = check_cwmm(8, 257, 6, 3, 304, seed=51)
-    check_cwmm(2, 129, 6, 3, 304, seed=52, saliency=True, silence=True)
-    check_cwmm(1, 65, 3, 2, 777, seed=53)
-    check_cwmm(1, 65, 8, 4, 150, seed=54)
+    results = phase_kernels_cwmm()
     # K7: the long-T config (one recording, F=513, T=4000), fc weights at
     # the bench shape, saliency at an odd T; the whole streamed fit
     results['watson_stream'] = check_watson_stream(1, 513, 6, 3, 4000,
@@ -1781,8 +1814,30 @@ def phase_kernels_mixtures():
                             floor=True)
     check_integration_stats(130, 8, 4, 301, 7, 2, 'gaussian', seed=103,
                             saliency=True, floor=True)
-    # K12: the trainer's 19 in-kernel iterations at config 3 on random and
-    # on separable data, both modes, two utterances folded, D=8, K=4
+    results.update(phase_kernels_integration_loop())
+    return results
+
+
+def phase_kernels_cwmm():
+    """K6 against its twin: the bench and CWMM config-2 shape, the slice
+    shape (with the frozen-eigenvector control of the warm steps),
+    saliency with a class silenced in 16 bins, odd shapes."""
+    results = {}
+    results['cwmm_bench'] = check_cwmm(8, 513, 6, 3, 300, seed=50)
+    results['cwmm_slice'] = check_cwmm(8, 257, 6, 3, 304, seed=51,
+                                       control=True)
+    check_cwmm(2, 129, 6, 3, 304, seed=52, saliency=True, silence=True)
+    check_cwmm(1, 65, 3, 2, 777, seed=53)
+    check_cwmm(1, 65, 8, 4, 150, seed=54)
+    return results
+
+
+def phase_kernels_integration_loop():
+    """K12 against its twin: the trainer's 19 in-kernel iterations at
+    config 3 on random and on separable data, both modes, two utterances
+    folded, D=8, K=4, and config 3 at B=8 (CTAs striding over the
+    bins)."""
+    results = {}
     results['integration_loop'] = check_integration_loop(
         513, 6, 3, 300, 20, 1, 'vmf', seed=97, iterations=19)
     check_integration_loop(513, 6, 3, 300, 20, 1, 'gaussian', seed=98,
@@ -1793,6 +1848,8 @@ def phase_kernels_mixtures():
                            iterations=19, separable=True)
     check_integration_loop(130, 8, 4, 150, 7, 2, 'vmf', seed=101,
                            iterations=10, separable=True)
+    check_integration_loop(8 * 513, 6, 3, 300, 20, 8, 'vmf', seed=104,
+                           iterations=19)
     return results
 
 
@@ -2848,6 +2905,7 @@ def time_em_splits():
             f'{resident_ctas("em_stream", 6, 3)}')
     out.update(time_cbmm_fc_splits())
     out.update(time_stream_chord_splits())
+    out.update(time_watson_integration_splits())
     log('timing splits (ms per call): '
         + '; '.join(f'{case} {ms:.4f}' for case, ms in out.items()))
     return out
@@ -2948,6 +3006,103 @@ def time_stream_chord_splits():
             out[f'K8 P={B} steps={steps}'] = cuda_time(
                 lambda s, x: bingham.bingham_chord_solve(
                     s, x, iterations=steps, **bounds), solves)
+    return out
+
+
+def separate_device_ms(obs, model):
+    """(device ms of all kernels, host ms) of one separate_batch(obs,
+    model=...) call, after a warm-up call of the same shape: the
+    profiler for the device, the host clock around the synchronized
+    call."""
+    import torch
+    import pb_bss_tpu_torch as P
+    P.separate_batch(obs, iterations=20, beamformer='gev+ban', model=model)
+    sync()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        P.separate_batch(obs, iterations=20, beamformer='gev+ban',
+                         model=model)
+        sync()
+        wall = 1e3 * (time.perf_counter() - t0)
+    return device_times(prof, '')['all kernels'][0] / 1e3, wall
+
+
+def time_watson_integration_splits():
+    """The split of K6's and K12's time, with their own arguments only.
+    K6 (B=8, F=257, D=6, K=3) at 20 iterations against 1, warm_sweeps 2
+    against 0 (the warm sweeps), T=304 against 32 (the frames against the
+    fixed work), at the bench.py shape (F=513, T=300) and at the 4 x 60 s
+    shape (B=4, F=257, T=3753); the device time of separate_batch(model=
+    'cwmm') on 8 x 4.8 s and 4 x 60 s. K12 (vMF, F=513, D=6, K=3) at
+    config 3 (B=1, T=300, E=20): 19 iterations against 1, T=300 against
+    32, E=20 against 1, a grid of 132 CTAs against the wrapper's, and
+    at B=8; the host clock of VMFCACGMMTrainer.fit(use_fused_em='loop')
+    at config 3. Returns {case: ms}."""
+    import statistics
+    import torch
+    from pb_bss_tpu_torch.models import VMFCACGMMTrainer
+    from pb_bss_tpu_torch.ops import integration_em_loop as il
+    from pb_bss_tpu_torch.ops.cwmm_loop import cwmm_em_full
+    out = {}
+    for B, F, T in ((8, 257, 304), (8, 257, 32), (8, 513, 300),
+                    (4, 257, 3753)):
+        count = 3 if T > 1000 else 6
+        ins = [watson_inputs(B, F, 6, 3, T, 3800 + i)[:2]
+               for i in range(count)]
+        for iterations, warm in ((20, 2), (1, 2), (20, 0)):
+            if (B, F, T) != (8, 257, 304) and (iterations, warm) != (20, 2):
+                continue
+            out[f'K6 B={B} F={F} T={T} it={iterations} warm={warm}'] = \
+                cuda_time(lambda y, a: cwmm_em_full(
+                    y, a, iterations=iterations, warm_sweeps=warm), ins)
+        del ins
+    short = load_utterances(range(8, 16))[0].cuda()
+    out['separate_batch cwmm 8 x 4.8 s device'], \
+        out['separate_batch cwmm 8 x 4.8 s host'] = \
+        separate_device_ms(short, 'cwmm')
+    long = long_recordings(2000, 4)[0].cuda()
+    out['separate_batch cwmm 4 x 60 s device'], \
+        out['separate_batch cwmm 4 x 60 s host'] = \
+        separate_device_ms(long, 'cwmm')
+    del short, long
+
+    D, K, F = 6, 3, 513
+
+    def whole_fit(iterations, grid=None):
+        return lambda y, emb, ev, vec, w, spec, sal: il.integration_em_full(
+            y, emb, vec, ev, w, *spec, iterations=iterations,
+            bins_per_utt=F, grid=grid)
+
+    for B, T, E in ((1, 300, 20), (1, 32, 20), (1, 300, 1), (8, 300, 20)):
+        ins = [integration_inputs(B * F, D, K, T, E, B, 'vmf', 3900 + i)
+               for i in range(4)]
+        cases = [(19, None)]
+        if (B, T, E) == (1, 300, 20):
+            cases += [(1, None), (19, 132), (19, 264)]
+        for iterations, grid in cases:
+            ms = cuda_time(whole_fit(iterations, grid), ins)
+            out[f'K12 vmf B={B} T={T} E={E} it={iterations} grid='
+                f'{il.integration_em_full.last_grid}'] = ms
+        del ins
+    fits = []
+    for i in range(4):
+        y, _, _ = em_inputs(1, F, D, K, 300, 3950 + i)
+        g = torch.Generator('cuda').manual_seed(3950 + i)
+        emb = torch.randn((F, 300, 20), generator=g, device='cuda')
+        fits.append((y[0].transpose(-1, -2),
+                     emb / emb.norm(dim=-1, keepdim=True)))
+    times = []
+    for obs, emb in fits:
+        sync()
+        t0 = time.perf_counter()
+        VMFCACGMMTrainer().fit(obs, emb, num_classes=K, iterations=20,
+                               use_fused_em='loop')
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    out["VMFCACGMMTrainer.fit 'loop' F=513 T=300 host (median of 3)"] = \
+        statistics.median(times[1:])
     return out
 
 
@@ -3111,11 +3266,12 @@ def time_fc_stages():
 
 
 def time_cwmm():
-    """K6 per 20-iteration fit at the slice shape (B=8, F=257, T=304) and
-    at the bench shape (B=8, F=513, T=300), K7 per statistics pass at the
-    long-T config (F=513, T=4000, step mode), and K2 with saliency and a
-    source-activity mask at the slice shape, each against its twin.
-    Returns {kernel: (ms, plain_ms, bound)}."""
+    """K6 per 20-iteration fit at the slice shape (B=8, F=257, T=304), at
+    the bench shape (B=8, F=513, T=300) and at four 60 s recordings (B=4,
+    F=257, T=3753), K7 per statistics pass at the long-T config (F=513,
+    T=4000, step mode), and K2 with saliency and a source-activity mask
+    at the slice shape, each against its twin. Returns {kernel: (ms,
+    plain_ms, bound)}."""
     from pb_bss_tpu_torch.ops.cwmm_loop import (
         cwmm_em_full, cwmm_em_full_reference)
     from pb_bss_tpu_torch.ops.em_loop import (
@@ -3124,8 +3280,9 @@ def time_cwmm():
     D, K = 6, 3
     out = {}
 
-    def fits(B, F, T, seed):
-        ins = [watson_inputs(B, F, D, K, T, seed + i)[:2] for i in range(6)]
+    def fits(B, F, T, seed, count=6):
+        ins = [watson_inputs(B, F, D, K, T, seed + i)[:2]
+               for i in range(count)]
         ms = cuda_time(lambda y, a: cwmm_em_full(
             y, a, iterations=20, warm_sweeps=2), ins)
         # the twin's 20-iteration fit takes seconds here: two timed
@@ -3143,6 +3300,9 @@ def time_cwmm():
         + 19 * (jacobi_flops(N * K, D, 2) + N * K * 16 * D ** 3)
     out['cwmm_em_full'] = (ms, plain, bound(k6_bytes, k6_flops))
     fits(8, 513, 300, 1200)
+    # K6 at four 60 s recordings (T=3753); phase_timing profiles it inside
+    # separate_batch(model='cwmm') of the same shape
+    fits(4, 257, 3753, 1250, count=3)
 
     # K2 with saliency and a mask at the slice shape, 20 iterations
     ins = [fold_inputs(8, 257, D, K, 304, 1300 + i, saliency=True,
@@ -3290,7 +3450,8 @@ def time_cbmm():
 def time_integration():
     """K10 per vMF pass at bench config 3 (F=513, T=300, D=6, K=3, E=20,
     random unit embeddings) and at B=8, K12 per 19-iteration vMF fit (the
-    trainer's in-kernel iterations) at config 3, each against its twin;
+    trainer's in-kernel iterations) at config 3, each against its twin,
+    and K12 at B=8;
     and VMFCACGMMTrainer().fit at config 3 (20 iterations) through 'auto'
     (K10 + K1) and 'loop' (K12), in turns, host clock around synchronized
     fits, distinct inputs per repetition: the K12 : K10 ratio of a whole
@@ -3342,6 +3503,11 @@ def time_integration():
                           + F * K * 16 * D ** 3) \
                 + jacobi_flops(F * K, D, 6) + 18 * jacobi_flops(F * K, D, 2)
             out['integration_em_full'] = (ms12, plain12, bound(moved, flops))
+        else:
+            ms12 = cuda_time(whole_fit(il.integration_em_full), ins[:4])
+            log(f'timing K12 vmf B={B} F={F} D={D} K={K} T={T} E={E}, 19 it: '
+                f'kernel {ms12:.3f} ms (grid '
+                f'{il.integration_em_full.last_grid})')
 
     fits = []
     for i in range(4):
@@ -3429,7 +3595,8 @@ def main():
     parser.add_argument(
         '--only', default=None,
         help='comma-separated phases to run after the build instead of '
-             'the whole smoke test (floor, splits, cacgmm, cbmm, e2e); '
+             'the whole smoke test (floor, splits, cacgmm, cbmm, cwmm, '
+             'integration, e2e); '
              'prints no kernels line')
     parser.add_argument(
         '--package', default=None,
@@ -3453,6 +3620,8 @@ def main():
     if args.only is not None:
         phases = {'floor': phase_floor, 'splits': time_em_splits,
                   'cacgmm': phase_kernels_cacgmm, 'cbmm': phase_kernels_cbmm,
+                  'cwmm': phase_kernels_cwmm,
+                  'integration': phase_kernels_integration_loop,
                   'e2e': time_e2e}
         try:
             card = timed(phase_device)

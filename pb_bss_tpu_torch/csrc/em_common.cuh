@@ -1,8 +1,9 @@
 // The cACGMM E-step and M-step scatter pieces shared by the EM kernels:
 // the whole-fit EM (em_loop.cu), the streamed statistics (em_stream.cu),
 // the frequency-constant-weight step (em_step.cu), the opt-in E-step
-// kernels (em_estep.cu) and, for the statistics and the mixture weight,
-// the whole-fit Watson and Bingham EMs (cwmm_loop.cu, cbmm_loop.cu).
+// kernels (em_estep.cu), for the statistics and the mixture weight the
+// whole-fit Bingham EM (cbmm_loop.cu) and for the mixture weight the
+// whole-fit Watson EM (cwmm_loop.cu).
 //
 // Replaces what the JAX package's Pallas kernels write out again in each
 // kernel (pb_bss_tpu/ops/pallas_em_loop.py, pallas_em_stream.py,
@@ -233,18 +234,4 @@ __device__ __forceinline__ float mixture_weight(const float* asum, int k,
   for (int j = 0; j < K; ++j) norm += asum[j];
   if (norm == 0.f) norm = 1e-10f;
   return asum[k] / norm;
-}
-
-// Eigenvalue max-normalization and floor of one class after its Jacobi
-// (the eigenvalues on the diagonal of A), by one warp:
-// eig[i] = max(A_ii / max(max_j A_jj, tiny), floor).
-__device__ __forceinline__ void warp_floor_eigenvalues(const float2* A,
-                                                       float* eig, int D,
-                                                       float floor) {
-  const int lane = threadIdx.x & 31;
-  float lmax = A[0].x;
-  for (int i = 1; i < D; ++i) lmax = fmaxf(lmax, A[i * D + i].x);
-  lmax = fmaxf(lmax, FLT_MIN);
-  if (lane < D) eig[lane] = fmaxf(A[lane * D + lane].x / lmax, floor);
-  __syncwarp();
 }

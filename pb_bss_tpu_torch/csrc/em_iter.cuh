@@ -1,6 +1,9 @@
 // The cACGMM EM iteration body shared by the whole-fit EM (em_loop.cu)
-// and the frequency-constant-weight EM (em_step.cu). All of it is
-// templated on D, so every loop over the channels unrolls:
+// and the frequency-constant-weight EM (em_step.cu); its scatter sums and
+// column Jacobi also carry the whole-fit Watson EM (cwmm_loop.cu), its
+// covariance and column Jacobi the whole-fit integration EM
+// (integration_em_loop.cu). All of it is templated on D, so every loop
+// over the channels unrolls:
 //
 //   scatter_sums     the M-step sums of one bin held in shared memory:
 //                    lanes over the upper-triangle entries of y y^H (and
@@ -19,9 +22,11 @@
 //                    classes to a warp; in the parallel (round-robin)
 //                    order a sweep is D - 1 steps of D / 2 disjoint
 //                    rotations, in the cyclic one D (D - 1) / 2 rotations
-//                    in turn; the column exchange is a shuffle. Cold from
-//                    the identity, or warm-started from the previous
-//                    eigenbasis (A = V^H S V by the column lanes).
+//                    in turn, or the same cyclic rotations in 2 D - 3
+//                    steps of disjoint ones (the wavefront); the column
+//                    exchange is a shuffle. Cold from the identity, or
+//                    warm-started from the previous eigenbasis
+//                    (A = V^H S V by the column lanes).
 //   e_step_pass      the E-step, a thread per frame: the frame in
 //                    registers, the quadratic form as the projection on
 //                    the scaled eigenbasis (projection_form), the max-shift
@@ -205,8 +210,85 @@ __device__ __forceinline__ void column_jacobi_cyclic(float2 (&a)[D],
   }
 }
 
+// The cyclic sweeps of column_jacobi_cyclic in 2 D - 3 steps: step t
+// takes the rotations (p, q) with p + q = t, which are disjoint, and every
+// rotation of the cyclic order that shares an index with (p, q) has a
+// smaller p + q if it comes before it and a larger one if after. So each
+// rotation is computed from the entries that the cyclic order computes it
+// from, and the result is the cyclic one but for the order in which two
+// disjoint rotations of a step round their shared entries A[p][r] (f32
+// rounding, where the orders themselves part by what two unconverged sweeps
+// leave off the diagonal). The lanes of a pair compute its rotation, the
+// step's rotations reach every lane by shuffle for the row updates, and the
+// two lanes exchange their columns by shuffle, as in column_jacobi.
+template <int D>
+__device__ __forceinline__ void column_jacobi_wavefront(float2 (&a)[D],
+                                                        float2 (&v)[D],
+                                                        int base, int j,
+                                                        bool own,
+                                                        int sweeps) {
+  for (int sweep = 0; sweep < sweeps; ++sweep) {
+#pragma unroll
+    for (int t = 1; t <= 2 * D - 3; ++t) {
+      // this lane's partner in step t
+      int partner = t - j;
+      if (!own || partner < 0 || partner >= D || partner == j) partner = j;
+      const bool is_p = j < partner;
+      float2 diag = a[0], off = a[0];
+#pragma unroll
+      for (int i = 1; i < D; ++i) {
+        if (i == j) diag = a[i];
+        if (i == partner) off = a[i];
+      }
+      // the partner's diagonal, and A[p][q] from the q lane (its entry in
+      // row p)
+      const float other = __shfl_sync(kFullMask, diag.x, base + partner);
+      const float2 off_q = make_float2(
+          __shfl_sync(kFullMask, off.x, base + partner),
+          __shfl_sync(kFullMask, off.y, base + partner));
+      float c = 1.f;
+      float2 sv = make_float2(0.f, 0.f);
+      if (partner != j)
+        rotation(is_p ? diag.x : other, is_p ? other : diag.x,
+                 is_p ? off_q : off, &c, &sv);
+      // rows p and q of the lane's column, for every pair of the step:
+      // A[p] = c A[p] - s A[q]; A[q] = conj(s) A[p] + c A[q]
+#pragma unroll
+      for (int p = t > D - 1 ? t - (D - 1) : 0; 2 * p < t; ++p) {
+        const int q = t - p;
+        const float cm = __shfl_sync(kFullMask, c, base + q);
+        const float2 sm = make_float2(
+            __shfl_sync(kFullMask, sv.x, base + q),
+            __shfl_sync(kFullMask, sv.y, base + q));
+        const float2 rp = a[p], rq = a[q];
+        a[p] = c_sub(c_scale(cm, rp), c_mul(sm, rq));
+        a[q] = c_add(c_mul(c_conj(sm), rp), c_scale(cm, rq));
+      }
+      // columns: A[:,p] = c A[:,p] - conj(s) A[:,q];
+      // A[:,q] = s A[:,p] + c A[:,q] (V the same), the partner's column
+      // by shuffle
+      const float2 coef = is_p ? make_float2(-sv.x, sv.y) : sv;
+      const int src = base + partner;
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        const float2 xa = make_float2(__shfl_sync(kFullMask, a[i].x, src),
+                                      __shfl_sync(kFullMask, a[i].y, src));
+        const float2 xv = make_float2(__shfl_sync(kFullMask, v[i].x, src),
+                                      __shfl_sync(kFullMask, v[i].y, src));
+        a[i] = c_add(c_scale(c, a[i]), c_mul(coef, xa));
+        v[i] = c_add(c_scale(c, v[i]), c_mul(coef, xv));
+      }
+    }
+  }
+}
+
+// The orders of column_eigh's sweeps: the parallel (round-robin) steps of
+// column_jacobi, the cyclic rotations one at a time (column_jacobi_cyclic)
+// or in disjoint steps (column_jacobi_wavefront).
+enum class JacobiOrder { kParallel, kCyclic, kWavefront };
+
 // The eigendecompositions of the K Hermitian matrices S (K x D x D) by
-// column_jacobi (or, kCyclic, column_jacobi_cyclic), floor(32 / D)
+// column Jacobi sweeps in the order kOrder, floor(32 / D)
 // classes to a warp, the block's warps over
 // the classes: cold from the identity, or (`warm`) from the eigenbasis in
 // V, whose rotations it then carries. `sweeps` sweeps. Then every lane of
@@ -215,7 +297,8 @@ __device__ __forceinline__ void column_jacobi_cyclic(float2 (&a)[D],
 // zeros for lanes without a column, own false; every lane of the warp
 // calls it, so the epilogue may shuffle within the lanes base .. base +
 // D - 1). The caller synchronizes the block afterwards.
-template <int D, bool kCyclic = false, class Epilogue>
+template <int D, JacobiOrder kOrder = JacobiOrder::kParallel,
+          class Epilogue>
 __device__ __forceinline__ void column_eigh(const float2* S, const float2* V,
                                             int K, bool warm, int sweeps,
                                             Epilogue epilogue) {
@@ -269,8 +352,10 @@ __device__ __forceinline__ void column_eigh(const float2* S, const float2* V,
         v[i] = make_float2(i == jc ? 1.f : 0.f, 0.f);
       }
     }
-    if constexpr (kCyclic)
+    if constexpr (kOrder == JacobiOrder::kCyclic)
       column_jacobi_cyclic<D>(a, v, jbase, jc, sweeps);
+    else if constexpr (kOrder == JacobiOrder::kWavefront)
+      column_jacobi_wavefront<D>(a, v, jbase, jc, jown, sweeps);
     else
       column_jacobi<D>(a, v, jbase, jc, jown, sweeps);
     float lam = 0.f;

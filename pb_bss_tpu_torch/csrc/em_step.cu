@@ -129,7 +129,7 @@ __device__ __forceinline__ void fc_m_step(const FcSmem& m, size_t n, int K,
   for (int k = threadIdx.x; k < K; k += blockDim.x)
     asum_out[n * K + k] = m.asum[k];
   __syncthreads();
-  column_eigh<D, true>(
+  column_eigh<D, JacobiOrder::kCyclic>(
       m.S, m.V, K, warm, sweeps,
       [&](int k, int jc, float lam, const float2 (&v)[D], int jbase,
           bool jown) {

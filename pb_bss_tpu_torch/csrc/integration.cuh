@@ -1,6 +1,7 @@
-// The integration-model E-step and M-step statistics shared by the
-// per-iteration kernel (integration_em.cu, K10) and the whole-fit kernel
-// (integration_em_loop.cu, K12).
+// The integration-model E-step, shared by the per-iteration kernel
+// (integration_em.cu, K10) and the whole-fit kernel
+// (integration_em_loop.cu, K12), and K10's M-step statistics (K12 sums in
+// registers on the cACGMM iteration body).
 //
 // Replaces what the JAX package's two Pallas kernels write out each in
 // its own body (pb_bss_tpu/ops/pallas_integration_em.py:_e_stats_kernel
@@ -80,21 +81,38 @@ struct Tile {
   float* wq;
 };
 
-// The E-step of one frame (see the top of the file). `y(d)` and `emb(e)`
-// give the frame's entries; V (K, D, D) holds each class's eigenvectors in
-// columns and inv_lam (K, D) the reciprocal eigenvalues. Writes the
-// posterior (saliency applied) to aff[k * ld] and a / max(q, 10 tiny) to
-// wq[k * ld]; aff doubles as the scratch of the log-pdfs.
-template <int MODE, class Y, class Emb>
+// The spatial quadratic form of frame y(d) under one class,
+// q = sum_i |v_i^H y|^2 / lam_i, from its eigenvectors V (D x D, in
+// columns) and reciprocal eigenvalues inv_lam (D).
+template <class Y>
+__device__ __forceinline__ float projection_quad(Y y, const float2* V,
+                                                 const float* inv_lam,
+                                                 int D) {
+  float q = 0.f;
+  for (int i = 0; i < D; ++i) {
+    // z_i = v_i^H y
+    float2 z = make_float2(0.f, 0.f);
+    for (int d = 0; d < D; ++d) z = c_add(z, c_conj_mul(V[d * D + i], y(d)));
+    q += inv_lam[i] * (z.x * z.x + z.y * z.y);
+  }
+  return q;
+}
+
+// The E-step of one frame (see the top of the file). quad(k) gives the
+// frame's spatial quadratic form under class k (projection_quad, or the
+// caller's unrolled form of it) and emb(e) its embedding's entries;
+// `gaussian` picks the spectral model. Writes the posterior (saliency
+// applied) to aff[k * ld] and a / max(q, 10 tiny) to wq[k * ld]; aff
+// doubles as the scratch of the log-pdfs.
+template <class Quad, class Emb>
 __device__ __forceinline__ void e_step_frame(
-    Y y, Emb emb, const float2* V, const float* inv_lam, const float* logdet,
-    const float* wgt, const Spectral& sp, float spatial_weight,
+    Quad quad, Emb emb, const float* logdet, const float* wgt,
+    const Spectral& sp, bool gaussian, float spatial_weight,
     float spectral_weight, float eps, float sal, float* aff, float* wq,
     int ld, int D, int K, int E) {
-  const int DD = D * D;
   const float tiny = FLT_MIN;
   float inv_norm = 0.f;
-  if (MODE == kVmf) {
+  if (!gaussian) {
     float en = 0.f;
     for (int e = 0; e < E; ++e) {
       const float v = emb(e);
@@ -104,18 +122,9 @@ __device__ __forceinline__ void e_step_frame(
   }
   float mx = -INFINITY;
   for (int k = 0; k < K; ++k) {
-    const float2* Vk = V + k * DD;
-    float q = 0.f;
-    for (int i = 0; i < D; ++i) {
-      // z_i = v_i^H y
-      float2 z = make_float2(0.f, 0.f);
-      for (int d = 0; d < D; ++d)
-        z = c_add(z, c_conj_mul(Vk[d * D + i], y(d)));
-      q += inv_lam[k * D + i] * (z.x * z.x + z.y * z.y);
-    }
-    q = fmaxf(q, tiny);
+    const float q = fmaxf(quad(k), tiny);
     float spec;
-    if (MODE == kVmf) {
+    if (!gaussian) {
       float dot = 0.f;
       for (int e = 0; e < E; ++e) dot += sp.vec[k * E + e] * emb(e);
       spec = sp.scale[k] * dot * inv_norm - sp.cnst[k];
@@ -218,13 +227,17 @@ __device__ void accumulate_frames(
     }
     __syncthreads();
 
-    for (int t = tid; t < nt; t += blockDim.x)
-      e_step_frame<MODE>(
-          [&](int d) { return tile.y[d * kTile + t]; },
-          [&](int e) { return tile.emb[e * kTile + t]; }, V, inv_lam,
-          logdet, wgt, sp, spatial_weight, spectral_weight, eps,
+    for (int t = tid; t < nt; t += blockDim.x) {
+      const auto yt = [&](int d) { return tile.y[d * kTile + t]; };
+      e_step_frame(
+          [&](int k) {
+            return projection_quad(yt, V + k * D * D, inv_lam + k * D, D);
+          },
+          [&](int e) { return tile.emb[e * kTile + t]; }, logdet, wgt, sp,
+          MODE == kGaussian, spatial_weight, spectral_weight, eps,
           sal != nullptr ? sal[n * T + t0 + t] : 1.f, tile.aff + t,
           tile.wq + t, kTile, D, K, E);
+    }
     __syncthreads();
 
     for (int item = warp; item < K * items; item += nwarps) {

@@ -1,7 +1,7 @@
 // The complex Watson pieces shared by the whole-fit Watson EM
 // (cwmm_loop.cu) and the streamed Watson statistics (mm_stream.cu): the
-// E-step of one frame, the dominant eigenpair of a Jacobi result, the
-// uniform-table concentration inverse and the switched log-norm.
+// E-step of one frame, the uniform-table concentration inverse and the
+// switched log-norm.
 //
 // Replaces what the JAX package's Pallas kernels write out in each
 // kernel (pb_bss_tpu/ops/pallas_cwmm_loop.py: _cwmm_kernel and
@@ -44,16 +44,6 @@ __device__ __forceinline__ void watson_e_step_frame(
   }
   den = fmaxf(den, FLT_MIN);
   for (int k = 0; k < K; ++k) aff[k * ld] /= den;
-}
-
-// Index of the largest diagonal entry of the D x D matrix A (the
-// eigenvalues after a Jacobi); ties go to the highest index, as the JAX
-// kernel's comparison counting and a stable ascending sort both give.
-__device__ __forceinline__ int dominant_index(const float2* A, int D) {
-  int best = 0;
-  for (int i = 1; i < D; ++i)
-    if (A[i * D + i].x >= A[best * D + best].x) best = i;
-  return best;
 }
 
 // Concentration of the dominant eigenvalue `lam` from the uniform table

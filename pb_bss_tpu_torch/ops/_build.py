@@ -70,7 +70,7 @@ KERNELS = {
     },
     'cwmm_loop': {
         'cwmm_em_full_launch': (
-            [_P] * 8 + [_I] * 7 + [_F, _F, _I, _F, _F, _P], _I),
+            [_P] * 9 + [_I] * 8 + [_F, _F, _I, _F, _F, _P], _I),
     },
     'mm_stream': {
         'mm_stream_launch': (
@@ -90,8 +90,9 @@ KERNELS = {
     },
     'integration_em_loop': {
         'integration_em_loop_launch': (
-            [_P] * 11 + [_I] * 10 + [_F] * 6 + [_I, _F, _F, _I, _I, _P, _P],
+            [_P] * 11 + [_I] * 11 + [_F] * 6 + [_I, _F, _F, _I, _I, _P, _P],
             _I),
+        'integration_em_loop_register_ctas': ([_I], _I),
     },
 }
 

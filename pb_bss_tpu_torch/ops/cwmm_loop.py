@@ -1,32 +1,39 @@
 """Whole-fit complex Watson mixture EM in one CUDA launch (kernel
-``csrc/cwmm_loop.cu``).
+``csrc/cwmm_loop.cu``, K6).
 
 Replaces the JAX package's Pallas TPU kernel
 ``pb_bss_tpu/ops/pallas_cwmm_loop.py:cwmm_em_full``. One CTA owns one
 (utterance, frequency bin) and runs every EM iteration with the bin's
-observations resident in shared memory: the affiliation-weighted
-Hermitian scatter, the warm-started complex Jacobi (cold ``sweeps`` in
-iteration 0, then ``warm_sweeps`` from the previous eigenbasis), the
-dominant eigenpair, the concentration from a *uniform* ratio table
-(:func:`concentration_table`, one pair of loads; the scan path and the
-streamed kernel use the log-spaced ``hyp1f1`` table), the switched
-log-norm and the E-step ``kappa |<y, m>|^2 - log Z`` with a max-shift
-softmax. Saliency weights the statistics and L1-normalizes the mixture
+observations resident in shared memory, on the whole-fit cACGMM kernel's
+iteration body (``csrc/em_iter.cuh``, templated on D): the
+affiliation-weighted Hermitian scatter summed in registers, the column
+Jacobi in registers (a bin's K classes on one warp; cold ``sweeps`` in
+iteration 0, then ``warm_sweeps`` from the previous eigenbasis, in the
+plain twin's cyclic order, its disjoint rotations at once), the dominant
+eigenpair, the concentration
+from a *uniform* ratio table (:func:`concentration_table`, one pair of
+loads; the scan path and the streamed kernel use the log-spaced
+``hyp1f1`` table), the switched log-norm and the E-step
+``kappa |<y, m>|^2 - log Z`` with a max-shift softmax, a thread per
+frame. Saliency weights the statistics and L1-normalizes the mixture
 weight. The final E-step is ``CWMM.predict``, so the fit returns its
 posterior with no extra pass.
 
 What bounds it on the H100: the observations are read from device
-memory once per fit, so the kernel is bound by the fp32 FMAs of the
-scatter and the E-step, not by bytes.
+memory once per fit, so the kernel is bound by its instructions (the
+scatter, the E-step and the Jacobi's latency chain), not by bytes.
 
-Gate (:func:`fits`): D <= 16 (a warp owns a D x D Jacobi) and the bin's
+Gate (:func:`fits`): D <= 16 (the template's range) and the bin's
 working set, :func:`smem_bytes`, within the 227 KB of shared memory a
-block may opt into on the H100: T <= 3827 frames at D=6, K=3, 3588 with
-saliency (:func:`max_frames`). It replaces the JAX package's VMEM tile
-budget (``pallas_cwmm_loop.choose_tile_f_cwmm``).
+block may opt into on the H100: T <= 3833 frames at D=6, K=3, 3593 with
+saliency (:func:`max_frames`), so a minute at 8 kHz (T=3753) stays on
+the kernel. It replaces the JAX package's VMEM tile budget
+(``pallas_cwmm_loop.choose_tile_f_cwmm``). The CTA's warps follow the
+bin's shared memory and T (:func:`_threads`, the cACGMM kernel's rule).
 
 On a CPU tensor the wrapper runs the plain PyTorch twin,
-:func:`cwmm_em_full_reference`. On a CUDA tensor it launches the kernel
+:func:`cwmm_em_full_reference` (iterations of
+:func:`cwmm_em_step_reference`). On a CUDA tensor it launches the kernel
 or raises; it never falls back.
 """
 from __future__ import annotations
@@ -39,9 +46,11 @@ import torch
 
 from .._dtypes import tiny as _tiny
 from ._build import SMEM_LIMIT
+from .em_loop import cta_threads
 from .linalg import eigh_jacobi
 
-__all__ = ['cwmm_em_full', 'cwmm_em_full_reference', 'concentration_table',
+__all__ = ['cwmm_em_full', 'cwmm_em_full_reference',
+           'cwmm_em_step_reference', 'concentration_table',
            'table_concentration', 'smem_bytes', 'max_frames', 'fits']
 
 TABLE_SIZE = 512
@@ -89,25 +98,36 @@ def _log_norm_constants(dimension):
 
 def table_concentration(lam, r0, dr, table):
     """The kernel's table lookup: linear interpolation of the uniform
-    ``table`` at ``(lam - r0) / dr``, clamped at both ends."""
+    ``table`` at ``(lam - r0) / dr``, clamped at both ends (at D=1 the
+    table is one value and dr is 0: a 0 / 0 looks up its first entry, as
+    the kernel's fmaxf(NaN, 0) does)."""
     G = table.shape[0]
-    idx = torch.clamp((lam - r0) / dr, 0.0, G - 1.0)
+    idx = torch.clamp(torch.nan_to_num((lam - r0) / dr, nan=0.0), 0.0,
+                      G - 1.0)
     i0 = torch.clamp(idx.floor().long(), max=G - 2)
     f = idx - i0.to(idx.dtype)
     return table[i0] * (1 - f) + table[i0 + 1] * f
 
 
 def smem_bytes(D, K, T, has_sal=False):
-    """Shared memory one bin's CTA needs (csrc/cwmm_loop.cu); saliency
-    adds T floats."""
-    return 8 * (D * T + 3 * K * D * D + K * D) + 4 * (
+    """Shared memory one bin's CTA takes (cwmm_smem_bytes in
+    csrc/cwmm_loop.cu): y with an odd row stride, the scatter and the
+    eigenvectors, the upper-triangle sums, the modes, the posterior times
+    saliency, the saliency (with saliency) and four scalars per class."""
+    Tp = T if D == 1 else T | 1
+    P = D * (D + 1) // 2
+    return 8 * (D * Tp + 2 * K * D * D + K * P + K * D) + 4 * (
         K * T + has_sal * T + 4 * K)
 
 
 def max_frames(D, K, has_sal=False):
     """Longest T the kernel takes at (D, K)."""
-    return (SMEM_LIMIT - 8 * (3 * K * D * D + K * D) - 16 * K) \
-        // (8 * D + 4 * K + 4 * has_sal)
+    P = D * (D + 1) // 2
+    fixed = 8 * (D + 2 * K * D * D + K * P + K * D) + 16 * K
+    T = (SMEM_LIMIT - fixed) // (8 * D + 4 * K + 4 * has_sal)
+    while smem_bytes(D, K, T + 1, has_sal) <= SMEM_LIMIT:
+        T += 1
+    return T
 
 
 def fits(D, K, T, has_sal=False):
@@ -115,15 +135,40 @@ def fits(D, K, T, has_sal=False):
     return D <= 16 and smem_bytes(D, K, T, has_sal) <= SMEM_LIMIT
 
 
-def cwmm_em_full_reference(y, affiliation, *, iterations, sweeps=6,
-                           max_concentration=500.0, saliency=None):
-    """Plain PyTorch twin of the kernel: the scan path's M-step (with the
-    uniform concentration table) and E-step, and one trailing E-step. It
-    runs a cold Jacobi with ``sweeps`` every iteration; the kernel
-    warm-starts later iterations, which converges to the same
-    eigendecomposition.
+def _threads(D, K, T, has_sal=False):
+    """Threads of one bin's CTA (ops/em_loop.cta_threads)."""
+    return cta_threads(smem_bytes(D, K, T, has_sal), D, K, T)
 
-    Args: as :func:`cwmm_em_full`.
+
+def _dominant(values):
+    """Index of the largest of the (..., D) eigenvalues, ties to the
+    highest index (the kernel's column lanes; a stable ascending sort's
+    last)."""
+    D = values.shape[-1]
+    return D - 1 - torch.argmax(values.flip(-1), dim=-1)
+
+
+def cwmm_em_step_reference(y, affiliation, previous=None, *, sweeps=6,
+                           warm_sweeps=2, max_concentration=500.0,
+                           saliency=None):
+    """One EM iteration of the kernel in plain PyTorch: the M-step from
+    ``affiliation`` (times saliency), the Jacobi, the dominant eigenpair,
+    the concentration from the uniform table, the log-norm and the
+    E-step (``CWMM.predict``: no clip, no saliency).
+
+    ``previous`` None is the kernel's first iteration: a cold Jacobi of
+    ``sweeps`` sweeps from the identity. ``previous``, the (..., K, D, D)
+    eigenvectors the kernel keeps between iterations (in its own column
+    order), is a later one: the scatter rotated into that eigenbasis,
+    ``V^H S V`` (Hermitian from its upper triangle), then ``warm_sweeps``
+    cyclic sweeps whose rotations are applied to ``V`` (the kernel's order:
+    two warm sweeps need not converge, and the order decides what they
+    leave off the diagonal). The mode is the column of the largest
+    eigenvalue, ties to the highest index.
+
+    Args: as :func:`cwmm_em_full`. Returns: (weight (..., K), mode
+    (..., K, D), concentration (..., K), affiliation (..., K, T),
+    eigenvectors (..., K, D, D) unsorted, the state of the next step).
     """
     from ..models._precision import full_fp32
     from ..models.complex_watson import ComplexWatson
@@ -132,36 +177,72 @@ def cwmm_em_full_reference(y, affiliation, *, iterations, sweeps=6,
     D, T = y.shape[-2:]
     r0, dr, _ = concentration_table(D, float(max_concentration))
     table = _device_table(D, float(max_concentration), y.device)
-    weight = mode = kappa = None
+    a = affiliation if saliency is None \
+        else affiliation * saliency[..., None, :]
+    asum = a.sum(-1)  # (..., K)
+    if saliency is None:
+        weight = asum / T
+    else:
+        norm = asum.sum(-1, keepdim=True)
+        weight = asum / torch.where(norm == 0,
+                                    torch.full_like(norm, 1e-10), norm)
+    with full_fp32():
+        scatter = (y[..., None, :, :] * a[..., None, :].to(y.dtype)) \
+            @ y[..., None, :, :].conj().transpose(-1, -2)
+    scatter = scatter / torch.clamp(
+        asum, min=_tiny(asum))[..., None, None].to(scatter.dtype)
+    if previous is None:
+        eigenvalues, eigenvectors = eigh_jacobi(scatter, sweeps=sweeps,
+                                                sort=False)
+    else:
+        with full_fp32():
+            rotated = previous.conj().transpose(-1, -2) @ scatter @ previous
+        strict = torch.triu(rotated, 1)
+        rotated = strict + strict.conj().transpose(-1, -2) \
+            + torch.diag_embed(torch.diagonal(
+                rotated, dim1=-2, dim2=-1).real.to(rotated.dtype))
+        eigenvalues, rotation = eigh_jacobi(rotated, sweeps=warm_sweeps,
+                                            sort=False)
+        with full_fp32():
+            eigenvectors = previous @ rotation
+    best = _dominant(eigenvalues)
+    mode = torch.gather(eigenvectors, -1, best[..., None, None].expand(
+        *best.shape, D, 1))[..., 0]
+    kappa = table_concentration(
+        torch.gather(eigenvalues, -1, best[..., None])[..., 0], r0, dr,
+        table)
+    log_norm = ComplexWatson.log_norm_tran_vu(kappa, D)
+    with full_fp32():
+        z = torch.einsum('...kd,...dt->...kt', mode.conj(), y)
+    log_pdf = kappa[..., None] * (z.real ** 2 + z.imag ** 2) \
+        - log_norm[..., None]
+    posterior = log_pdf_to_affiliation(weight[..., None], log_pdf)
+    return weight, mode, kappa, posterior, eigenvectors
+
+
+def cwmm_em_full_reference(y, affiliation, *, iterations, sweeps=6,
+                           max_concentration=500.0, saliency=None,
+                           return_eigenvectors=False):
+    """Plain PyTorch twin of the kernel: ``iterations`` cold steps of
+    :func:`cwmm_em_step_reference` (``sweeps`` from the identity every
+    iteration, as the JAX kernel runs), each from the previous one's
+    posterior. The kernel warm-starts later iterations, which converges to
+    the same eigendecomposition; :func:`cwmm_em_step_reference` with
+    ``previous`` holds one of its warm steps.
+
+    Args and returns: as :func:`cwmm_em_full`.
+    """
     for _ in range(iterations):
-        a = affiliation if saliency is None \
-            else affiliation * saliency[..., None, :]
-        asum = a.sum(-1)  # (..., K)
-        if saliency is None:
-            weight = asum / T
-        else:
-            norm = asum.sum(-1, keepdim=True)
-            weight = asum / torch.where(norm == 0,
-                                        torch.full_like(norm, 1e-10), norm)
-        with full_fp32():
-            scatter = (y[..., None, :, :] * a[..., None, :].to(y.dtype)) \
-                @ y[..., None, :, :].conj().transpose(-1, -2)
-        scatter = scatter / torch.clamp(
-            asum, min=_tiny(asum))[..., None, None].to(scatter.dtype)
-        eigenvalues, eigenvectors = eigh_jacobi(scatter, sweeps=sweeps)
-        mode = eigenvectors[..., :, -1]
-        kappa = table_concentration(eigenvalues[..., -1], r0, dr, table)
-        log_norm = ComplexWatson.log_norm_tran_vu(kappa, D)
-        with full_fp32():
-            z = torch.einsum('...kd,...dt->...kt', mode.conj(), y)
-        log_pdf = kappa[..., None] * (z.real ** 2 + z.imag ** 2) \
-            - log_norm[..., None]
-        affiliation = log_pdf_to_affiliation(weight[..., None], log_pdf)
-    return weight, mode, kappa, affiliation
+        out = cwmm_em_step_reference(
+            y, affiliation, sweeps=sweeps,
+            max_concentration=max_concentration, saliency=saliency)
+        affiliation = out[3]
+    return out if return_eigenvectors else out[:4]
 
 
 def cwmm_em_full(y, affiliation, *, iterations, sweeps=6, warm_sweeps=None,
-                 max_concentration=500.0, saliency=None):
+                 max_concentration=500.0, saliency=None,
+                 return_eigenvectors=False):
     """Run a full complex Watson mixture EM fit as ONE kernel launch.
 
     ``iterations`` M-steps from the given affiliations with an E-step
@@ -176,16 +257,20 @@ def cwmm_em_full(y, affiliation, *, iterations, sweeps=6, warm_sweeps=None,
             (None: every iteration cold with ``sweeps``).
         saliency: optional (..., F, T) frame weights of the statistics;
             the mixture weight is then L1-normalized over classes.
+        return_eigenvectors: also return the last M-step's eigenvectors
+            (..., F, K, D, D) in the kernel's own column order, the state
+            from which :func:`cwmm_em_step_reference` continues the fit.
     Returns:
         (weight (..., F, K), mode (..., F, K, D) complex64, concentration
-        (..., F, K), affiliation (..., F, K, T)).
+        (..., F, K), affiliation (..., F, K, T)[, eigenvectors]).
     """
     if iterations < 1:
         raise ValueError(f'iterations must be >= 1, got {iterations}')
     if y.device.type == 'cpu':
         return cwmm_em_full_reference(
             y, affiliation, iterations=iterations, sweeps=sweeps,
-            max_concentration=max_concentration, saliency=saliency)
+            max_concentration=max_concentration, saliency=saliency,
+            return_eigenvectors=return_eigenvectors)
     if y.device.type != 'cuda':
         raise ValueError(f'unsupported device {y.device}')
     if y.dtype != torch.complex64 or y.ndim not in (3, 4):
@@ -219,13 +304,16 @@ def cwmm_em_full(y, affiliation, *, iterations, sweeps=6, warm_sweeps=None,
     mode = torch.empty((N, K, D), dtype=torch.complex64, device=y.device)
     kappa = torch.empty((N, K), dtype=torch.float32, device=y.device)
     aff = torch.empty((N, K, T), dtype=torch.float32, device=y.device)
+    vec = torch.empty((N, K, D, D), dtype=torch.complex64, device=y.device) \
+        if return_eigenvectors else None
     if N:
         from ._build import load
         err = load('cwmm_loop').cwmm_em_full_launch(
             y_.data_ptr(), a_.data_ptr(),
             0 if sal_ is None else sal_.data_ptr(), table.data_ptr(),
             weight.data_ptr(), mode.data_ptr(), kappa.data_ptr(),
-            aff.data_ptr(), N, D, K, T, int(iterations), int(sweeps),
+            aff.data_ptr(), 0 if vec is None else vec.data_ptr(), N, D, K,
+            T, _threads(D, K, T, has_sal), int(iterations), int(sweeps),
             -1 if warm_sweeps is None else int(warm_sweeps), r0, dr,
             table.shape[0], log2pi_d, lgamma_d,
             torch.cuda.current_stream(y.device).cuda_stream)
@@ -233,8 +321,10 @@ def cwmm_em_full(y, affiliation, *, iterations, sweeps=6, warm_sweeps=None,
             raise RuntimeError(
                 f'cwmm_em_full kernel launch failed: CUDA error {err}')
         cwmm_em_full.launches += 1
-    return (weight.reshape(*lead, K), mode.reshape(*lead, K, D),
-            kappa.reshape(*lead, K), aff.reshape(*lead, K, T))
+    out = (weight.reshape(*lead, K), mode.reshape(*lead, K, D),
+           kappa.reshape(*lead, K), aff.reshape(*lead, K, T))
+    return out + (vec.reshape(*lead, K, D, D),) if return_eigenvectors \
+        else out
 
 
 cwmm_em_full.launches = 0

@@ -7,29 +7,34 @@ The spectral model of ``VMFCACGMM`` / ``GCACGMM`` is global over the bins
 of an utterance, so each EM iteration ends in a reduction over all of
 them; the kernel is persistent and cooperative, with a grid-wide sync
 between the per-bin step and the per-utterance spectral step. Per
-iteration: each bin's E-step and sums (as K10), its spectral rows, its
-M-step (the weight, the covariance rotated into the previous eigenbasis
-and a warm Jacobi: ``sweeps`` in the first iteration, ``warm_sweeps``
-after it, the eigenvalues max-normalized and floored); a grid sync; the
-rows of each utterance added in a fixed order into its accumulator and,
-before the next iteration, the closed-form spectral M-step (Banerjee's
-vMF with log C interpolated in :func:`vmf_log_norm_table`, or the
-Gaussian moment match); a grid sync. The caller finishes the spectral
+iteration: each bin's E-step and sums (the sums K10 takes), its spectral
+rows, its M-step (the weight, the covariance rotated into the previous
+eigenbasis and a warm Jacobi in the plain twin's cyclic order:
+``sweeps`` in the first iteration, ``warm_sweeps`` after it, the
+eigenvalues max-normalized and floored); a grid sync; the rows of each
+(utterance, class) added in a fixed order into its accumulator and,
+before the next iteration, the class's closed-form spectral M-step
+(Banerjee's vMF with log C interpolated in :func:`vmf_log_norm_table`,
+or the Gaussian moment match); a grid sync. The caller finishes the spectral
 model of the last iteration's accumulators (``models/vmfcacgmm.py``,
 ``models/gcacgmm.py``); the eigenpairs return ascending.
 
-What bounds it on the H100: the E-step re-reads y and the embedding
-every iteration (20 MB at F=513, T=300, D=6, E=20, which L2 holds for one
-utterance), plus the serial per-iteration part: a warp's Jacobi per class
-and two grid-wide syncs.
+What bounds it on the H100: per iteration the E-step and its sums
+(~0.15 GFLOP at F=513, T=300, D=6, E=20) against a serial part: a bin's
+Jacobi on one warp and two grid-wide syncs. The kernel runs as many CTAs
+as an SM's registers hold (four at D <= 6: one round of bins at config
+3), a tile of all T frames where it fits (:func:`frames_per_tile`; a CTA
+that owns one bin then keeps them resident across iterations), the sums
+in registers and a bin's K Jacobis on one warp in registers, on the
+whole-fit cACGMM kernel's iteration body (``csrc/em_iter.cuh``).
 
-Gate (:func:`fits`): D <= 16 and the CTA's working set,
-:func:`smem_bytes`, within the 227 KB of shared memory a block may opt
-into (it holds one tile of frames, so T is unlimited); the grid is sized
-at launch to the CTAs the card keeps co-resident (the occupancy per SM
-times the SMs), at most one per bin. A launch that cannot be
-co-resident raises. It replaces the JAX package's VMEM budget
-(``choose_tile_f_loop``).
+Gate (:func:`fits`): D <= 16 (the template's range) and the CTA's working
+set at a tile of 32 frames, :func:`smem_bytes`, within the 227 KB of
+shared memory a block may opt into (T is walked in tiles, so it is
+unlimited); the grid is sized at launch to the CTAs the card keeps
+co-resident (the occupancy per SM times the SMs), at most one per bin. A
+launch that cannot be co-resident raises. It replaces the JAX package's
+VMEM budget (``choose_tile_f_loop``).
 
 On a CPU tensor the wrapper runs the plain PyTorch twin,
 :func:`integration_em_full_reference`, which takes the kernel's warm
@@ -39,23 +44,25 @@ back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
 import torch
 
 from .._dtypes import tiny as _tiny
-from ._build import SMEM_LIMIT
-from .integration_em import MODES, TILE, _check_mode, e_stats_reference
+from ._build import SM_SMEM, SMEM_LIMIT
+from .integration_em import MODES, _check_mode, e_stats_reference
 from .linalg import eigh_jacobi, sort_ascending
 
 __all__ = ['integration_em_full', 'integration_em_full_reference',
            'integration_em_step_reference', 'vmf_log_norm_table',
-           'spec_rows', 'acc_rows', 'smem_bytes', 'fits',
+           'spec_rows', 'acc_rows', 'smem_bytes', 'frames_per_tile', 'fits',
            'spectral_m_step_reference', 'TABLE_SIZE']
 
 TABLE_SIZE = 1024
-_WARPS = 8  # kThreads / 32 of csrc/integration.cuh
+_THREADS = 256  # kThreads of csrc/integration_em_loop.cu
+_MIN_TILE = 32  # the gate's tile: the shortest one the kernel must take
 
 
 def spec_rows(e_dim, k, spectral_mode):
@@ -94,19 +101,67 @@ def vmf_log_norm_table(dim, min_concentration, max_concentration,
     return s0, ds, values.astype(np.float32)
 
 
-def smem_bytes(D, K, E, spectral_mode):
-    """Shared memory one CTA needs (csrc/integration_em_loop.cu)."""
+def smem_bytes(D, K, E, spectral_mode, tile=_MIN_TILE):
+    """Shared memory one CTA takes (loop_smem_bytes in
+    csrc/integration_em_loop.cu) with tiles of ``tile`` frames: y and the
+    embedding at an odd row stride, the covariance, the eigenvectors and
+    their conjugate transpose, the scatter sums, the posterior and the
+    scatter weights (or the spectral step's partial sums), the
+    accumulators, the spectral state and the per-class scalars."""
     P = D * (D + 1) // 2
     A = acc_rows(E, K, spectral_mode)
-    return 8 * (D * TILE + 3 * K * D * D + K * P) + 4 * (
-        E * TILE + 2 * K * TILE + 4 * K * E + 5 * K + 2 * K * D
-        + (_WARPS + 1) * A)
+    gaussian = spectral_mode == 'gaussian'
+    rows = tile | 1
+    work = max(2 * K * tile, max(_THREADS, A) + A)
+    return 8 * (D * rows + 3 * K * D * D + K * P) + 4 * (
+        E * rows + work + K * E * (2 + 2 * gaussian) + 5 * K + K * D)
+
+
+@functools.lru_cache(maxsize=None)
+def frames_per_tile(D, K, E, T, spectral_mode, ctas):
+    """Frames of one shared-memory tile: all T where ``ctas`` CTAs (those
+    that an SM's registers hold, :func:`_register_ctas`) keep room in its
+    shared memory, else the fewest equal tiles that do (the whole 227 KB a
+    block may take where even 32 frames do not fit that share)."""
+    budget = SM_SMEM // ctas - 1024
+    if smem_bytes(D, K, E, spectral_mode, min(T, _MIN_TILE)) > budget:
+        budget = SMEM_LIMIT
+    lo, hi = 1, max(T, 1)  # the longest tile within the budget
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if smem_bytes(D, K, E, spectral_mode, mid) <= budget:
+            lo = mid
+        else:
+            hi = mid - 1
+    tiles = -(-max(T, 1) // lo)
+    return -(-max(T, 1) // tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def _register_ctas(D):
+    """CTAs of the kernel at D that an SM's registers hold (its launch
+    bounds; the library's occupancy query with no shared memory)."""
+    from ._build import load
+    ctas = load('integration_em_loop').integration_em_loop_register_ctas(D)
+    if ctas < 1:
+        raise RuntimeError(
+            f'integration_em_full occupancy query failed: CUDA error {-ctas}')
+    return ctas
 
 
 def fits(D, K, E, spectral_mode):
     """Does the whole-fit kernel take (D, K, E)? T is walked in tiles, so
     it does not change the budget."""
     return D <= 16 and smem_bytes(D, K, E, spectral_mode) <= SMEM_LIMIT
+
+
+@functools.lru_cache(maxsize=None)
+def _device_table(dim, min_concentration, max_concentration, size, device):
+    """(s0, ds, table on ``device``) of :func:`vmf_log_norm_table`, built
+    once per shape and device (the kernel only reads it)."""
+    s0, ds, values = vmf_log_norm_table(dim, min_concentration,
+                                        max_concentration, size)
+    return s0, ds, torch.as_tensor(values, device=device)
 
 
 def interpolate_log_norm(kappa, table, s0, ds):
@@ -345,9 +400,9 @@ def integration_em_full(y, emb, eigenvectors, eigenvalues, weight, mu, kappa,
     s0 = ds = 0.
     table = None
     if not gaussian:
-        s0, ds, values = vmf_log_norm_table(
-            E, min_concentration, max_concentration, table_size)
-        table = torch.as_tensor(values, device=y.device)
+        s0, ds, table = _device_table(
+            E, float(min_concentration), float(max_concentration),
+            int(table_size), y.device)
     if N:
         from ._build import load
         used = ctypes.c_int(0)
@@ -356,6 +411,7 @@ def integration_em_full(y, emb, eigenvectors, eigenvalues, weight, mu, kappa,
             w.data_ptr(), svec.data_ptr(), sb.data_ptr(), sc.data_ptr(),
             rows.data_ptr(), acc.data_ptr(),
             0 if table is None else table.data_ptr(), N, D, K, T, E,
+            frames_per_tile(D, K, E, T, spectral_mode, _register_ctas(D)),
             bins_per_utt, int(iterations), int(sweeps), int(warm_sweeps),
             MODES[spectral_mode], float(eigenvalue_floor),
             float(spatial_weight), float(spectral_weight),

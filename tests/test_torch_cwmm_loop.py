@@ -71,6 +71,80 @@ def test_twin_matches_the_jax_scan_path(case):
         _modes_aligned(mode[sel], scan.complex_watson.mode, 1e-3)
 
 
+@pytest.mark.parametrize('case', ['plain', 'saliency'])
+def test_one_cold_step_matches_the_jax_scan_iteration(case):
+    """The kernel's first iteration (cold Jacobi) as the step twin runs it
+    against one iteration of the JAX scan path from the same numpy
+    inputs: the weights to 1e-6 (the same mean in two orders), the modes
+    to 1e-5 in phase-free overlap, the concentrations to 1e-3 relative
+    (the uniform ratio table against the scan path's log-spaced one; they
+    part by ~2e-5 here) and the posteriors (CWMM.predict) to 1e-3."""
+    y, aff = _mixture(seed=11)
+    saliency = None
+    if case == 'saliency':
+        saliency = np.random.default_rng(12).uniform(
+            0.3, 1., y.shape[:-1]).astype(np.float32)
+    weight, mode, kappa, posterior, vectors = \
+        cwmm_loop.cwmm_em_step_reference(
+            torch.as_tensor(y).transpose(-1, -2), torch.as_tensor(aff),
+            saliency=None if saliency is None else torch.as_tensor(saliency))
+    assert vectors.shape == (15, 2, 4, 4)
+    scan = JaxTrainer().fit(
+        jnp.asarray(y), initialization=jnp.asarray(aff), iterations=1,
+        use_fused_em=False,
+        saliency=None if saliency is None else jnp.asarray(saliency))
+    assert_allclose(weight.numpy(), np.asarray(scan.weight[..., 0]),
+                    atol=1e-6)
+    _modes_aligned(mode, scan.complex_watson.mode, 1e-5)
+    assert_allclose(kappa.numpy(),
+                    np.asarray(scan.complex_watson.concentration), rtol=1e-3)
+    assert_allclose(posterior.numpy(), np.asarray(scan.predict(jnp.asarray(
+        y))), atol=1e-3)
+
+
+def test_the_warm_step_diagonalizes_the_new_scatter():
+    """A later iteration of the kernel, as the step twin runs it: the new
+    scatter rotated into the previous eigenbasis and two sweeps from
+    there. From a basis near the scatter's own (1% off) the two sweeps
+    diagonalize it to ~6e-7 of its largest entry (six: ~2e-7), where no
+    sweep after the rotation leaves ~4e-2; the mode is the dominant
+    eigenvector and the concentration the table's at the dominant
+    eigenvalue."""
+    y, aff = _mixture(seed=13)
+    y_dt = torch.as_tensor(y).transpose(-1, -2)
+    a = torch.as_tensor(aff)
+    scatter = (y_dt[:, None] * a[:, :, None, :].to(y_dt.dtype)) \
+        @ y_dt[:, None].conj().transpose(-1, -2) / a.sum(-1)[..., None, None]
+    values, exact = torch.linalg.eigh(scatter)
+    rng = np.random.default_rng(14)
+    noise = 0.01 * (rng.standard_normal(exact.shape)
+                    + 1j * rng.standard_normal(exact.shape))
+    previous = torch.linalg.qr(exact + torch.as_tensor(
+        noise.astype(np.complex64)))[0]
+
+    def off_diagonal(vectors):
+        rotated = vectors.conj().transpose(-1, -2) @ scatter @ vectors
+        off = rotated - torch.diag_embed(torch.diagonal(
+            rotated, dim1=-2, dim2=-1))
+        return (off.abs().amax((-2, -1))
+                / scatter.abs().amax((-2, -1))).max().item()
+
+    _, mode, kappa, _, vectors = cwmm_loop.cwmm_em_step_reference(
+        y_dt, a, previous, warm_sweeps=2)
+    assert off_diagonal(vectors) < 1e-5
+    eye = torch.eye(4, dtype=vectors.dtype)
+    assert (vectors.conj().transpose(-1, -2) @ vectors - eye).abs().max() \
+        < 1e-5
+    _modes_aligned(mode, exact[..., -1], 1e-5)
+    r0, dr, table = cwmm_loop.concentration_table(4)
+    assert_allclose(kappa.numpy(), cwmm_loop.table_concentration(
+        values[..., -1], r0, dr, torch.as_tensor(table)).numpy(),
+                    rtol=1e-4, atol=1e-4)
+    frozen = cwmm_loop.cwmm_em_step_reference(y_dt, a, previous,
+                                              warm_sweeps=0)[4]
+    assert off_diagonal(frozen) > 1e-3
+
+
 def test_trainer_whole_fit_route_returns_the_predict_posterior():
     """use_fused_em=True on the CPU runs the twin; its final E-step is
     the fitted model's predict, and its weights match the scan path's."""
@@ -122,9 +196,9 @@ def test_table_lookup_matches_the_hat_function_sum():
 
 
 def test_kernel_gate():
-    assert cwmm_loop.max_frames(6, 3) == 3827
-    assert cwmm_loop.fits(6, 3, 3827) and not cwmm_loop.fits(6, 3, 3828)
-    assert cwmm_loop.max_frames(6, 3, has_sal=True) == 3588
+    assert cwmm_loop.max_frames(6, 3) == 3833
+    assert cwmm_loop.fits(6, 3, 3833) and not cwmm_loop.fits(6, 3, 3834)
+    assert cwmm_loop.max_frames(6, 3, has_sal=True) == 3593
     assert not cwmm_loop.fits(6, 3, 3600, has_sal=True)
     assert cwmm_loop.fits(16, 3, 300) and not cwmm_loop.fits(17, 3, 10)
     # a minute at 8 kHz (T=3753) stays inside the whole fit

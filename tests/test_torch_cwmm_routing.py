@@ -17,7 +17,7 @@ from pb_bss_tpu_torch.ops import cwmm_loop, mm_stream
 from pb_bss_tpu_torch.permutation_alignment import DHTVPermutationAlignment
 
 F, D, K = 9, 6, 3
-LONG = 3828
+LONG = 3834
 
 
 class _Route(Exception):

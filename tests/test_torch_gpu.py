@@ -1079,3 +1079,128 @@ def test_bingham_whole_fit_kernel_instantiations_match_plain(cuda, D, K,
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(x).all()) for x in out)
     torch.testing.assert_close(out[0].sum(-1), torch.ones(N, device=cuda))
+
+
+# ---------------------------------------------------------------------
+# the redesigned whole-fit Watson (K6) and integration (K12) kernels
+# across their D instantiations
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize('extras', [False, True], ids=['plain', 'sal+silence'])
+@pytest.mark.parametrize('K', [1, 3, 5])
+@pytest.mark.parametrize('D', list(range(1, 17)))
+def test_watson_whole_fit_kernel_instantiations_match_plain(cuda, D, K,
+                                                            extras):
+    """K6 at each D of its template (1..16), with and without saliency and
+    a class silenced in four bins: one (cold) iteration against its twin
+    at the one-iteration tolerances, and the 20-iteration fit (warm
+    Jacobi) by the argmax of the posteriors."""
+    from pb_bss_tpu_torch.ops.cwmm_loop import (
+        cwmm_em_full, cwmm_em_full_reference)
+    N, T = 17, 157
+    y, aff = _cbmm_mixture(N, D, K, T, cuda, seed=30 + D)
+    sal = None
+    if extras:
+        g = torch.Generator(cuda).manual_seed(40 + D)
+        sal = 0.2 + 0.8 * torch.rand((N, T), device=cuda, generator=g)
+        if K > 1:
+            aff[:4, 1] = 0
+            aff = aff / aff.sum(-2, keepdim=True)
+    before = cwmm_em_full.launches
+    out = cwmm_em_full(y, aff, iterations=1, warm_sweeps=2, saliency=sal)
+    torch.cuda.synchronize()
+    assert cwmm_em_full.launches == before + 1
+    ref = cwmm_em_full_reference(y, aff, iterations=1, saliency=sal)
+    # one cold iteration: f32 rounding of two Jacobi and E-step orderings;
+    # kappa through the steep table
+    _watson_close(out, ref, weight=1e-5, kappa_rtol=1e-3, overlap=1e-4,
+                  aff=2e-3)
+    out = cwmm_em_full(y, aff, iterations=20, warm_sweeps=2, saliency=sal)
+    ref = cwmm_em_full_reference(y, aff, iterations=20, saliency=sal)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+    if extras and K > 1:
+        assert (out[0][:4, 1] == 0).all()
+    agree = (out[3].argmax(-2) == ref[3].argmax(-2)).float().mean()
+    assert agree > 0.9, agree
+
+
+def _separable_integration(N, D, K, T, E, U, device, seed):
+    """Observations and embeddings with one class per frame: a steering
+    vector per (bin, class) and an embedding centre per (utterance,
+    class), so that the integration EM is well-conditioned."""
+    g = torch.Generator(device).manual_seed(seed)
+
+    def cn(*shape):
+        return torch.complex(torch.randn(shape, generator=g, device=device),
+                             torch.randn(shape, generator=g, device=device))
+    label = torch.randint(K, (N, T), generator=g, device=device)
+    steer = torch.gather(cn(N, K, D), 1, label[..., None].expand(N, T, D))
+    y = steer.transpose(1, 2) * cn(N, 1, T) + 0.1 * cn(N, D, T)
+    y = y / torch.linalg.vector_norm(y, dim=1, keepdim=True)
+    centres = torch.randn((U, K, E), generator=g, device=device)
+    utterance = torch.arange(N, device=device)[:, None] // (N // U)
+    emb = (centres[utterance, label] + 0.3 * torch.randn(
+        (N, T, E), generator=g, device=device)).transpose(1, 2)
+    return y, emb.contiguous()
+
+
+def _integration_next_posterior(y, emb, out, mode, spherical, F):
+    """The posterior of the E-step after a whole fit: its cACG state and
+    weights, and the spectral model finished from its last accumulators
+    as the kernel finishes it."""
+    from pb_bss_tpu_torch.ops import integration_em, integration_em_loop as il
+    lam, vec, weight, acc = out
+    K, E = weight.shape[-1], emb.shape[-2]
+    table = None
+    if mode == 'vmf':
+        s0, ds, values = il.vmf_log_norm_table(E, 1e-10, 500.)
+        table = (s0, ds, torch.as_tensor(values, device=y.device))
+    spec = [x.repeat_interleave(F, 0) for x in il.spectral_m_step_reference(
+        acc, E=E, K=K, spectral_mode=mode, spherical=spherical, table=table)]
+    return integration_em.e_step_reference(
+        y, emb, eigenvalues=lam, eigenvectors=vec, weight=weight,
+        mu=spec[0], kappa=spec[1], log_c=spec[2], spectral_mode=mode)[0]
+
+
+@pytest.mark.parametrize('U', [1, 2])
+@pytest.mark.parametrize('model', ['vmf', 'spherical', 'diagonal'])
+@pytest.mark.parametrize('D', list(range(1, 17)))
+def test_integration_whole_fit_kernel_instantiations_match_plain(cuda, D,
+                                                                 model, U):
+    """K12 at each D of its template (1..16), in the vMF and the Gaussian
+    (spherical and diagonal) modes, one utterance and two folded: one
+    iteration against its twin (weights and covariances to 1e-5, the
+    accumulators to 1e-5 of their largest entry), and the 20-iteration
+    fit on separable data by the argmax of the next E-step's posterior."""
+    from pb_bss_tpu_torch.ops import integration_em_loop as il
+    N, K, T, E = 17 * U, 3, 60, 5
+    mode = 'vmf' if model == 'vmf' else 'gaussian'
+    spherical = model != 'diagonal'
+    _, _, ev, vec, w, spec, _ = _integration_inputs(N, D, K, T, E, U, mode,
+                                                    cuda, seed=50 + D)
+    y, emb = _separable_integration(N, D, K, T, E, U, cuda, seed=60 + D)
+    kw = dict(bins_per_utt=N // U, spectral_mode=mode, spherical=spherical)
+    before = il.integration_em_full.launches
+    out = il.integration_em_full(y, emb, vec, ev, w, *spec, iterations=1,
+                                 **kw)
+    torch.cuda.synchronize()
+    assert il.integration_em_full.launches == before + 1
+    ref = il.integration_em_full_reference(y, emb, vec, ev, w, *spec,
+                                           iterations=1, **kw)
+    # one iteration: the same sums in two orders and two f32 Jacobi runs
+    torch.testing.assert_close(out[2], ref[2], atol=1e-5, rtol=0)
+    torch.testing.assert_close(_covariance(out[1], out[0]),
+                               _covariance(ref[1], ref[0]), atol=1e-5,
+                               rtol=0)
+    assert (out[3] - ref[3]).abs().max() <= 1e-5 * ref[3].abs().max()
+    out = il.integration_em_full(y, emb, vec, ev, w, *spec, iterations=20,
+                                 **kw)
+    ref = il.integration_em_full_reference(y, emb, vec, ev, w, *spec,
+                                           iterations=20, **kw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+    p_k = _integration_next_posterior(y, emb, out, mode, spherical, N // U)
+    p_p = _integration_next_posterior(y, emb, ref, mode, spherical, N // U)
+    agree = (p_k.argmax(-2) == p_p.argmax(-2)).float().mean()
+    assert agree > 0.9, agree

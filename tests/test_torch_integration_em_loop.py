@@ -199,6 +199,35 @@ def test_gate():
     assert not integration_em_loop.fits(6, 3, 2000, 'gaussian')
 
 
+@pytest.mark.parametrize('mode', ['vmf', 'gaussian'])
+@pytest.mark.parametrize('ctas', [2, 3, 4])
+@pytest.mark.parametrize('D', [1, 6, 8, 16])
+def test_frames_per_tile_fits_the_sm_share(D, ctas, mode):
+    """The host's frame tile: all T where ``ctas`` CTAs an SM keep room
+    for it in the SM's shared memory, else the fewest equal tiles that
+    cover T within that share (within the block limit where even 32
+    frames exceed the share). Config 3 (D=6, K=3, E=20, T=300) at four
+    CTAs an SM takes all its frames in one tile."""
+    from pb_bss_tpu_torch.ops._build import SM_SMEM, SMEM_LIMIT
+    K, E = 3, 20
+
+    def smem(tile):
+        return integration_em_loop.smem_bytes(D, K, E, mode, tile)
+
+    share = SM_SMEM // ctas - 1024
+    for T in (1, 31, 300, 301, 4000):
+        tile = integration_em_loop.frames_per_tile(D, K, E, T, mode, ctas)
+        budget = share if smem(min(T, 32)) <= share else SMEM_LIMIT
+        tiles = -(-T // tile)
+        assert 1 <= tile <= T and tile == -(-T // tiles)
+        assert smem(tile) <= budget
+        if tiles > 1:
+            assert smem(-(-T // (tiles - 1))) > budget
+    if (D, ctas) == (6, 4):
+        assert integration_em_loop.frames_per_tile(6, 3, 20, 300, mode,
+                                                   4) == 300
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize('model', ['vmf', 'spherical'])
 def test_loop_twin_matches_the_jax_loop_kernel_in_interpret_mode(model):
