@@ -49,7 +49,7 @@ limit, and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without a CUDA device, outside a checkout of the repository,
 or when any phase fails. Imports nothing of JAX.
 
-    python3 chip_smoke.py --only floor,cacgmm,cbmm,cwmm,integration,splits,e2e \
+    python3 chip_smoke.py --only floor,cacgmm,cbmm,cwmm,integration,splits,e2e,eigh,integration_stats,eigh_stats_splits \
         [--package DIR]
 
 runs only the named phases after the build (the floor checks, the cACGMM
@@ -57,8 +57,10 @@ kernels' checks, the whole-fit Bingham, Watson and integration kernels'
 checks, the split of the time of the whole-fit and streamed cACGMM EM
 kernels, the whole-fit Bingham EM, the frequency-constant EM, the
 streamed Watson and Bingham statistics, the Bingham chord solve, the
-whole-fit Watson EM and the whole-fit integration EM, the cACGMM
-separate_batch end to end), with ``pb_bss_tpu_torch`` imported from DIR
+whole-fit Watson EM, the whole-fit integration EM, the batched Jacobi
+and the integration statistics pass, the cACGMM separate_batch end to
+end, the batched Jacobi's checks, the integration statistics pass's
+checks, the split of the last two alone), with ``pb_bss_tpu_torch`` imported from DIR
 if given (another checkout, to time two versions in one call); it prints
 no kernels line.
 """
@@ -353,10 +355,23 @@ def hermitian_batch(B, D, seed, dtype=None):
     return x @ x.conj().transpose(-1, -2) / D
 
 
-def check_eigh(B, D, seed, dtype=None, plant=False):
-    """K1 against its plain twin. With ``plant``, the first matrices are
-    identities and diagonal matrices with repeated eigenvalues, which
-    must come out exactly diagonal and stably sorted. Returns the max
+def same_bits(a, b):
+    """Equal entry for entry, NaN where the other is NaN."""
+    import torch
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def check_eigh(B, D, seed, dtype=None, plant=False, sort=True,
+               kind='random'):
+    """K1 against its plain twin, with ``sort`` on or off. With
+    ``plant``, the first matrices are identities and diagonal matrices
+    with repeated eigenvalues, which must come out exactly diagonal (and
+    stably sorted). ``kind`` 'tiny' scales the batch by 1e-20 (the
+    eigenvalues and the factorization are held relative to each matrix's
+    scale); 'nan' puts a NaN matrix and a matrix with one NaN entry in
+    the batch, whose NaN eigenvalues must come last while the other
+    matrices match the twin. Without ``sort``, the kernel's sorted call
+    must be its unsorted one stably sorted, bit for bit. Returns the max
     abs eigenvalue error."""
     import torch
     from pb_bss_tpu_torch.ops.eigh import eigh_jacobi, eigh_jacobi_reference
@@ -368,39 +383,104 @@ def check_eigh(B, D, seed, dtype=None, plant=False):
         diag = torch.tensor([2., 1.] * (D // 2) + [2.] * (D % 2),
                             device='cuda')
         a[8:16] = torch.diag(diag).to(a.dtype)
+    if kind == 'tiny':
+        a = a * 1e-20
+    nan_rows = torch.zeros(B, dtype=torch.bool, device='cuda')
+    if kind == 'nan':
+        a[20] = float('nan')
+        a[21, 0, 0] = float('nan')
+        nan_rows[20:22] = True
     w_k, v_k = eigh_jacobi(a)
     w_p, v_p = eigh_jacobi_reference(a)
+    if not sort:
+        # the Jacobi's order: the kernel's sorted call is its stable sort,
+        # bit for bit (the twin's unsorted order can part where a sweep
+        # meets a near tie, so the twin is held sorted)
+        w_u, v_u = eigh_jacobi(a, sort=False)
+        order = torch.sort(w_u, dim=-1, stable=True).indices
+        sorted_u = (same_bits(torch.gather(w_u, -1, order), w_k)
+                    and same_bits(torch.gather(
+                        v_u, -1, order[:, None].expand_as(v_u)), v_k))
     sync()
-    lam_max = w_p.abs().max(-1).values.clamp(min=1e-30)
-    err_w = (w_k - w_p).abs().max().item()
-    rel_w = ((w_k - w_p).abs().max(-1).values / lam_max).max().item()
-    recon = v_k @ torch.diag_embed(w_k).to(a.dtype) @ v_k.conj() \
-        .transpose(-1, -2) - a
+    ok = ~nan_rows
+    # held at the unscaled size: squares of 1e-20 would be subnormal
+    scale = 1e-20 if kind == 'tiny' else 1.
+    wk, wp, vk, ak = w_k[ok] / scale, w_p[ok] / scale, v_k[ok], a[ok] / scale
+    lam_max = wp.abs().max(-1).values.clamp(min=1e-30)
+    err_w = (wk - wp).abs().max().item()
+    rel_w = ((wk - wp).abs().max(-1).values / lam_max).max().item()
+    recon = vk @ torch.diag_embed(wk).to(a.dtype) @ vk.conj() \
+        .transpose(-1, -2) - ak
     rel_r = (torch.linalg.matrix_norm(recon)
-             / torch.linalg.matrix_norm(a)).max().item()
-    orth = (v_k.conj().transpose(-1, -2) @ v_k - eye).abs().max().item()
-    log(f'K1 B={B} D={D} {a.dtype}: max|w_k - w_p| / lam_max {rel_w:.2e} '
+             / torch.linalg.matrix_norm(ak).clamp(min=1e-30)).max().item()
+    orth = (vk.conj().transpose(-1, -2) @ vk - eye).abs().max().item()
+    label = (f'B={B} D={D} {a.dtype} sort={sort}'
+             f'{"" if kind == "random" else " " + kind}')
+    log(f'K1 {label}: max|w_k - w_p| / lam_max {rel_w:.2e} '
         f'({err_w:.2e} abs); |V diag(w) V^H - A| / |A| {rel_r:.2e}; '
         f'|V^H V - I| {orth:.2e}; dtypes {w_k.dtype} {v_k.dtype}')
     if v_k.dtype != a.dtype or w_k.dtype != torch.float32:
         fail(f'K1 output dtypes {w_k.dtype}, {v_k.dtype} for {a.dtype}')
+    if not sort:
+        log(f'K1 {label}: the sorted call is the unsorted one stably sorted, '
+            f'bit for bit: {sorted_u}')
+        if not sorted_u:
+            fail(f'K1 sort=False and sort=True part at {label}')
     # two f32 Jacobi runs of the same rotations in another order of
     # rounding: eigenvalues within 2e-5 of the largest, factorization
     # and orthonormality within 1e-4
     if not (rel_w <= 2e-5 and rel_r <= 1e-4 and orth <= 1e-4):
-        fail(f'K1 mismatch at B={B} D={D} {a.dtype}')
+        fail(f'K1 mismatch at {label}')
+    if kind == 'nan':
+        # NaN after every number, in both; the NaN matrix keeps V = I
+        nan_k = torch.isnan(w_k[20:22])
+        last = bool((nan_k.int().diff(dim=-1) >= 0).all())
+        same = torch.equal(nan_k, torch.isnan(w_p[20:22]))
+        ident = torch.equal(v_k[20], eye)
+        log(f'K1 {label}: NaN eigenvalues {nan_k.int().tolist()}, last '
+            f'{last}, as the twin {same}; the NaN matrix keeps V = I '
+            f'{ident}')
+        if not (last and same and ident):
+            fail(f'K1 NaN rows at {label}')
     if plant:
-        order = torch.sort(diag, stable=True).indices
-        exact = (torch.equal(w_k[:8], torch.ones_like(w_k[:8]))
-                 and torch.equal(v_k[:8], eye.expand(8, D, D))
-                 and torch.equal(w_k[8:16], diag[order].expand(8, D))
-                 and torch.equal(v_k[8:16], eye[:, order].expand(8, D, D)))
-        log(f'K1 planted identity and repeated-eigenvalue blocks exact: '
-            f'{exact}')
+        diagonal = torch.diagonal(a[:16], dim1=-2, dim2=-1).real
+        order = torch.sort(diagonal, dim=-1, stable=True).indices
+        w_o, v_o = (w_k, v_k) if sort else (w_u, v_u)
+        if not sort:
+            order = torch.arange(D, device='cuda').expand(16, D)
+        exact = (torch.equal(w_o[:16], torch.gather(diagonal, -1, order))
+                 and torch.equal(v_o[:16], eye[:, order].permute(1, 0, 2)
+                                 .to(a.dtype)))
+        log(f'K1 {label} planted identity and repeated-eigenvalue blocks '
+            f'exact: {exact}')
         if not exact:
             fail('K1 planted diagonal matrices did not come out exactly '
-                 'diagonal and stably sorted')
+                 f'diagonal (and stably sorted) at {label}')
     return err_w
+
+
+def phase_kernels_eigh():
+    """K1 against its twin: the long path's M-step shape (4 x 257 bins x
+    3 classes) with planted diagonal matrices, every D in {1, 2, 3, 6, 8,
+    16} in complex64 and float32 with the sort on and off, and at D=6 a
+    batch scaled by 1e-20 and one holding NaN matrices. Returns the max
+    abs eigenvalue error at the long path's shape."""
+    import torch
+    err = check_eigh(4 * 257 * 3, 6, seed=10, plant=True)
+    seed = 200
+    for D in (1, 2, 3, 6, 8, 16):
+        for dtype in (torch.complex64, torch.float32):
+            for sort in (True, False):
+                seed += 1
+                check_eigh(300, D, seed, dtype, plant=True, sort=sort)
+    for dtype in (torch.complex64, torch.float32):
+        for sort in (True, False):
+            for kind in ('tiny', 'nan'):
+                seed += 1
+                check_eigh(1539, 6, seed, dtype, plant=True, sort=sort,
+                           kind=kind)
+    check_eigh(4 * 257 * 3, 6, seed=13, dtype=torch.float32, plant=True)
+    return err
 
 
 def stream_inputs(B, F, D, K, T, seed, saliency=False, mask=False):
@@ -1494,6 +1574,8 @@ def integration_inputs(N, D, K, T, E, U, mode, seed, saliency=False,
     a = cn(N, K, D, D)
     ev, vec = torch.linalg.eigh(a @ a.conj().transpose(-1, -2) / D
                                 + 2 * torch.eye(D, device='cuda'))
+    # row-major, as the trainers hand the kernels their eigenvectors
+    vec = vec.contiguous()
     ev = ev / ev.max(-1, keepdim=True).values
     if floor:
         ev[:, 0, 0] = 1e-10
@@ -1525,8 +1607,9 @@ def check_integration_stats(N, D, K, T, E, U, mode, seed, saliency=False,
     """One K10 pass from a random model (with ``floor``, one with an
     eigenvalue at the floor and frames orthogonal to its eigenvector)
     against its plain twin, with saliency also under spatial / spectral
-    weights of 0.7 / 1.3. Returns the max abs error of the covariances
-    D scatter / asum."""
+    weights of 0.7 / 1.3; then the pass again, which must repeat the
+    first bit for bit and run one kernel (the profiler). Returns the max
+    abs error of the covariances D scatter / asum."""
     import torch
     from pb_bss_tpu_torch.ops.integration_em import e_stats, e_stats_reference
     y, emb, ev, vec, w, spec, sal = integration_inputs(
@@ -1541,6 +1624,15 @@ def check_integration_stats(N, D, K, T, E, U, mode, seed, saliency=False,
     ref = e_stats_reference(y, emb, **kw)
     sync()
     launched = e_stats.launches - before
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        again = e_stats(y, emb, **kw)
+        sync()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = len(names)
+    repeats = all(torch.equal(a, b) for a, b in zip(out, again)
+                  if b is not None)
     cov_k = D * out[0] / out[1].clamp(min=1e-30)[..., None, None]
     cov_p = D * ref[0] / ref[1].clamp(min=1e-30)[..., None, None]
     err = (cov_k - cov_p).abs().max().item()
@@ -1556,10 +1648,43 @@ def check_integration_stats(N, D, K, T, E, U, mode, seed, saliency=False,
     log(f'K10 {label}: max|cov_k - cov_p| {err:.2e} (max|cov| {scale:.2f}); '
         f'asum / resultants{" / second moments" if mode == "gaussian" else ""}'
         f' rel {", ".join(f"{r:.2e}" for r in rel)}; exactly Hermitian '
-        f'{herm}; launches {launched}')
+        f'{herm}; launches {launched}; repeats bit for bit {repeats}; '
+        f'kernels a call {kernels}{"" if kernels == 1 else names}')
     if not (launched == 1 and err <= 1e-4 * scale and max(rel) <= 1e-5
-            and herm and finite):
+            and herm and finite and repeats and kernels == 1):
         fail(f'K10 mismatch at {label}')
+    return err
+
+
+def phase_kernels_integration_stats():
+    """K10 against its twin at bench config 3 (F=513, T=300, D=6, K=3,
+    E=20) in both spectral modes, with and without saliency, at T=1, at
+    T just above a tile (257) and at an odd T, at B=8 in both modes, at
+    D=8, K=4, and with an eigenvalue at the floor; every pass also
+    repeated bit for bit, one kernel a call. Returns the max abs
+    covariance error at config 3 (vMF)."""
+    err = check_integration_stats(513, 6, 3, 300, 20, 1, 'vmf', seed=90)
+    check_integration_stats(513, 6, 3, 300, 20, 1, 'gaussian', seed=91)
+    check_integration_stats(513, 6, 3, 301, 20, 1, 'vmf', seed=92,
+                            saliency=True)
+    check_integration_stats(2 * 513, 6, 3, 301, 20, 2, 'gaussian', seed=93,
+                            saliency=True)
+    check_integration_stats(8 * 513, 6, 3, 300, 20, 8, 'vmf', seed=94)
+    check_integration_stats(8 * 513, 6, 3, 300, 20, 8, 'gaussian', seed=105,
+                            saliency=True)
+    for mode in ('vmf', 'gaussian'):
+        for saliency in (False, True):
+            check_integration_stats(513, 6, 3, 1, 20, 1, mode,
+                                    seed=106 + saliency, saliency=saliency)
+            check_integration_stats(513, 6, 3, 257, 20, 1, mode,
+                                    seed=108 + saliency, saliency=saliency)
+    check_integration_stats(130, 8, 4, 301, 7, 2, 'vmf', seed=95,
+                            saliency=True)
+    check_integration_stats(65, 8, 4, 37, 7, 1, 'gaussian', seed=96)
+    check_integration_stats(513, 6, 3, 300, 20, 1, 'vmf', seed=102,
+                            floor=True)
+    check_integration_stats(130, 8, 4, 301, 7, 2, 'gaussian', seed=103,
+                            saliency=True, floor=True)
     return err
 
 
@@ -1736,12 +1861,9 @@ def phase_kernels_cacgmm():
     check_gev(8 * 257, 6, seed=9)
     results['gev_slice'] = check_gev(8 * 257 * 3, 6, seed=7)
     check_gev(100, 3, seed=8)
-    import torch
-    # K1 at the long path's M-step shape: 4 recordings x 257 bins x 3
-    results['eigh'] = check_eigh(4 * 257 * 3, 6, seed=10, plant=True)
-    check_eigh(100, 3, seed=11, plant=True)
-    check_eigh(200, 16, seed=12, plant=True)
-    check_eigh(4 * 257 * 3, 6, seed=13, dtype=torch.float32, plant=True)
+    # K1 at the long path's M-step shape: 4 recordings x 257 bins x 3,
+    # every D, both dtypes, sort on and off, 1e-20 and NaN batches
+    results['eigh'] = phase_kernels_eigh()
     # K4: batched 60 s recordings (T = 3753, not a multiple of the tile)
     results['stream'] = check_stream(4, 257, 6, 3, 3753, seed=14)
     check_stream(1, 257, 6, 3, 3753, seed=15, weight_mode='fc')
@@ -1797,23 +1919,9 @@ def phase_kernels_mixtures():
     check_bingham_stream_fit(1, 513, 6, 3, 4000, seed=82)
     check_bingham_stream_fit(8, 513, 6, 3, 300, seed=83, weight_mode='fc')
     # K10 at bench config 3 (F=513, T=300, D=6, K=3, E=20) in both
-    # spectral modes, with and without saliency, at an odd T, at B=8 and
-    # at D=8, K=4
-    results['integration_stats'] = check_integration_stats(
-        513, 6, 3, 300, 20, 1, 'vmf', seed=90)
-    check_integration_stats(513, 6, 3, 300, 20, 1, 'gaussian', seed=91)
-    check_integration_stats(513, 6, 3, 301, 20, 1, 'vmf', seed=92,
-                            saliency=True)
-    check_integration_stats(2 * 513, 6, 3, 301, 20, 2, 'gaussian', seed=93,
-                            saliency=True)
-    check_integration_stats(8 * 513, 6, 3, 300, 20, 8, 'vmf', seed=94)
-    check_integration_stats(130, 8, 4, 301, 7, 2, 'vmf', seed=95,
-                            saliency=True)
-    check_integration_stats(65, 8, 4, 37, 7, 1, 'gaussian', seed=96)
-    check_integration_stats(513, 6, 3, 300, 20, 1, 'vmf', seed=102,
-                            floor=True)
-    check_integration_stats(130, 8, 4, 301, 7, 2, 'gaussian', seed=103,
-                            saliency=True, floor=True)
+    # spectral modes, with and without saliency, at T=1, past a tile and
+    # at an odd T, at B=8, at D=8, K=4 and at the floor; bit for bit again
+    results['integration_stats'] = phase_kernels_integration_stats()
     results.update(phase_kernels_integration_loop())
     return results
 
@@ -2906,6 +3014,7 @@ def time_em_splits():
     out.update(time_cbmm_fc_splits())
     out.update(time_stream_chord_splits())
     out.update(time_watson_integration_splits())
+    out.update(time_eigh_stats_splits())
     log('timing splits (ms per call): '
         + '; '.join(f'{case} {ms:.4f}' for case, ms in out.items()))
     return out
@@ -3103,6 +3212,111 @@ def time_watson_integration_splits():
         times.append(1e3 * (time.perf_counter() - t0))
     out["VMFCACGMMTrainer.fit 'loop' F=513 T=300 host (median of 3)"] = \
         statistics.median(times[1:])
+    return out
+
+
+def time_eigh_stats_splits():
+    """The split of K1's and K10's time, with their own arguments only,
+    and of the two paths they carry. K1 at 3,084 6 x 6 complex64 matrices
+    (the long path's M-step: 4 x 257 bins x 3 classes) and at 1,539 (513
+    bins x 3 classes, the integration 'auto' finish), at D = 2, 3, 8 and
+    16 and in float32: the call (CUDA events, a distinct input a call),
+    the kernel's device time per launch and that of every kernel of a
+    call (the profiler: with the sort in torch, its torch.sort and
+    torch.gather), and the wrapper's host time per call; and the CTA size.
+    K10 at bench config 3 (F=513, T=300, D=6, K=3, E=20), vMF and
+    Gaussian, B=1 and B=8: the same four numbers (every kernel of a call
+    less the kernel is the wrapper's tail), and (vMF) the CTA's threads
+    and the grid's waves. Then
+    VMFCACGMMTrainer.fit('auto') and fit('loop') at config 3 on the host
+    clock (median of 3 after a warm-up) and the device time of separate_batch of 4 x 60 s
+    (K4 and K1 on the long path). Returns {case: ms}."""
+    import statistics
+    import torch
+    from pb_bss_tpu_torch.models import VMFCACGMMTrainer
+    from pb_bss_tpu_torch.ops import eigh as eigh_op
+    from pb_bss_tpu_torch.ops import integration_em
+    out = {}
+
+    def four(label, call, ins, key):
+        out[f'{label} call'] = cuda_time(call, ins)
+        kernel, every, host = device_ms_per_launch(call, ins[0], key)
+        out[f'{label} device per launch'] = kernel
+        out[f'{label} device per call, all kernels'] = every
+        out[f'{label} host per call'] = host
+
+    for B, D, dtype in ((3084, 6, torch.complex64),
+                        (1539, 6, torch.complex64),
+                        (3084, 6, torch.float32), (3084, 2, torch.complex64),
+                        (3084, 3, torch.complex64), (3084, 8, torch.complex64),
+                        (3084, 16, torch.complex64)):
+        ins = [(hermitian_batch(B, D, 4000 + i, dtype),) for i in range(6)]
+        name = 'c64' if dtype == torch.complex64 else 'f32'
+        four(f'K1 B={B} D={D} {name}', eigh_op.eigh_jacobi, ins, 'eigh')
+    if hasattr(eigh_op, 'cta_warps'):  # not in older checkouts
+        # the CTA size: 1, 2 and 4 warps a CTA against the wrapper's choice
+        ins = [(hermitian_batch(3084, 6, 4000 + i),) for i in range(6)]
+        chosen = eigh_op.cta_warps
+        log(f'K1 B=3084 D=6: the wrapper takes {chosen(3084, 6, 132)} '
+            'warps a CTA on 132 SMs')
+        for warps in (1, 2, 4):
+            eigh_op.cta_warps = lambda B, D, sms, w=warps: w
+            label = f'K1 B=3084 D=6 c64 {warps} warps a CTA'
+            out[f'{label} call'] = cuda_time(eigh_op.eigh_jacobi, ins)
+            out[f'{label} device per launch'] = device_ms_per_launch(
+                eigh_op.eigh_jacobi, ins[0], 'eigh')[0]
+        eigh_op.cta_warps = chosen
+    D, K, E, F, T = 6, 3, 20, 513, 300
+    for mode in ('vmf', 'gaussian'):
+        for B in (1, 8):
+            ins = [integration_inputs(B * F, D, K, T, E, B, mode, 4100 + i)
+                   for i in range(4)]
+
+            def call(y, emb, ev, vec, w, spec, sal, mode=mode):
+                return integration_em.e_stats(
+                    y, emb, eigenvalues=ev, eigenvectors=vec, weight=w,
+                    mu=spec[0], kappa=spec[1], log_c=spec[2],
+                    bins_per_utt=F, spectral_mode=mode)
+
+            four(f'K10 {mode} B={B}', call, ins, 'integration_stats')
+            if mode == 'vmf' and hasattr(integration_em, '_WAVES'):
+                # the CTA's threads and the grid's waves against the
+                # wrapper's choice
+                chosen = integration_em.TILE, integration_em._WAVES
+                for threads, waves in ((256, 1), (256, 2), (256, 4),
+                                       (128, 2), (128, 4)):
+                    integration_em.TILE = threads
+                    integration_em._WAVES = waves
+                    label = f'K10 vmf B={B} {threads} threads {waves} waves'
+                    out[f'{label} call'] = cuda_time(call, ins)
+                    out[f'{label} device per launch'] = device_ms_per_launch(
+                        call, ins[0], 'integration_stats')[0]
+                integration_em.TILE, integration_em._WAVES = chosen
+            del ins
+    fits = []
+    for i in range(4):
+        y, _, _ = em_inputs(1, F, D, K, T, 4200 + i)
+        g = torch.Generator('cuda').manual_seed(4200 + i)
+        emb = torch.randn((F, T, E), generator=g, device='cuda')
+        fits.append((y[0].transpose(-1, -2),
+                     emb / emb.norm(dim=-1, keepdim=True)))
+    for route in ('auto', 'loop'):
+        times = []
+        for obs, emb in fits:
+            sync()
+            t0 = time.perf_counter()
+            VMFCACGMMTrainer().fit(obs, emb, num_classes=K, iterations=20,
+                                   use_fused_em=route)
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[f"VMFCACGMMTrainer.fit {route!r} F=513 T=300 host (median of "
+            "3)"] = statistics.median(times[1:])
+    long = long_recordings(2000, 4)[0].cuda()
+    out['separate_batch cacgmm 4 x 60 s device'], \
+        out['separate_batch cacgmm 4 x 60 s host'] = \
+        separate_device_ms(long, 'cacgmm')
+    log('timing K1 / K10 splits (ms): '
+        + '; '.join(f'{case} {ms:.4f}' for case, ms in out.items()))
     return out
 
 
@@ -3596,7 +3810,8 @@ def main():
         '--only', default=None,
         help='comma-separated phases to run after the build instead of '
              'the whole smoke test (floor, splits, cacgmm, cbmm, cwmm, '
-             'integration, e2e); '
+             'integration, e2e, eigh, integration_stats, '
+             'eigh_stats_splits); '
              'prints no kernels line')
     parser.add_argument(
         '--package', default=None,
@@ -3622,7 +3837,9 @@ def main():
                   'cacgmm': phase_kernels_cacgmm, 'cbmm': phase_kernels_cbmm,
                   'cwmm': phase_kernels_cwmm,
                   'integration': phase_kernels_integration_loop,
-                  'e2e': time_e2e}
+                  'e2e': time_e2e, 'eigh': phase_kernels_eigh,
+                  'integration_stats': phase_kernels_integration_stats,
+                  'eigh_stats_splits': time_eigh_stats_splits}
         try:
             card = timed(phase_device)
             log('package:', importlib.util.find_spec(

@@ -2,7 +2,8 @@
 // and the frequency-constant-weight EM (em_step.cu); its scatter sums and
 // column Jacobi also carry the whole-fit Watson EM (cwmm_loop.cu), its
 // covariance and column Jacobi the whole-fit integration EM
-// (integration_em_loop.cu). All of it is templated on D, so every loop
+// (integration_em_loop.cu), its wavefront Jacobi with the twin's rotation
+// the batched Jacobi (eigh.cu). All of it is templated on D, so every loop
 // over the channels unrolls:
 //
 //   scatter_sums     the M-step sums of one bin held in shared memory:
@@ -83,6 +84,30 @@ __device__ __forceinline__ void rotation(float app, float aqq, float2 apq,
   const float sr = rotate ? t * c * inv : 0.f;
   *c_out = c;
   *s_out = make_float2(sr * apq.x, sr * apq.y);
+}
+
+// The same rotation at any scale, as the plain twin takes it
+// (ops/linalg.py:_jacobi_rotate): |a_pq| without squaring it (hypotf), so
+// that entries of 1e-20 neither underflow nor count as zero; safe =
+// max(|a_pq|, tiny), tau = (a_qq - a_pp) / 2 safe, t = 1 at tau = 0,
+// s = t c a_pq / safe, and no rotation (c = 1, s = 0 exactly, as the
+// twin's select) only where a_pq is zero or NaN.
+// The batched Jacobi (eigh.cu, K1) is a public op on matrices of any
+// scale; the EM kernels' covariances are normalized and keep rotation().
+__device__ __forceinline__ void twin_rotation(float app, float aqq,
+                                              float2 apq, float* c_out,
+                                              float2* s_out) {
+  const float absa = hypotf(apq.x, apq.y);
+  const float inv = __frcp_rn(fmaxf(absa, FLT_MIN));
+  const float tau = 0.5f * (aqq - app) * inv;
+  const float t = tau == 0.f ? 1.f : copysignf(
+      __frcp_rn(fabsf(tau) + sqrtf(fmaf(tau, tau, 1.f))), tau);
+  const float c = rsqrtf(fmaf(t, t, 1.f));
+  const float sr = t * c * inv;
+  const bool rotate = absa > 0.f;  // false for a NaN a_pq too
+  *c_out = rotate ? c : 1.f;
+  *s_out = rotate ? make_float2(sr * apq.x, sr * apq.y)
+                  : make_float2(0.f, 0.f);
 }
 
 // `sweeps` parallel Jacobi sweeps on the Hermitian matrices whose columns
@@ -221,7 +246,9 @@ __device__ __forceinline__ void column_jacobi_cyclic(float2 (&a)[D],
 // leave off the diagonal). The lanes of a pair compute its rotation, the
 // step's rotations reach every lane by shuffle for the row updates, and the
 // two lanes exchange their columns by shuffle, as in column_jacobi.
-template <int D>
+// kTwinRotation: the plain twin's rotation at any scale (twin_rotation,
+// for K1) in place of the EM kernels' rotation().
+template <int D, bool kTwinRotation = false>
 __device__ __forceinline__ void column_jacobi_wavefront(float2 (&a)[D],
                                                         float2 (&v)[D],
                                                         int base, int j,
@@ -248,9 +275,14 @@ __device__ __forceinline__ void column_jacobi_wavefront(float2 (&a)[D],
           __shfl_sync(kFullMask, off.y, base + partner));
       float c = 1.f;
       float2 sv = make_float2(0.f, 0.f);
-      if (partner != j)
-        rotation(is_p ? diag.x : other, is_p ? other : diag.x,
-                 is_p ? off_q : off, &c, &sv);
+      if (partner != j) {
+        if constexpr (kTwinRotation)
+          twin_rotation(is_p ? diag.x : other, is_p ? other : diag.x,
+                        is_p ? off_q : off, &c, &sv);
+        else
+          rotation(is_p ? diag.x : other, is_p ? other : diag.x,
+                   is_p ? off_q : off, &c, &sv);
+      }
       // rows p and q of the lane's column, for every pair of the step:
       // A[p] = c A[p] - s A[q]; A[q] = conj(s) A[p] + c A[q]
 #pragma unroll

@@ -130,34 +130,6 @@ inline size_t loop_smem_bytes(int D, int K, int E, int tile, int mode) {
                           size_t(K) * D);
 }
 
-// The spatial quadratic form q = sum_i |v_i^H y|^2 / lam_i of the frame yf
-// under one class, from its eigenvectors conjugate-transposed
-// (Vh[i * D + d] = conj(V[d * D + i]): row i is v_i^H, two entries a load
-// for even D, where Vh is 16-byte aligned) and its reciprocal eigenvalues.
-template <int D>
-__device__ __forceinline__ float projection_quad_h(const float2 (&yf)[D],
-                                                   const float2* Vh,
-                                                   const float* inv_lam) {
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    float2 z = make_float2(0.f, 0.f);
-    if constexpr (D % 2 == 0) {
-#pragma unroll
-      for (int d = 0; d < D; d += 2) {
-        const float4 w = *reinterpret_cast<const float4*>(Vh + i * D + d);
-        z = c_add(z, c_mul(make_float2(w.x, w.y), yf[d]));
-        z = c_add(z, c_mul(make_float2(w.z, w.w), yf[d + 1]));
-      }
-    } else {
-#pragma unroll
-      for (int d = 0; d < D; ++d) z = c_add(z, c_mul(Vh[i * D + d], yf[d]));
-    }
-    q += inv_lam[i] * (z.x * z.x + z.y * z.y);
-  }
-  return q;
-}
-
 // The sums of one tile of nt frames, by the whole block, added into the
 // bin's accumulators (assigned at the first tile) in two passes over the
 // frames, each with warps over frames, a group of kScatterGroup classes in
@@ -435,7 +407,8 @@ integration_em_loop_kernel(
           for (int d = 0; d < D; ++d) yf[d] = ys[d * Tr + t];
           integration::e_step_frame(
               [&](int k) {
-                return projection_quad_h<D>(yf, Vh + k * DD, inv_lam + k * D);
+                return integration::projection_quad_h<D>(yf, Vh + k * DD,
+                                                          inv_lam + k * D);
               },
               [&](int e) { return embs[e * Tr + t]; }, logdet, wgt, sp,
               gaussian, spatial_weight, spectral_weight, affiliation_eps,

@@ -1,6 +1,6 @@
-// Complex cyclic Jacobi for small Hermitian matrices, shared by the
-// whole-fit cACGMM EM kernel (em_loop.cu) and the fused GEV kernel
-// (gev.cu).
+// Complex cyclic Jacobi for small Hermitian matrices in shared memory,
+// shared by the fused GEV kernel (gev.cu) and the whole-fit Bingham EM
+// (cbmm_loop.cu), and the complex arithmetic every kernel uses.
 //
 // Replaces the rotation step of the JAX package's Pallas kernels
 // (pb_bss_tpu/ops/pallas_em_loop.py: _jacobi_rounds and _warm_rotate).

@@ -3,7 +3,8 @@
 // (mm_stream.cu, K7): the walk of a CTA's span of frames, the cp.async
 // ring of tiles, the register sums and the cross-warp reduction. What each
 // kernel adds is its model (set up once per segment) and the E-step of one
-// frame.
+// frame. Its cp.async helpers also serve the integration statistics pass
+// (integration_em.cu, K10), which walks the same plan.
 //
 // Replaces the sequential time grid of the JAX package's Pallas TPU
 // kernels (pb_bss_tpu/ops/pallas_em_stream.py, pallas_mm_stream.py),
@@ -67,6 +68,13 @@ constexpr int kGroup = 4;  // classes accumulated in registers at once
 __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem)
                : "memory");
 }

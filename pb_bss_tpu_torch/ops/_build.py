@@ -51,7 +51,7 @@ KERNELS = {
         'gev_launch': ([_P, _P, _P, _I, _I, _I, _P], _I),
     },
     'eigh': {
-        'eigh_jacobi_launch': ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+        'eigh_jacobi_launch': ([_P] * 3 + [_I] * 6 + [_P], _I),
     },
     'em_stream': {
         'em_stream_launch': (
@@ -86,7 +86,8 @@ KERNELS = {
     },
     'integration_em': {
         'integration_stats_launch': (
-            [_P] * 13 + [_I] * 9 + [_F] * 3 + [_P], _I),
+            [_P] * 15 + [_I] * 7 + [_L] + [_I] * 3 + [_F] * 3 + [_P], _I),
+        'integration_em_capacity': ([_I] * 6, _I),
     },
     'integration_em_loop': {
         'integration_em_loop_launch': (

@@ -12,16 +12,21 @@ resultants ``sum_t a e`` on the raw embedding and, for the Gaussian,
 ``sum_t a e^2``. The posterior never exists in device memory. The M-step
 finish runs in PyTorch (``models/vmfcacgmm.py``, ``models/gcacgmm.py``).
 
-A CTA owns one (bin, time chunk) and writes its own partial sums, which
-the wrapper adds in a fixed order. What bounds it on the H100: the bytes
-of y and the embedding, read once per pass (~20 MB at F=513, T=300, D=6,
-E=20: ~6 us at 3.35 TB/s), against ~1 kFLOP a frame.
+The work plan is the streamed passes' (:mod:`._plan`): whole waves of
+CTAs over equal spans of the bins' frames laid end to end. A bin that
+one CTA covers gets its sums written straight out; a bin split over CTAs
+gets a partial sum a segment, and the CTA that finishes it last adds
+them in slot order inside the same launch (a ticket on the bin's counter
+in a per-stream workspace, which the kernel leaves at 0), so the call is
+one launch and runs repeat bit for bit. What bounds it on the H100: the
+bytes of y and the embedding, read once per pass (~20 MB at F=513,
+T=300, D=6, E=20: ~6 us at 3.35 TB/s), against ~1 kFLOP a frame.
 
 Gate (:func:`fits`): D <= 16 (the JAX package's bound) and the CTA's
-working set within the 227 KB of
-shared memory a block may opt into; the working set holds one tile of
-frames, so T is unlimited (the JAX package's VMEM budget,
-``choose_tile_f``, had a T limit). E <= 1024 passes the budget at D=6.
+working set within the 227 KB of shared memory a block may opt into,
+with a ring of one tile (two where they fit); the working set holds
+tiles of frames, so T is unlimited (the JAX package's VMEM budget,
+``choose_tile_f``, had a T limit).
 
 On a CPU tensor the wrapper runs the plain PyTorch twin,
 :func:`e_stats_reference`. On a CUDA tensor it launches the kernel or
@@ -29,41 +34,82 @@ raises; it never falls back.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .._dtypes import tiny as _tiny
+from . import _plan
 from ._build import SMEM_LIMIT
 
-__all__ = ['e_stats', 'e_stats_reference', 'smem_bytes', 'fits', 'MODES']
+__all__ = ['e_stats', 'e_stats_reference', 'smem_bytes', 'fits', 'plan',
+           'MODES']
 
-TILE = 256  # frames per shared-memory tile (integration::kTile)
 MODES = {'vmf': 0, 'gaussian': 1}
-# CTAs a pass aims for: 132 SMs x a few resident CTAs
-_TARGET_CTAS = 2048
+_GROUP = 4  # classes summed in registers at once
+# a CTA's threads, one a frame of a tile (128 or 256), and the whole waves
+# of the grid (ops/_plan.py): six CTAs of 128 an SM in one wave ran a pass
+# 20-24% faster than three of 256 in four waves on an H100 (PERF.md)
+TILE = 128
+_WAVES = 1
 
 
-def smem_bytes(D, K, E):
-    """Shared memory one CTA needs (csrc/integration_em.cu)."""
-    P = D * (D + 1) // 2
-    return 8 * (D * TILE + K * D * D + K * P) + 4 * (
-        E * TILE + 2 * K * TILE + 4 * K * E + 5 * K + K * D)
+def _ring_words(D, E, stages, tile):
+    """Words of the tile ring, or of the reduction's scratch that reuses
+    it (ring_words in csrc/integration_em.cu)."""
+    item_sets = -(-(D * (D + 1) // 2) // 32) + 1
+    words = max(stages * (tile + 1) * (2 * D + E),
+                tile // 32 * _GROUP * item_sets * 64)
+    return -(-words // 4) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def smem_bytes(D, K, E, stages, tile):
+    """Shared memory one CTA of ``tile`` threads needs with ``stages``
+    tiles in its ring (csrc/integration_em.cu)."""
+    return 4 * (_ring_words(D, E, stages, tile) + 2 * K * D * D
+                + 2 * K * tile + K * D + 4 * K + 2 * K * E + 1)
 
 
 def fits(D, K, E):
     """Does the statistics kernel take (D, K, E)? Saliency is read from
     device memory frame by frame and T is walked in tiles, so neither
     changes the budget."""
-    return D <= 16 and smem_bytes(D, K, E) <= SMEM_LIMIT
+    return D <= 16 and smem_bytes(D, K, E, 1, TILE) <= SMEM_LIMIT
 
 
-def _chunking(N, T):
-    """(splits, chunk): each bin's frames cut into ``splits`` chunks of
-    ``chunk`` frames (a multiple of the tile; every chunk holds at least
-    one frame)."""
-    tiles = max(1, -(-T // TILE))
-    splits = min(tiles, max(1, -(-_TARGET_CTAS // max(N, 1))))
-    chunk_tiles = -(-tiles // splits)
-    return -(-tiles // chunk_tiles), chunk_tiles * TILE
+def _stages(D, K, E, tile):
+    """Tiles in the ring: two (the next tile's copy overlaps this one's
+    work) where they fit the shared memory, else one."""
+    return 2 if smem_bytes(D, K, E, 2, tile) <= SMEM_LIMIT else 1
+
+
+def plan(N, T, capacity, tile):
+    """(ctas, span, slots) of one pass over N bins of T frames on a card
+    that holds ``capacity`` CTAs of ``tile`` threads at once:
+    :func:`._plan.partition`. The frames of bin n fall to CTAs
+    floor(n T / span) .. floor(((n + 1) T - 1) / span); where they are
+    more than one, each writes its partial sums to its slot (< slots)."""
+    return _plan.partition(N, T, capacity, tile=tile, waves=_WAVES)
+
+
+# per (device, stream): the bins' counters (0 between launches) and the
+# slots of the split bins' partial sums
+_workspaces = {}
+
+
+def _workspace(device, stream, N, words):
+    """Counters for N bins and ``words`` floats of slots, reused by every
+    pass on ``stream`` (stream order keeps them apart); grown on demand."""
+    key = (device.index, stream)
+    counters, slots = _workspaces.get(key, (None, None))
+    if counters is None or counters.numel() < N:
+        counters = torch.zeros(max(N, 1), dtype=torch.int32, device=device)
+    if slots is None or slots.numel() < words:
+        slots = torch.empty(max(words, 2), dtype=torch.float32,
+                            device=device)
+    _workspaces[key] = counters, slots
+    return counters, slots
 
 
 def _check_mode(spectral_mode):
@@ -206,7 +252,9 @@ def e_stats(y, emb, *, eigenvalues, eigenvectors, weight, mu, kappa, log_c,
             raise ValueError(
                 f'expected {shape} on {y.device}, got {tuple(x.shape)} '
                 f'on {x.device}')
-        return x.resolve_conj().to(dtype).contiguous()
+        if x.dtype != dtype or x.is_conj() or not x.is_contiguous():
+            x = x.resolve_conj().to(dtype).contiguous()
+        return x
 
     operands = [
         operand(emb, (N, E, T), torch.float32),
@@ -218,35 +266,42 @@ def e_stats(y, emb, *, eigenvalues, eigenvectors, weight, mu, kappa, log_c,
         operand(kappa, (U, K, E) if gaussian else (U, K), torch.float32),
         operand(log_c, (U, K), torch.float32),
     ]
-    y_ = y.resolve_conj().contiguous()
-    splits, chunk = _chunking(N, T)
+    y_ = y if not y.is_conj() and y.is_contiguous() \
+        else y.resolve_conj().contiguous()
     f32 = dict(dtype=torch.float32, device=y.device)
-    scatter = torch.empty((splits, N, K, D, D), dtype=torch.complex64,
+    scatter = torch.empty((N, K, D, D), dtype=torch.complex64,
                           device=y.device)
-    asum = torch.empty((splits, N, K), **f32)
-    res = torch.empty((splits, N, K, E), **f32)
-    m2 = torch.empty((splits, N, K, E), **f32) if gaussian else None
-    if N and T:
-        from ._build import load
-        err = load('integration_em').integration_stats_launch(
-            y_.data_ptr(),
-            *[0 if x is None else x.data_ptr() for x in operands],
-            scatter.data_ptr(), asum.data_ptr(), res.data_ptr(),
-            0 if m2 is None else m2.data_ptr(), N, D, K, T, E, bins_per_utt,
-            splits, chunk, MODES[spectral_mode], float(spatial_weight),
-            float(spectral_weight), float(affiliation_eps),
-            torch.cuda.current_stream(y.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f'integration e_stats kernel launch failed: CUDA error {err}')
-        e_stats.launches += 1
-    else:
+    asum = torch.empty((N, K), **f32)
+    res = torch.empty((N, K, E), **f32)
+    m2 = torch.empty((N, K, E), **f32) if gaussian else None
+    if not (N and T):
         for x in (scatter, asum, res, m2):
             if x is not None:
                 x.zero_()
-    # the second pass of the reduction: the split partials, in order
-    return (scatter.sum(0), asum.sum(0), res.sum(0),
-            None if m2 is None else m2.sum(0))
+        return scatter, asum, res, m2
+    from ._build import load
+    index = y.device.index or 0
+    tile = TILE
+    stages = _stages(D, K, E, tile)
+    ctas, span, slots = plan(N, T, _plan.capacity(
+        'integration_em', index, D, K, E, MODES[spectral_mode], stages,
+        tile), tile)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    counters, work = _workspace(
+        y.device, stream, N,
+        2 * slots * N * K * (D * (D + 1) // 2 + 1 + E) if slots > 1 else 0)
+    err = load('integration_em').integration_stats_launch(
+        y_.data_ptr(), *[0 if x is None else x.data_ptr() for x in operands],
+        scatter.data_ptr(), asum.data_ptr(), res.data_ptr(),
+        0 if m2 is None else m2.data_ptr(), work.data_ptr(),
+        counters.data_ptr(), N, D, K, T, E, bins_per_utt, ctas, span,
+        stages, tile, MODES[spectral_mode], float(spatial_weight),
+        float(spectral_weight), float(affiliation_eps), stream)
+    if err:
+        raise RuntimeError(
+            f'integration e_stats kernel launch failed: CUDA error {err}')
+    e_stats.launches += 1
+    return scatter, asum, res, m2
 
 
 e_stats.launches = 0

@@ -36,10 +36,14 @@ def _check_factorization(a, w, v):
     assert np.abs(orth - np.eye(a.shape[-1])).max() <= 1e-4
 
 
+@pytest.mark.parametrize('scale', [1., 1e-20])
 @pytest.mark.parametrize('dtype', [np.complex64, np.float32])
 @pytest.mark.parametrize('D', [2, 3, 6, 16])
-def test_matches_jax(D, dtype):
-    a = _hermitian(D, dtype, seed=D)
+def test_matches_jax(D, dtype, scale):
+    """At 1e-20 the rotations are the same as at 1 (no entry counts as
+    zero, none underflows): 1e-20 times the eigenvalues, the same
+    vectors."""
+    a = (_hermitian(D, dtype, seed=D) * scale).astype(dtype)
     w_ref, _ = jax_eigh_jacobi(jnp.asarray(a))
     w, v = eigh_jacobi(torch.as_tensor(a))
     assert w.dtype == torch.float32 and w.shape == (B, D)
@@ -51,7 +55,46 @@ def test_matches_jax(D, dtype):
     lam_max = np.abs(w_ref).max(-1, keepdims=True)
     assert (np.abs(w - w_ref) <= 2e-5 * lam_max).all()
     assert (np.diff(w, axis=-1) >= 0).all()  # ascending
-    _check_factorization(a, w, v)
+    _check_factorization(a / scale, w / scale, v)
+    if scale != 1:
+        w1, v1 = eigh_jacobi(torch.as_tensor(_hermitian(D, dtype, seed=D)))
+        assert (np.abs(w / scale - w1.numpy())
+                <= 2e-5 * np.abs(w1.numpy()).max(-1, keepdims=True)).all()
+        overlap = np.abs(np.einsum('bde,bde->be', v.conj(), v1.numpy()))
+        assert overlap.min() > 1 - 1e-4
+
+
+@pytest.mark.parametrize('dtype', [np.complex64, np.float32])
+def test_nan_matrix_sorts_last(dtype):
+    """A NaN matrix in the batch: its NaN eigenvalues sort after every
+    number, NaNs in index order (the stable torch.sort that the CUDA
+    kernel's rank order follows; the JAX package's rank sort gives NaN
+    no rank), and the other matrices come out as without it, as in the
+    JAX package."""
+    D = 6
+    a = _hermitian(D, dtype, seed=4)
+    bad = a.copy()
+    bad[5] = np.nan  # every entry
+    bad[9, 0, 0] = np.nan  # one diagonal entry
+    bad[9, 3, 3] = 7.
+    w, v = eigh_jacobi(torch.as_tensor(bad))
+    w_clean, v_clean = eigh_jacobi(torch.as_tensor(a))
+    keep = np.ones(B, bool)
+    keep[[5, 9]] = False
+    assert torch.equal(w[keep], w_clean[keep])
+    assert torch.equal(v[keep], v_clean[keep])
+    w_ref, _ = jax_eigh_jacobi(jnp.asarray(bad))
+    lam_max = np.abs(np.asarray(w_ref)[keep]).max(-1, keepdims=True)
+    assert (np.abs(w[keep].numpy() - np.asarray(w_ref)[keep])
+            <= 2e-5 * lam_max).all()
+    for row in (5, 9):
+        nan = torch.isnan(w[row])
+        assert nan.any()
+        assert (nan.int().diff() >= 0).all()  # NaN after every number
+        finite = w[row][~nan]
+        assert (finite.diff() >= 0).all()
+    # the NaN matrix is left unrotated: its NaNs in index order, V = I
+    assert torch.equal(v[5], torch.eye(D, dtype=v.dtype))
 
 
 @pytest.mark.parametrize('dtype', [np.complex64, np.float32])

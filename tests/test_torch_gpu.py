@@ -92,29 +92,81 @@ def _hermitian(B, D, dtype, device, seed):
     return x @ x.conj().transpose(-1, -2) / D
 
 
-@pytest.mark.parametrize('D,dtype', [(6, torch.complex64), (3, torch.complex64),
-                                     (16, torch.complex64),
-                                     (6, torch.float32)])
-def test_eigh_kernel_matches_plain(cuda, D, dtype):
+@pytest.mark.parametrize('kind', ['random', 'tiny', 'nan'])
+@pytest.mark.parametrize('sort', [True, False])
+@pytest.mark.parametrize('dtype', [torch.complex64, torch.float32])
+@pytest.mark.parametrize('D', [1, 2, 3, 6, 8, 16])
+def test_eigh_kernel_matches_plain(cuda, D, dtype, sort, kind):
+    """K1 against its twin, sorted in the kernel or not. 'tiny' scales the
+    batch by 1e-20 (held relative to the scale); 'nan' holds a NaN matrix
+    and a matrix with one NaN entry, whose NaN eigenvalues come last while
+    the other matrices match the twin."""
     from pb_bss_tpu_torch.ops.eigh import eigh_jacobi, eigh_jacobi_reference
+    scale = 1e-20 if kind == 'tiny' else 1.
     a = _hermitian(771, D, dtype, cuda, seed=D)
     a[:4] = torch.eye(D, dtype=dtype, device=cuda)
+    a = a * scale
+    keep = torch.ones(771, dtype=torch.bool, device=cuda)
+    if kind == 'nan':
+        a[7] = float('nan')
+        a[9, 0, 0] = float('nan')
+        keep[[7, 9]] = False
     before = eigh_jacobi.launches
-    w, v = eigh_jacobi(a)
+    w_o, v_o = eigh_jacobi(a, sort=sort)
     torch.cuda.synchronize()
     assert eigh_jacobi.launches == before + 1
+    w, v = eigh_jacobi(a) if not sort else (w_o, v_o)
+    if not sort:
+        # the Jacobi's order: the sorted call is the unsorted one stably
+        # sorted, bit for bit (the twin's unsorted order can part from it
+        # where a sweep meets a near tie, so the twin is held sorted)
+        order = torch.sort(w_o, dim=-1, stable=True).indices
+
+        def same(x, y):
+            return ((x == y) | (torch.isnan(x) & torch.isnan(y))).all()
+
+        assert same(torch.gather(w_o, -1, order), w)
+        assert same(torch.gather(v_o, -1, order[:, None].expand_as(v_o)), v)
     w_p, _ = eigh_jacobi_reference(a)
     assert v.dtype == dtype and w.dtype == torch.float32
     # two f32 Jacobi runs of the same rotations: within 2e-5 of the
     # largest eigenvalue; the factorization within 1e-4
+    wk, wp, vk, ak = w[keep] / scale, w_p[keep] / scale, v[keep], \
+        a[keep] / scale
+    lam_max = wp.abs().max(-1, keepdim=True).values
+    assert ((wk - wp).abs() <= 2e-5 * lam_max).all()
+    recon = vk @ torch.diag_embed(wk).to(dtype) @ vk.conj().transpose(-1, -2)
+    assert ((recon - ak).abs().amax((-2, -1))
+            <= 1e-4 * ak.abs().amax((-2, -1))).all()
+    eye = torch.eye(D, dtype=dtype, device=cuda)
+    assert torch.equal(v_o[:4], eye.expand(4, D, D))
+    assert torch.equal(w_o[:4], torch.full((4, D), scale, device=cuda))
+    if kind == 'nan':
+        nan = torch.isnan(w[[7, 9]])
+        assert torch.equal(nan, torch.isnan(w_p[[7, 9]]))
+        assert (nan.int().diff(dim=-1) >= 0).all()  # NaN last
+        assert torch.equal(v_o[7], eye)
+
+
+def test_eigh_kernel_sorts_in_the_kernel(cuda, monkeypatch):
+    """K1's CUDA call is the kernel alone: no torch.sort, torch.gather or
+    sort_ascending after it."""
+    from pb_bss_tpu_torch.ops import eigh, linalg
+    a = _hermitian(3084, 6, torch.complex64, cuda, seed=5)
+    w_p, v_p = eigh.eigh_jacobi_reference(a)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError('the CUDA call sorted outside the kernel')
+
+    for module, name in ((torch, 'sort'), (torch, 'gather'),
+                         (torch, 'argsort'), (linalg, 'sort_ascending')):
+        monkeypatch.setattr(module, name, refuse)
+    w, v = eigh.eigh_jacobi(a)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert (w.diff(dim=-1) >= 0).all()
     lam_max = w_p.abs().max(-1, keepdim=True).values
     assert ((w - w_p).abs() <= 2e-5 * lam_max).all()
-    recon = v @ torch.diag_embed(w).to(dtype) @ v.conj().transpose(-1, -2)
-    assert ((recon - a).abs().amax((-2, -1))
-            <= 1e-4 * a.abs().amax((-2, -1))).all()
-    eye = torch.eye(D, dtype=dtype, device=cuda)
-    assert torch.equal(v[:4], eye.expand(4, D, D))
-    assert torch.equal(w[:4], torch.ones(4, D, device=cuda))
 
 
 @pytest.mark.parametrize('mode', ['from_init', 'model'])
@@ -743,6 +795,63 @@ def test_integration_stats_kernel_matches_plain(cuda, mode, D, K, T, E, U,
             continue
         assert (a - b).abs().max() <= 1e-5 * b.abs().max()
     assert torch.equal(out[0], out[0].conj().transpose(-1, -2))
+
+
+def _integration_stats_kwargs(N, U, mode, ev, vec, w, spec, sal):
+    return dict(eigenvalues=ev, eigenvectors=vec, weight=w, mu=spec[0],
+                kappa=spec[1], log_c=spec[2], bins_per_utt=N // U,
+                spectral_mode=mode, saliency=sal, spatial_weight=0.7,
+                spectral_weight=1.3)
+
+
+@pytest.mark.parametrize('mode', ['vmf', 'gaussian'])
+def test_integration_stats_kernel_at_b8(cuda, mode):
+    """K10 at bench config 3 folded 8 times (8 x 513 bins, T=300, E=20),
+    with saliency, against its twin; two passes agree bit for bit."""
+    from pb_bss_tpu_torch.ops import integration_em
+    N, U = 8 * 513, 8
+    y, emb, ev, vec, w, spec, sal = _integration_inputs(
+        N, 6, 3, 300, 20, U, mode, cuda, saliency=True, seed=3)
+    kw = _integration_stats_kwargs(N, U, mode, ev, vec, w, spec, sal)
+    out = integration_em.e_stats(y, emb, **kw)
+    again = integration_em.e_stats(y, emb, **kw)
+    ref = integration_em.e_stats_reference(y, emb, **kw)
+    torch.cuda.synchronize()
+    for a, a2, b in zip(out, again, ref):
+        if b is None:
+            assert a is None
+            continue
+        assert torch.equal(a, a2)
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize('mode,T', [('vmf', 300), ('gaussian', 257),
+                                    ('vmf', 1)])
+def test_integration_stats_kernel_is_one_launch(cuda, mode, T):
+    """One K10 call is one kernel on the card (no tail after it), counted
+    once, and repeats bit for bit."""
+    from pb_bss_tpu_torch.ops import integration_em
+    N = 513
+    y, emb, ev, vec, w, spec, sal = _integration_inputs(
+        N, 6, 3, T, 20, 1, mode, cuda, saliency=True, seed=4)
+    # operands that need no conversion (torch.linalg.eigh leaves the
+    # eigenvectors column-major)
+    kw = _integration_stats_kwargs(N, 1, mode, ev, vec.contiguous(), w, spec,
+                                   sal)
+    first = integration_em.e_stats(y, emb, **kw)
+    torch.cuda.synchronize()
+    before = integration_em.e_stats.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        again = integration_em.e_stats(y, emb, **kw)
+        torch.cuda.synchronize()
+    assert integration_em.e_stats.launches == before + 1
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, [e.name for e in kernels]
+    assert 'integration_stats' in kernels[0].name
+    for a, b in zip(first, again):
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 @pytest.mark.parametrize('mode', ['vmf', 'gaussian'])

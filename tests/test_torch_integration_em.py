@@ -218,12 +218,42 @@ def test_gate_and_arguments():
     assert integration_em.fits(6, 3, 20) and integration_em.fits(16, 4, 64)
     assert not integration_em.fits(17, 3, 20)
     assert not integration_em.fits(6, 3, 5000)  # the tile of E rows
-    assert integration_em._chunking(513, 300) == (2, 256)
-    assert integration_em._chunking(8 * 513, 300) == (1, 512)
+    # config 3 on 792 resident CTAs of 128 threads (6 an SM on 132 SMs):
+    # one wave, each bin over at most 3 CTAs; at B=8 spans of 10 bins
+    assert integration_em.plan(513, 300, 792, 128) == (790, 195, 3)
+    assert integration_em.plan(8 * 513, 300, 792, 128) == (792, 1555, 2)
+    assert integration_em.smem_bytes(6, 3, 20, 2, 128) <= 232448 // 6
+    assert integration_em.smem_bytes(6, 3, 20, 2, 256) <= 232448 // 3
     obs, emb = _problem(F=3, T=10)
     _, eigval, eigvec, weight, spec = _model(3, 4, 8, 3, 'vmf')
     with pytest.raises(ValueError, match='spectral_mode'):
         _port_stats(obs, emb, eigval, eigvec, weight, spec, 'gmm', None)
+
+
+@pytest.mark.parametrize('N', [1, 7, 513])
+@pytest.mark.parametrize('T', [1, integration_em.TILE,
+                               integration_em.TILE + 1, 300, 3753])
+def test_plan_covers_every_frame_once(N, T):
+    """The kernel's walk of the wrapper's plan (ops/_plan.segments) takes
+    every frame of every bin exactly once; a bin's segments are the CTAs
+    that the kernel counts for it (floor(n T / span) to floor(((n + 1) T
+    - 1) / span): one writes its sums out, more each write a slot), each
+    with its own slot below the plan's slot count."""
+    from pb_bss_tpu_torch.ops import _plan
+    for capacity, tile in ((792, 128), (396, 256), (264, 256)):
+        ctas, span, slots = integration_em.plan(N, T, capacity, tile)
+        seen = np.zeros((N, T), np.int64)
+        by_bin = {}
+        for cta, n, t0, t1, slot in _plan.segments(N, T, span):
+            assert 0 <= cta < ctas and 0 <= slot < slots
+            assert t0 < t1
+            seen[n, t0:t1] += 1
+            by_bin.setdefault(n, []).append((cta, slot))
+        assert (seen == 1).all()
+        for n, pieces in by_bin.items():
+            first = n * T // span
+            count = ((n + 1) * T - 1) // span - first + 1
+            assert pieces == [(first + s, s) for s in range(count)]
 
 
 @pytest.mark.slow
