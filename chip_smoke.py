@@ -9,7 +9,8 @@ the floor, pb_bss_tpu_torch.testing.em_floor), and drives six paths,
 each with the launch counters reset just before and read just after:
 
 * the short-recording path: ``separate_batch`` of 4.8 s utterances
-  with the GEV+BAN beamformer (whole-fit EM kernel, GEV kernel),
+  with the GEV+BAN beamformer (whole-fit EM kernel, GEV kernel once,
+  the loading retry inside it),
   ``separate`` at its defaults and the ``python -m pb_bss_tpu_torch``
   CLI;
 * the long-recording path: ``separate_batch`` of 60 s recordings
@@ -49,7 +50,7 @@ limit, and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without a CUDA device, outside a checkout of the repository,
 or when any phase fails. Imports nothing of JAX.
 
-    python3 chip_smoke.py --only floor,cacgmm,cbmm,cwmm,integration,splits,e2e,eigh,integration_stats,eigh_stats_splits \
+    python3 chip_smoke.py --only floor,cacgmm,cbmm,cwmm,integration,splits,e2e,eigh,integration_stats,eigh_stats_splits,gev_estep_splits \
         [--package DIR]
 
 runs only the named phases after the build (the floor checks, the cACGMM
@@ -60,7 +61,8 @@ streamed Watson and Bingham statistics, the Bingham chord solve, the
 whole-fit Watson EM, the whole-fit integration EM, the batched Jacobi
 and the integration statistics pass, the cACGMM separate_batch end to
 end, the batched Jacobi's checks, the integration statistics pass's
-checks, the split of the last two alone), with ``pb_bss_tpu_torch`` imported from DIR
+checks, the split of the last two alone, the split of the GEV and the
+E-step kernels alone), with ``pb_bss_tpu_torch`` imported from DIR
 if given (another checkout, to time two versions in one call); it prints
 no kernels line.
 """
@@ -314,9 +316,17 @@ def aligned_error(beam, ref):
 
 
 def check_gev(B, D, seed, plant=3):
+    """K3 against its twin with a planted non-PD pencil, and
+    get_gev_vector on the card: one K3 launch, whose finite pencils keep
+    the unloaded vector and whose planted pencil takes the loaded vector
+    of the twin's two-call composition (gev_with_retry_reference). At
+    D=1 the planted noise PSD is 0, which loading cannot lift: non-finite
+    in both."""
     import torch
-    from pb_bss_tpu_torch.extraction.beamformer import get_gev_vector
-    from pb_bss_tpu_torch.ops.gev import gev, gev_reference
+    from pb_bss_tpu_torch.extraction.beamformer import (
+        RETRY_LOADING, get_gev_vector)
+    from pb_bss_tpu_torch.ops.gev import (
+        gev, gev_reference, gev_with_retry_reference)
     phi_xx, phi_nn = pencils(B, D, seed, plant_non_pd=plant)
     beam = gev(phi_xx, phi_nn)
     ref = gev_reference(phi_xx, phi_nn)
@@ -327,19 +337,32 @@ def check_gev(B, D, seed, plant=3):
     bnb = torch.einsum('bd,bde,be->b', beam[ok_k].conj(), phi_nn[ok_k],
                        beam[ok_k])
     bnorm = (bnb - 1).abs().max().item()
+    before = gev.launches
     retry = get_gev_vector(phi_xx, phi_nn)
     sync()
+    retry_launches = gev.launches - before
+    composed = gev_with_retry_reference(phi_xx, phi_nn, RETRY_LOADING)
+    fin_r = torch.isfinite(retry.abs()).all(-1)
+    fin_c = torch.isfinite(composed.abs()).all(-1)
+    kept = torch.equal(retry[ok_k], beam[ok_k])
+    err_r = aligned_error(retry, composed)
     log(f'K3 B={B} D={D}: planted non-PD finite (kernel, plain) '
         f'({bool(ok_k[plant])}, {bool(ok_p[plant])}); others finite '
         f'{int(ok_k.sum())}/{B - 1}; max|err| after phase {err:.2e}; '
-        f'|w^H N w - 1| {bnorm:.2e}; retry finite '
-        f'{bool(torch.isfinite(retry.abs()).all())}')
+        f'|w^H N w - 1| {bnorm:.2e}; get_gev_vector: {retry_launches} '
+        f'launch, finite {int(fin_r.sum())}/{B} (composition '
+        f'{int(fin_c.sum())}), unloaded vectors kept {kept}, max|err| '
+        f'after phase against the composition {err_r:.2e}')
     if ok_k[plant] or ok_p[plant] or int(ok_k.sum()) != B - 1:
         fail('K3 non-PD handling differs from the plain version')
     if not (err < 1e-3 and bnorm < 1e-3):
         fail(f'K3 mismatch: err {err}, B-normalization {bnorm}')
-    if not torch.isfinite(retry.abs()).all():
-        fail('K3 diagonal-loading retry left non-finite vectors')
+    if retry_launches != 1:
+        fail(f'get_gev_vector launched K3 {retry_launches} times')
+    if not (torch.equal(fin_r, fin_c) and bool(fin_r.all()) == (D > 1)
+            and kept and err_r < 1e-3):
+        fail(f'K3 diagonal-loading retry at B={B} D={D} differs from the '
+             'two-call composition')
     return err
 
 
@@ -719,17 +742,35 @@ def estep_inputs(F, D, K, T, seed):
 
 
 def check_estep(F, D, K, T, seed):
-    """Both K11 kernels against their twins. Returns (max abs posterior
-    error of the E-step, max abs error of the scatter)."""
+    """Both K11 kernels against their twins; the scatter run twice, bit
+    for bit (its split bins are summed in the launch in slot order), and
+    through the trainer's route (em_scatter_model on the complex y and
+    eigenvectors), bit for bit. Returns (max abs posterior error of the
+    E-step, max abs error of the scatter)."""
+    import torch
+    from pb_bss_tpu_torch.ops import _plan, em_estep
     from pb_bss_tpu_torch.ops.em_estep import (
         cacgmm_e_step, cacgmm_e_step_reference, cacgmm_em_scatter,
-        cacgmm_em_scatter_reference)
+        cacgmm_em_scatter_reference, em_scatter_model)
     args = estep_inputs(F, D, K, T, seed)
     aff_k, qf_k = cacgmm_e_step(*args)
     aff_p, qf_p = cacgmm_e_step_reference(*args)
     s_k = cacgmm_em_scatter(*args)
+    s_again = cacgmm_em_scatter(*args)
+    s_model = em_scatter_model(torch.complex(args[0], args[1]),
+                               torch.complex(args[2], args[3]), *args[4:])
     s_p = cacgmm_em_scatter_reference(*args)
     sync()
+    repeat = all(same_bits(a, b) for a, b in zip(s_k, s_again))
+    route = all(same_bits(a, b) for a, b in zip(s_k, s_model))
+    ctas, span, slots = em_estep.plan(F, T, _plan.capacity(
+        'em_estep', 0, 1, D, K))
+    log(f'K11 F={F} D={D} K={K} T={T}: scatter plan {ctas} CTAs of '
+        f'{em_estep.THREADS} threads, span {span}, up to {slots} slots a '
+        f'bin; repeats bit for bit {repeat}; the trainer\'s route bit for '
+        f'bit {route}')
+    if not (repeat and route):
+        fail(f'K11 scatter does not repeat bit for bit at {(F, D, K, T)}')
     err_a = (aff_k - aff_p).abs().max().item()
     rel_q = ((qf_k - qf_p).abs() / qf_p).max().item()
     scale = max(s_p[0].abs().max().item(), s_p[1].abs().max().item())
@@ -1861,6 +1902,8 @@ def phase_kernels_cacgmm():
     check_gev(8 * 257, 6, seed=9)
     results['gev_slice'] = check_gev(8 * 257 * 3, 6, seed=7)
     check_gev(100, 3, seed=8)
+    for D in (1, 2, 8, 16):
+        check_gev(300, D, seed=40 + D)
     # K1 at the long path's M-step shape: 4 recordings x 257 bins x 3,
     # every D, both dtypes, sort on and off, 1e-20 and NaN batches
     results['eigh'] = phase_kernels_eigh()
@@ -1885,6 +1928,15 @@ def phase_kernels_cacgmm():
     _, results['scatter'] = check_estep(257, 6, 3, 304, seed=26)
     check_estep(65, 6, 3, 1100, seed=27)
     check_estep(33, 4, 2, 37, seed=28)
+    # a minute (T = 3753, bins split over CTAs), and an odd shape whose
+    # grid is a partial wave with a short last span
+    check_estep(513, 6, 3, 3753, seed=31)
+    check_estep(129, 6, 3, 301, seed=32)
+    # every D of both kernels, with K = 5 and 8: two groups of classes,
+    # so the pass re-reads a segment and the E-step runs again a group
+    for D in range(1, 17):
+        check_estep(33, D, 5, 304, seed=600 + D)
+        check_estep(33, D, 8, 3753, seed=700 + D)
     # K2 with saliency and a mask that silences a class in 16 bins
     results['em_extras'] = check_em(2, 129, 6, 3, 304, seed=29, extras=True)
     return results
@@ -2027,6 +2079,9 @@ def phase_main_path():
         f"'gev+ban', 20 it) -> {tuple(out.shape)}; launches {launches}")
     if any(n == 0 for n in launches.values()):
         fail(f'a kernel of the main path was not launched: {launches}')
+    if launches['gev'] != 1:
+        fail(f'separate_batch launched K3 {launches["gev"]} times, not '
+             'once (the loading retry runs in the same launch)')
     if not bool(torch.isfinite(out).all()):
         fail('separate_batch output is not finite')
     scores = si_sdr_stft(images[:, :, None],
@@ -2157,9 +2212,9 @@ def phase_long():
         f"'gev+ban', 20 it) -> {tuple(out.shape)}; launches {launches}")
     if not (launches['cacgmm_em_full'] == 0
             and launches['cacgmm_em_long'] >= 1
-            and launches['eigh_jacobi'] >= 1 and launches['gev'] == 2):
+            and launches['eigh_jacobi'] >= 1 and launches['gev'] == 1):
         fail(f'long path launches {launches}, expected K2 = 0, K4 >= 1, '
-             'K1 >= 1, K3 = 2')
+             'K1 >= 1, K3 = 1')
     if not bool(torch.isfinite(out).all()):
         fail('long separate_batch output is not finite')
     scores = si_sdr_stft(images[:, :, None],
@@ -2223,7 +2278,7 @@ def expect_launches(what, got, want):
 def phase_cwmm():
     """The complex Watson mixture on the card: separate_batch(model=
     'cwmm') of the 4.8 s utterances and of the 60 s recordings, both
-    inside the whole-fit Watson kernel's gate (K6 once, K3 twice);
+    inside the whole-fit Watson kernel's gate (K6 once, K3 once);
     CWMMTrainer.fit at the long-T config (F=513, T=4000, 10 iterations:
     K7 1 from-init + 9 step passes, K1 in every M-step) and with
     frequency-constant weights at the bench shape (K7 1 + 19, K1 20).
@@ -2243,7 +2298,7 @@ def phase_cwmm():
     launches = read_counters()
     expect_launches(f"separate_batch(8 x {tuple(obs.shape[1:])}, 'gev+ban', "
                     "20 it, model='cwmm')", launches,
-                    {'cwmm_em_full': 1, 'mm_stats': 0, 'gev': 2, **none})
+                    {'cwmm_em_full': 1, 'mm_stats': 0, 'gev': 1, **none})
     path = {'cwmm_em_full': launches['cwmm_em_full']}
     if not bool(torch.isfinite(out).all()):
         fail("separate_batch(model='cwmm') output is not finite")
@@ -2274,7 +2329,7 @@ def phase_cwmm():
         f"'gev+ban', 20 it): route {route}; {1e3 * seconds:.1f} ms host "
         'clock (the first call of this shape)')
     expect_launches('cwmm long path', launches,
-                    {'cwmm_em_full': 1, 'mm_stats': 0, 'gev': 2, **none})
+                    {'cwmm_em_full': 1, 'mm_stats': 0, 'gev': 1, **none})
     if not bool(torch.isfinite(out).all()):
         fail("separate_batch(model='cwmm') on 60 s is not finite")
     scores = si_sdr_stft(images[:, :, None],
@@ -2317,7 +2372,7 @@ def phase_cwmm():
 
 def phase_cbmm():
     """The complex Bingham mixture on the card: separate_batch(model=
-    'cbmm') of the 4.8 s utterances (K9 once, K3 twice, no K7 or K8);
+    'cbmm') of the 4.8 s utterances (K9 once, K3 once, no K7 or K8);
     CBMMTrainer.fit at the long-T config (F=513, T=4000, 5 iterations: K7
     5 passes, K1 in every M-step, K8 three launches for the cold first
     solve and one per warm solve) and with frequency-constant weights at
@@ -2358,7 +2413,7 @@ def phase_cbmm():
     expect_launches(f"separate_batch(8 x {tuple(obs.shape[1:])}, 'gev+ban', "
                     "20 it, model='cbmm')", launches,
                     {'cbmm_em_full': 1, 'mm_stats': 0,
-                     'bingham_chord_solve': 0, 'gev': 2, **none})
+                     'bingham_chord_solve': 0, 'gev': 1, **none})
     # a bin where one class takes every frame leaves the other classes'
     # noise PSD exactly 0, and the GEV beamformer of such a bin is
     # non-finite in both packages (ROADMAP queue 3): the random start
@@ -2390,7 +2445,7 @@ def phase_cbmm():
         launches = read_counters()
         add(launches)
         expect_launches(f'cbmm {recipe} recipe, 8 x 4.8 s, 20 it', launches,
-                        {'cbmm_em_full': 1, 'gev': 2, **want})
+                        {'cbmm_em_full': 1, 'gev': 1, **want})
         means = scores.mean(0)
         log(f'  cbmm {recipe} recipe SI-SDR per speaker (dB): '
             f'{[[round(v, 2) for v in row] for row in scores.tolist()]}; '
@@ -3215,6 +3270,18 @@ def time_watson_integration_splits():
     return out
 
 
+def split_four(out, label, call, ins, key):
+    """The four numbers of a kernel's split into ``out``: the call (CUDA
+    events, a distinct input a call), the device time of the kernels
+    whose name holds ``key`` per launch and of every kernel per call (the
+    profiler), and the wrapper's host time per call."""
+    out[f'{label} call'] = cuda_time(call, ins)
+    kernel, every, host = device_ms_per_launch(call, ins[0], key)
+    out[f'{label} device per launch'] = kernel
+    out[f'{label} device per call, all kernels'] = every
+    out[f'{label} host per call'] = host
+
+
 def time_eigh_stats_splits():
     """The split of K1's and K10's time, with their own arguments only,
     and of the two paths they carry. K1 at 3,084 6 x 6 complex64 matrices
@@ -3239,11 +3306,7 @@ def time_eigh_stats_splits():
     out = {}
 
     def four(label, call, ins, key):
-        out[f'{label} call'] = cuda_time(call, ins)
-        kernel, every, host = device_ms_per_launch(call, ins[0], key)
-        out[f'{label} device per launch'] = kernel
-        out[f'{label} device per call, all kernels'] = every
-        out[f'{label} host per call'] = host
+        split_four(out, label, call, ins, key)
 
     for B, D, dtype in ((3084, 6, torch.complex64),
                         (1539, 6, torch.complex64),
@@ -3316,6 +3379,125 @@ def time_eigh_stats_splits():
         out['separate_batch cacgmm 4 x 60 s host'] = \
         separate_device_ms(long, 'cacgmm')
     log('timing K1 / K10 splits (ms): '
+        + '; '.join(f'{case} {ms:.4f}' for case, ms in out.items()))
+    return out
+
+
+def time_gev_estep_splits():
+    """The split of K3's and K11's time, with their own arguments only,
+    and of the paths they carry. K3 at 513 and 6,168 pencils of D=6 (the
+    slice cell's 8 x 257 bins x 3 classes), at 6,168 also D = 2, 3, 8
+    and 16, and get_gev_vector on 6,168 pencils whole (with its torch
+    work; its K3 launches a call): the call (CUDA events, a distinct
+    input a call), the kernel's device time per launch and that of every
+    kernel of a call (the profiler), and the wrapper's host time per
+    call; where the package has them, the warps a CTA against the
+    wrapper's choice. K11: the E-step at F=513 T=300, the scatter at
+    F=257 T=304 and F=513 T=3753, the same four numbers, and where the
+    package has them the grid's waves against the wrapper's choice and
+    the trainer's route (em_scatter_model) at F=257 T=304. Then CACGMMTrainer.fit(use_pallas_em=True) at F=257
+    T=304, 20 iterations, on the host clock (the medians of the first 3
+    and of 10 after a warm-up) with its device time, and the device time
+    of separate_batch of 8 x 4.8 s (the slice cell). Returns {case:
+    ms}."""
+    import statistics
+    import torch
+    from pb_bss_tpu_torch.extraction.beamformer import get_gev_vector
+    from pb_bss_tpu_torch.models.cacgmm import CACGMMTrainer
+    from pb_bss_tpu_torch.ops import em_estep
+    from pb_bss_tpu_torch.ops import gev as gev_op
+    out = {}
+    for B, D in ((513, 6), (6168, 6), (6168, 2), (6168, 3), (6168, 8),
+                 (6168, 16)):
+        ins = [pencils(B, D, 4300 + i) for i in range(6)]
+        split_four(out, f'K3 B={B} D={D}', gev_op.gev, ins, 'gev')
+        if B == 6168 and D == 6 and hasattr(gev_op, 'cta_warps'):
+            chosen = gev_op.cta_warps
+            log(f'K3 B=6168 D=6: the wrapper takes {chosen(6168, 6, 132)} '
+                'warps a CTA on 132 SMs')
+            for warps in (1, 2, 4):
+                gev_op.cta_warps = lambda B, D, sms, w=warps: w
+                label = f'K3 B=6168 D=6 {warps} warps a CTA'
+                out[f'{label} call'] = cuda_time(gev_op.gev, ins)
+                out[f'{label} device per launch'] = device_ms_per_launch(
+                    gev_op.gev, ins[0], 'gev')[0]
+            gev_op.cta_warps = chosen
+        del ins
+    ins = [pencils(6168, 6, 4400 + i) for i in range(6)]
+    split_four(out, 'get_gev_vector B=6168 D=6', get_gev_vector, ins, 'gev')
+    gev_op.gev.launches = 0
+    get_gev_vector(*ins[0])
+    sync()
+    out['get_gev_vector B=6168 D=6 K3 launches a call'] = gev_op.gev.launches
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        get_gev_vector(*ins[1])
+        sync()
+    log(f'profile get_gev_vector B=6168 D=6: device us (count) '
+        f'{device_times(prof, "")}')
+    del ins
+    D, K = 6, 3
+    for name, call, key, F, T in (
+            ('e_step', em_estep.cacgmm_e_step, 'em_e_step', 513, 300),
+            ('scatter', em_estep.cacgmm_em_scatter, 'em_scatter', 257, 304),
+            ('scatter', em_estep.cacgmm_em_scatter, 'em_scatter', 513,
+             3753)):
+        ins = [estep_inputs(F, D, K, T, 4500 + i) for i in range(6)]
+        label = f'K11 {name} F={F} T={T}'
+        split_four(out, label, call, ins, key)
+        if hasattr(em_estep, 'WAVES'):
+            chosen = em_estep.WAVES
+            for waves in (1, 2, 4):
+                if waves == chosen:
+                    continue
+                em_estep.WAVES = waves
+                knob = f'{label} {waves} waves'
+                out[f'{knob} call'] = cuda_time(call, ins)
+                out[f'{knob} device per launch'] = device_ms_per_launch(
+                    call, ins[0], key)[0]
+            em_estep.WAVES = chosen
+            log(f'{label}: the wrapper takes {em_estep.THREADS} threads in '
+                f'{chosen} waves')
+        if name == 'scatter' and T == 304 and hasattr(em_estep,
+                                                     'em_scatter_model'):
+            # the trainer's route: the complex tensors as they are
+            split_four(out, f'K11 em_scatter_model F={F} T={T}',
+                       em_estep.em_scatter_model,
+                       [(torch.complex(a[0], a[1]), torch.complex(a[2], a[3]),
+                         *a[4:]) for a in ins], key)
+        del ins
+    y, aff, _ = em_inputs(1, 257, D, K, 304, 4600)
+    Y, aff = y[0].transpose(-1, -2).contiguous(), aff[0]
+    times = []
+    for _ in range(11):
+        sync()
+        t0 = time.perf_counter()
+        CACGMMTrainer().fit(Y, initialization=aff, iterations=20,
+                            use_pallas_em=True)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    log(f'timing fit(use_pallas_em=True) F=257 T=304, 20 it: host ms '
+        f'{[round(t, 3) for t in times[1:]]} (after one warm-up)')
+    out['fit(use_pallas_em=True) F=257 T=304 host (median of 3)'] = \
+        statistics.median(times[1:4])
+    out['fit(use_pallas_em=True) F=257 T=304 host (median of 10)'] = \
+        statistics.median(times[1:])
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        CACGMMTrainer().fit(Y, initialization=aff, iterations=20,
+                            use_pallas_em=True)
+        sync()
+    out['fit(use_pallas_em=True) F=257 T=304 device'] = \
+        device_times(prof, '')['all kernels'][0] / 1e3
+    log(f'profile fit(use_pallas_em=True) F=257 T=304: device us (count) '
+        f'{device_times(prof, "")}')
+    short = load_utterances(range(8, 16))[0].cuda()
+    out['separate_batch cacgmm 8 x 4.8 s device'], \
+        out['separate_batch cacgmm 8 x 4.8 s host'] = \
+        separate_device_ms(short, 'cacgmm')
+    log('timing K3 / K11 splits (ms): '
         + '; '.join(f'{case} {ms:.4f}' for case, ms in out.items()))
     return out
 
@@ -3811,7 +3993,7 @@ def main():
         help='comma-separated phases to run after the build instead of '
              'the whole smoke test (floor, splits, cacgmm, cbmm, cwmm, '
              'integration, e2e, eigh, integration_stats, '
-             'eigh_stats_splits); '
+             'eigh_stats_splits, gev_estep_splits); '
              'prints no kernels line')
     parser.add_argument(
         '--package', default=None,
@@ -3839,7 +4021,8 @@ def main():
                   'integration': phase_kernels_integration_loop,
                   'e2e': time_e2e, 'eigh': phase_kernels_eigh,
                   'integration_stats': phase_kernels_integration_stats,
-                  'eigh_stats_splits': time_eigh_stats_splits}
+                  'eigh_stats_splits': time_eigh_stats_splits,
+                  'gev_estep_splits': time_gev_estep_splits}
         try:
             card = timed(phase_device)
             log('package:', importlib.util.find_spec(

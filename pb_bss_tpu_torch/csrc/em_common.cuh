@@ -7,8 +7,8 @@
 //
 // Replaces what the JAX package's Pallas kernels write out again in each
 // kernel (pb_bss_tpu/ops/pallas_em_loop.py, pallas_em_stream.py,
-// pallas_em_step.py, pallas_em.py): the per-class basis of the quadratic
-// form, the E-step of one frame (a thread per frame) and one
+// pallas_em_step.py, pallas_em.py): the quadratic form on the per-class
+// basis, the E-step of one frame (a thread per frame) and one
 // upper-triangle scatter sum (a warp per sum, lanes over frames). The
 // loop structure around them (what lives in shared memory, how T is
 // walked) stays in each kernel. The JAX kernels take the quadratic form
@@ -23,48 +23,17 @@
 
 #include "jacobi.cuh"
 
-// The scaled eigenbasis of one class, stored conjugate-transposed for
-// the E-step: Wh[i * D + d] = conj(V[d * D + i]) s(i), where s(i) is
-// lambda_i^{-1/2} (V row-major D x D, eigenvectors in columns), so that
-// (W^H y)_i = sum_d Wh[i * D + d] y_d with W = V diag(lambda^{-1/2}). By
-// one warp: lane owns entries i * D + d = lane, lane + 32, ...
-template <class Scale>
-__device__ __forceinline__ void warp_scaled_basis(const float2* V, Scale s,
-                                                  float2* Wh, int D) {
-  const int lane = threadIdx.x & 31;
-  for (int id = lane; id < D * D; id += 32) {
-    const int i = id / D;
-    const int d = id - i * D;
-    Wh[id] = c_scale(s(i), c_conj(V[d * D + i]));
-  }
-}
-
 // The quadratic form y^H C^-1 y of one frame as the projection on the
 // scaled eigenbasis, q = sum_i |(W^H y)_i|^2 = sum_i |v_i^H y|^2 /
 // lambda_i: a sum of non-negative terms. (Through the assembled inverse
 // V diag(1 / lambda) V^H it cancels once an eigenvalue sits at the floor:
-// entries ~1e10 whose f32 errors, ~1e3, swamp a true q of O(1).) `y(d)`
-// gives the frame's entry d; Wh as warp_scaled_basis writes it.
-template <class Y>
-__device__ __forceinline__ float projection_form(Y y, const float2* Wh,
-                                                 int D) {
-  float q = 0.f;
-  for (int i = 0; i < D; ++i) {
-    float zr = 0.f, zi = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float2 w = Wh[i * D + d];
-      const float2 yd = y(d);
-      zr = fmaf(w.x, yd.x, fmaf(-w.y, yd.y, zr));
-      zi = fmaf(w.x, yd.y, fmaf(w.y, yd.x, zi));
-    }
-    q = fmaf(zr, zr, fmaf(zi, zi, q));
-  }
-  return q;
-}
-
-// The same with D known at compile time and the frame in registers (the
-// loops unroll; Wh is read as broadcasts, two entries a read for even D,
-// where Wh must be 16-byte aligned).
+// entries ~1e10 whose f32 errors, ~1e3, swamp a true q of O(1).) Wh is the
+// scaled eigenbasis of one class stored conjugate-transposed,
+// Wh[i * D + d] = conj(V[d * D + i]) lambda_i^{-1/2} (V row-major D x D,
+// eigenvectors in columns), so that (W^H y)_i = sum_d Wh[i * D + d] y_d
+// with W = V diag(lambda^{-1/2}). D is known at compile time and the frame
+// sits in registers (the loops unroll; Wh is read as broadcasts, two
+// entries a read for even D, where Wh must be 16-byte aligned).
 template <int D>
 __device__ __forceinline__ float projection_form(const float2 (&y)[D],
                                                  const float2* Wh) {

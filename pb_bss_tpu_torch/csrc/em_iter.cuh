@@ -3,8 +3,8 @@
 // column Jacobi also carry the whole-fit Watson EM (cwmm_loop.cu), its
 // covariance and column Jacobi the whole-fit integration EM
 // (integration_em_loop.cu), its wavefront Jacobi with the twin's rotation
-// the batched Jacobi (eigh.cu). All of it is templated on D, so every loop
-// over the channels unrolls:
+// the batched Jacobi (eigh.cu) and the fused GEV (gev.cu). All of it is
+// templated on D, so every loop over the channels unrolls:
 //
 //   scatter_sums     the M-step sums of one bin held in shared memory:
 //                    lanes over the upper-triangle entries of y y^H (and
@@ -247,7 +247,7 @@ __device__ __forceinline__ void column_jacobi_cyclic(float2 (&a)[D],
 // step's rotations reach every lane by shuffle for the row updates, and the
 // two lanes exchange their columns by shuffle, as in column_jacobi.
 // kTwinRotation: the plain twin's rotation at any scale (twin_rotation,
-// for K1) in place of the EM kernels' rotation().
+// for K1 and K3) in place of the EM kernels' rotation().
 template <int D, bool kTwinRotation = false>
 __device__ __forceinline__ void column_jacobi_wavefront(float2 (&a)[D],
                                                         float2 (&v)[D],
@@ -516,7 +516,7 @@ __device__ __forceinline__ void covariance_from_sums(const float2* Su,
 }
 
 // The E-step of every frame of one bin, a thread per frame, from the
-// scaled eigenbases Wh (K x D x D, as warp_scaled_basis writes them) and
+// scaled eigenbases Wh (K x D x D, in projection_form's layout) and
 // the log-determinants: the posterior into aw and the quadratic form into
 // wq (then, with `update`, the saliency-weighted posterior a s into aw
 // and the scatter weight a s / max(q, 10 tiny) into wq). mask (at the

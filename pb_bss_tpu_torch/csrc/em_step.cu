@@ -197,7 +197,7 @@ em_fc_step_kernel(const float2* __restrict__ y,
   for (int i = tid; i < K * D; i += blockDim.x) m.eig[i] = eig_in[n * K * D + i];
   __syncthreads();
   // the scaled eigenbases W = V diag(l^{-1/2}), stored conjugate-
-  // transposed (warp_scaled_basis's layout), the log-determinants and the
+  // transposed (projection_form's layout), the log-determinants and the
   // utterance's weight
   for (int id = tid; id < K * DD; id += blockDim.x) {
     const int k = id / DD;

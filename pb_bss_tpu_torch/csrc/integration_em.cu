@@ -189,17 +189,11 @@ integration_stats_kernel(const float2* __restrict__ y,
   };
 
   for (long long pos = begin; pos < end;) {
-    const int n = static_cast<int>(pos / T);
-    const long long bin_begin = static_cast<long long>(n) * T;
-    const int t_begin = static_cast<int>(pos - bin_begin);
-    const int t_end =
-        static_cast<int>((end < bin_begin + T ? end : bin_begin + T) -
-                         bin_begin);
-    // the CTAs on bin n: first .. first + nseg - 1; this one writes slot
-    const int first = static_cast<int>(bin_begin / span);
-    const int nseg = static_cast<int>((bin_begin + T - 1) / span) - first + 1;
-    const int slot = blockIdx.x - first;
-    pos = bin_begin + t_end;
+    const stream::Segment seg = stream::segment(pos, end, T, span);
+    const int n = seg.n;
+    const int t_begin = seg.t_begin;
+    const int t_end = seg.t_end;
+    pos = static_cast<long long>(n) * T + t_end;
 
     __syncthreads();  // the previous segment is done with the model, ring
     const float2* yn = y + size_t(n) * D * T;
@@ -356,33 +350,19 @@ integration_stats_kernel(const float2* __restrict__ y,
           float2 v = make_float2(0.f, 0.f);
           for (int w = 0; w < nwarps; ++w)
             v = c_add(v, scratch[((w * kGroup + c) * J + j) * 32 + l]);
-          if (nseg == 1)
+          if (seg.nseg == 1)
             emit(n, g0 + c, r, v);
           else
-            slots[(size_t(slot) * N + n) * K * I + size_t(g0 + c) * I + r] = v;
+            slots[(size_t(seg.slot) * N + n) * K * I + size_t(g0 + c) * I +
+                  r] = v;
         }
         __syncthreads();  // the scratch (the ring) is free again
       }
     }
 
     // ---- a bin split over CTAs: the last to finish adds the slots -------
-    if (nseg > 1) {
-      __threadfence();  // this CTA's slot, visible before its ticket
-      __syncthreads();
-      if (tid == 0) *flag = atomicAdd(counters + n, 1) == nseg - 1;
-      __syncthreads();
-      if (*flag) {
-        __threadfence();
-        for (int id = tid; id < K * I; id += tile) {
-          // the slots in order, from L2 (other SMs wrote them)
-          float2 v = __ldcg(slots + size_t(n) * K * I + id);
-          for (int s = 1; s < nseg; ++s)
-            v = c_add(v, __ldcg(slots + (size_t(s) * N + n) * K * I + id));
-          emit(n, id / I, id % I, v);
-        }
-        if (tid == 0) counters[n] = 0;  // ready for the next launch
-      }
-    }
+    stream::sum_split_bin(seg, slots, counters, flag, N, K, I,
+                          [&](int k, int r, float2 v) { emit(n, k, r, v); });
   }
 }
 

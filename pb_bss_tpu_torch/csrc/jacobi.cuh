@@ -1,6 +1,6 @@
 // Complex cyclic Jacobi for small Hermitian matrices in shared memory,
-// shared by the fused GEV kernel (gev.cu) and the whole-fit Bingham EM
-// (cbmm_loop.cu), and the complex arithmetic every kernel uses.
+// used by the whole-fit Bingham EM (cbmm_loop.cu), and the complex
+// arithmetic every kernel uses.
 //
 // Replaces the rotation step of the JAX package's Pallas kernels
 // (pb_bss_tpu/ops/pallas_em_loop.py: _jacobi_rounds and _warm_rotate).

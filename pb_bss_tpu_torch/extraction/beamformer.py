@@ -14,7 +14,8 @@ import torch
 
 from .._dtypes import real_dtype as _real_dtype
 from ..models._precision import full_fp32
-from ..ops.linalg import gev_max_eigvec
+from ..ops.gev import gev_with_retry
+from ..ops.linalg import _kernel_eligible, gev_max_eigvec
 
 __all__ = [
     'get_power_spectral_density_matrix',
@@ -71,7 +72,13 @@ def get_gev_vector(target_psd_matrix, noise_psd_matrix):
     """GEV (max-SNR) beamforming vector [Warsitz2007GEV], B-normalized
     (``w^H Phi_nn w = 1``). Bins whose noise PSD is not positive
     definite (non-finite vector) are retried with diagonal loading
-    (:data:`RETRY_LOADING`), branchlessly."""
+    (:data:`RETRY_LOADING`): where the fused GEV kernel runs (CUDA,
+    complex64, D <= 16, at least 64 pencils), inside its one launch
+    (:func:`pb_bss_tpu_torch.ops.gev.gev_with_retry`); elsewhere by two
+    calls and a select, which the kernel's result equals."""
+    if _kernel_eligible(noise_psd_matrix):
+        return gev_with_retry(target_psd_matrix, noise_psd_matrix,
+                              RETRY_LOADING)
     beam = gev_max_eigvec(target_psd_matrix, noise_psd_matrix)
     bad = ~torch.isfinite(beam.abs()).all(-1, keepdim=True)
     loaded = gev_max_eigvec(

@@ -30,8 +30,9 @@ package's, ``pb_bss_tpu/models/cacgmm.py:894-1036``):
    kernel on CUDA, :mod:`pb_bss_tpu_torch.ops.eigh`), with the inline
    aligner after each E-step when one is given. Under
    ``use_pallas_em=True`` each E-step and scatter after the first
-   M-step is one launch of
-   :func:`pb_bss_tpu_torch.ops.em_estep.cacgmm_em_scatter`.
+   M-step is one launch of the scatter kernel
+   (:func:`pb_bss_tpu_torch.ops.em_estep.em_scatter_model`, which reads
+   the complex observations and eigenvectors as they are).
 
 ``use_fused_em='auto'`` takes routes 1-3 only on the accelerator (CUDA
 tensors, :func:`_on_accelerator`), for complex64 (F, N, D) /
@@ -126,7 +127,7 @@ def _fit_em(y, model, affiliation, quadratic_form, saliency,
     an E-step. An inline ``aligner`` permutes each E-step's posterior
     and quadratic forms before the M-step. ``use_pallas_em`` runs each
     E-step and scatter as one launch of
-    :func:`pb_bss_tpu_torch.ops.em_estep.cacgmm_em_scatter` (unbatched
+    :func:`pb_bss_tpu_torch.ops.em_estep.em_scatter_model` (unbatched
     input, no saliency, mask or aligner, per-bin weights; checked by
     the caller)."""
     def m_step(aff, qf):
@@ -149,13 +150,13 @@ def _fit_em(y, model, affiliation, quadratic_form, saliency,
 
     def e_then_m_fused(model):
         # the E-step and scatter in one launch; the (F, K, T) posterior
-        # never reaches device memory
+        # never reaches device memory, and the kernel reads y and the
+        # complex eigenvectors as they are
         cacg = model.cacg
-        vectors = cacg.covariance_eigenvectors
         weight = torch.broadcast_to(
             model.weight[..., 0], (F, model.weight.shape[-2]))
-        s_re, s_im, aff_sum = em_estep.cacgmm_em_scatter(
-            y_re, y_im, vectors.real, vectors.imag,
+        s_re, s_im, aff_sum = em_estep.em_scatter_model(
+            y_c, cacg.covariance_eigenvectors,
             1.0 / cacg.covariance_eigenvalues, cacg.log_determinant, weight)
         covariance = torch.complex(s_re, s_im) / torch.clamp(
             aff_sum, min=_tiny(s_re))[..., None, None]
@@ -170,7 +171,7 @@ def _fit_em(y, model, affiliation, quadratic_form, saliency,
     step = e_then_m
     if use_pallas_em:
         F, D, T = y.shape
-        y_re, y_im = y.real.contiguous(), y.imag.contiguous()
+        y_c = y.contiguous()
         step = e_then_m_fused
 
     if not first_e_step:

@@ -48,7 +48,7 @@ KERNELS = {
         'cacgmm_em_full_occupancy': ([_I] * 4, _I),
     },
     'gev': {
-        'gev_launch': ([_P, _P, _P, _I, _I, _I, _P], _I),
+        'gev_launch': ([_P] * 3 + [_I] * 5 + [_F, _P], _I),
     },
     'eigh': {
         'eigh_jacobi_launch': ([_P] * 3 + [_I] * 6 + [_P], _I),
@@ -65,8 +65,9 @@ KERNELS = {
             [_P] * 10 + [_I] * 8 + [_F, _F, _P], _I),
     },
     'em_estep': {
-        'em_e_step_launch': ([_P] * 9 + [_I] * 4 + [_P], _I),
-        'em_scatter_launch': ([_P] * 10 + [_I] * 4 + [_P], _I),
+        'em_e_step_launch': ([_P] * 7 + [_I] * 5 + [_L, _P], _I),
+        'em_scatter_launch': ([_P] * 10 + [_I] * 5 + [_L, _P], _I),
+        'em_estep_capacity': ([_I] * 3, _I),
     },
     'cwmm_loop': {
         'cwmm_em_full_launch': (

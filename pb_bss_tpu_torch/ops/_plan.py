@@ -8,7 +8,9 @@ them into equal spans, one per CTA, in whole waves of the CTAs the card
 holds at once (:func:`partition`), so that no wave runs nearly empty. Each
 piece of a bin that a CTA covers (a segment, :func:`segments`) writes its
 partial sums to its own slot, and the wrapper adds a bin's slots in a
-fixed order (deterministic, no atomics). :func:`capacity` asks a kernel
+fixed order (deterministic, no atomics); where the kernel adds them itself
+(the last CTA on a split bin, found by a ticket), it takes its counters
+and slots from :func:`workspace`. :func:`capacity` asks a kernel
 library how many of its CTAs are resident at once; :func:`pass_words` is
 the pass's own share of a CTA's shared memory.
 """
@@ -19,7 +21,7 @@ import functools
 import torch
 
 __all__ = ['TILE', 'WAVES', 'partition', 'segments', 'capacity',
-           'pass_words']
+           'pass_words', 'workspace']
 
 TILE = 256  # frames per tile (kTile in csrc/stream.cuh)
 _GROUP = 4  # classes summed in registers at once (kGroup)
@@ -93,3 +95,24 @@ def pass_words(D):
     ring = max(_STAGES * D * (TILE + 1) * 2,
                _WARPS * _GROUP * -(-P // 32) * 32 * 2)
     return ring + TILE * _GROUP + _WARPS * _GROUP
+
+
+# per (device, stream): the bins' counters (0 between launches) and the
+# slots of the split bins' partial sums
+_workspaces = {}
+
+
+def workspace(device, stream, N, words):
+    """Counters for N bins and ``words`` floats of slots, reused by every
+    pass that sums its split bins in the launch (the integration
+    statistics, the E-step scatter) on ``stream``: stream order keeps the
+    launches apart, and each leaves the counters at 0. Grown on demand."""
+    key = (device.index, stream)
+    counters, slots = _workspaces.get(key, (None, None))
+    if counters is None or counters.numel() < N:
+        counters = torch.zeros(max(N, 1), dtype=torch.int32, device=device)
+    if slots is None or slots.numel() < words:
+        slots = torch.empty(max(words, 2), dtype=torch.float32,
+                            device=device)
+    _workspaces[key] = counters, slots
+    return counters, slots

@@ -93,25 +93,6 @@ def plan(N, T, capacity, tile):
     return _plan.partition(N, T, capacity, tile=tile, waves=_WAVES)
 
 
-# per (device, stream): the bins' counters (0 between launches) and the
-# slots of the split bins' partial sums
-_workspaces = {}
-
-
-def _workspace(device, stream, N, words):
-    """Counters for N bins and ``words`` floats of slots, reused by every
-    pass on ``stream`` (stream order keeps them apart); grown on demand."""
-    key = (device.index, stream)
-    counters, slots = _workspaces.get(key, (None, None))
-    if counters is None or counters.numel() < N:
-        counters = torch.zeros(max(N, 1), dtype=torch.int32, device=device)
-    if slots is None or slots.numel() < words:
-        slots = torch.empty(max(words, 2), dtype=torch.float32,
-                            device=device)
-    _workspaces[key] = counters, slots
-    return counters, slots
-
-
 def _check_mode(spectral_mode):
     if spectral_mode not in MODES:
         raise ValueError(
@@ -287,7 +268,7 @@ def e_stats(y, emb, *, eigenvalues, eigenvectors, weight, mu, kappa, log_c,
         'integration_em', index, D, K, E, MODES[spectral_mode], stages,
         tile), tile)
     stream = torch.cuda.current_stream(y.device).cuda_stream
-    counters, work = _workspace(
+    counters, work = _plan.workspace(
         y.device, stream, N,
         2 * slots * N * K * (D * (D + 1) // 2 + 1 + E) if slots > 1 else 0)
     err = load('integration_em').integration_stats_launch(

@@ -17,7 +17,8 @@ from pb_bss_tpu_torch.models.cacgmm import CACGMM, CACGMMTrainer
 from pb_bss_tpu_torch.models.complex_angular_central_gaussian import (
     ComplexAngularCentralGaussian,
 )
-from pb_bss_tpu_torch.ops import em_estep
+from pb_bss_tpu_torch.ops import _plan, em_estep
+from pb_bss_tpu_torch.ops._build import SMEM_LIMIT
 
 torch.set_num_threads(2)
 
@@ -121,13 +122,13 @@ def test_use_pallas_em_runs_the_scatter_once_per_step(monkeypatch):
     """The first M-step comes from the initialization; every later
     E-step and scatter is one scatter call."""
     calls = []
-    real = em_estep.cacgmm_em_scatter
+    real = em_estep.em_scatter_model
 
     def counted(*args):
         calls.append(args[0].shape)
         return real(*args)
 
-    monkeypatch.setattr(em_estep, 'cacgmm_em_scatter', counted)
+    monkeypatch.setattr(em_estep, 'em_scatter_model', counted)
     y = torch.as_tensor(np.random.default_rng(5).standard_normal(
         (5, 40, 3)).astype(np.complex64))
     CACGMMTrainer().fit(y, num_classes=2, iterations=4,
@@ -198,7 +199,24 @@ def test_use_pallas_em_asserts(kwargs, match):
 def test_scatter_gate():
     assert em_estep.scatter_fits(6, 3) and em_estep.scatter_fits(16, 8)
     assert not em_estep.scatter_fits(17, 3)
-    assert not em_estep.scatter_fits(16, 19)
+    # the streamed pass's budget: a ring of two tiles of a CTA's frames,
+    # not a tile of 512 frames, so D=16 takes 19 classes and more
+    assert em_estep.scatter_fits(16, 19)
+    assert not em_estep.scatter_fits(16, 200)
+
+
+@pytest.mark.parametrize('D,K_max', [
+    (1, 217), (2, 212), (3, 203), (6, 165), (8, 138), (16, 64)])
+def test_scatter_gate_follows_the_budget(D, K_max):
+    """The gate is the scatter CTA's shared memory (scatter_smem_bytes in
+    csrc/em_estep.cu) within the H100's limit, at the CTA size the
+    kernels are built for; T never enters it."""
+    assert em_estep.scatter_fits(D, K_max)
+    assert not em_estep.scatter_fits(D, K_max + 1)
+    assert em_estep.smem_bytes('scatter', D, K_max) <= SMEM_LIMIT
+    # the E-step CTA holds the same model and class values, no ring
+    assert em_estep.smem_bytes('e_step', D, K_max) \
+        < em_estep.smem_bytes('scatter', D, K_max)
 
 
 @pytest.mark.slow
@@ -216,3 +234,31 @@ def test_twins_match_pallas_interpret():
                          *a, interpret=True), args)
     for o, r in zip(out, ref):
         assert_allclose(o, r, atol=1e-4)
+
+
+@pytest.mark.parametrize('waves', [1, 2])
+@pytest.mark.parametrize('threads', [128, 256])
+@pytest.mark.parametrize('F,T,capacity', [
+    (7, 32, 1056), (257, 304, 1056), (513, 300, 528), (65, 1100, 1056),
+    (513, 3753, 1056), (3, 1, 264), (1, 5000, 132)])
+def test_plan_covers_every_frame_once(monkeypatch, threads, F, T, capacity,
+                                      waves):
+    """The kernels' walk (the host's copy, _plan.segments) of the plan
+    covers every frame of every bin once; the CTAs on a bin are the
+    kernel's first .. first + nseg - 1, each writing its own slot, and
+    the ticket's count nseg is the bin's number of segments."""
+    monkeypatch.setattr(em_estep, 'WAVES', waves)
+    ctas, span, slots = em_estep.plan(F, T, capacity, threads)
+    assert span >= threads
+    assert ctas <= waves * capacity or span == threads
+    seen = np.zeros((F, T), np.int64)
+    per_bin = {}
+    for cta, n, t0, t1, slot in _plan.segments(F, T, span):
+        assert 0 <= cta < ctas and 0 <= slot < slots and t0 < t1
+        seen[n, t0:t1] += 1
+        per_bin.setdefault(n, []).append((cta, slot))
+    assert (seen == 1).all()
+    for n, pieces in per_bin.items():
+        first = n * T // span
+        nseg = ((n + 1) * T - 1) // span - first + 1
+        assert pieces == [(first + s, s) for s in range(nseg)]

@@ -125,3 +125,73 @@ def test_loading_retry_lifts_a_rounded_rank_deficient_noise_psd():
     b_norm = np.einsum('d,de,e->', retried[2].conj(), loaded / (1 + 1e-5),
                        retried[2])
     assert abs(b_norm - 1) < 1e-3
+
+
+def _planted(B, D, seed):
+    """Pencils with a singular noise PSD (a zero pivot) and an all-zero
+    one planted among positive definite ones."""
+    phi_xx, phi_nn = _pencils(B=B, D=D, seed=seed)
+    phi_nn[1] = np.diag([1.] * (D - 1) + [0.]).astype(np.complex64)
+    phi_nn[4] = 0
+    return torch.as_tensor(phi_xx), torch.as_tensor(phi_nn)
+
+
+@pytest.mark.parametrize('D', [2, 3, 6, 8])
+def test_retry_takes_the_loaded_vector_only_where_unloaded_is_not_finite(D):
+    """get_gev_vector's CPU composition: the twin's unloaded vector
+    wherever it is finite, bit for bit, and the twin's vector of the
+    loaded noise PSD exactly where it is not."""
+    from pb_bss_tpu_torch.extraction.beamformer import RETRY_LOADING
+    from pb_bss_tpu_torch.ops.linalg import condition_hermitian
+    phi_xx, phi_nn = _planted(10, D, seed=10 + D)
+    plain = gev_reference(phi_xx, phi_nn)
+    loaded = gev_reference(phi_xx, condition_hermitian(phi_nn,
+                                                       RETRY_LOADING))
+    bad = ~torch.isfinite(plain.abs()).all(-1)
+    assert bad.tolist() == [i in (1, 4) for i in range(10)]
+    out = get_gev_vector(phi_xx, phi_nn)
+    assert torch.equal(out[~bad], plain[~bad])
+    np.testing.assert_array_equal(out[bad].numpy(), loaded[bad].numpy())
+    assert torch.isfinite(out[1]).all()  # loading lifts the zero pivot
+    assert not torch.isfinite(out[4]).all()  # a zero PSD stays zero
+
+
+@pytest.mark.parametrize('D', [1, 3, 6])
+def test_gev_with_retry_on_cpu_is_get_gev_vector(D):
+    """On CPU tensors the in-launch retry's wrapper runs the two-call
+    composition: the same vectors as get_gev_vector, and no launch."""
+    from pb_bss_tpu_torch.extraction.beamformer import RETRY_LOADING
+    from pb_bss_tpu_torch.ops.gev import (
+        gev_with_retry, gev_with_retry_reference)
+    phi_xx, phi_nn = _planted(8, D, seed=20 + D) if D > 1 else (
+        torch.as_tensor(_pencils(B=8, D=1, seed=21)[0]),
+        torch.as_tensor(_pencils(B=8, D=1, seed=21)[1]))
+    before = gev.launches
+    out = gev_with_retry(phi_xx, phi_nn, RETRY_LOADING)
+    assert gev.launches == before
+    expected = get_gev_vector(phi_xx, phi_nn)
+    np.testing.assert_array_equal(out.numpy(), expected.numpy())
+    np.testing.assert_array_equal(
+        gev_with_retry_reference(phi_xx.reshape(2, 4, D, D),
+                                 phi_nn.reshape(2, 4, D, D),
+                                 RETRY_LOADING).reshape(8, D).numpy(),
+        expected.numpy())
+
+
+@pytest.mark.parametrize('D', [1, 2, 3, 6, 8, 16])
+@pytest.mark.parametrize('B', [1, 64, 513, 2056, 6168, 100_000])
+def test_cta_warps_spread_the_pencils_over_every_sm(B, D):
+    """The warps a CTA (4, 2 or 1): every pencil in the grid, and the
+    most warps that still leave at least two CTAs an SM of 132."""
+    from pb_bss_tpu_torch.ops.gev import cta_warps
+    sms = 132
+    per_warp = 32 // D
+    warps = cta_warps(B, D, sms)
+    assert warps in (1, 2, 4)
+    blocks = -(-B // (warps * per_warp))
+    assert blocks * warps * per_warp >= B
+    if warps > 1:
+        assert blocks >= 2 * sms
+    if warps < 4:
+        more = warps * 2
+        assert -(-B // (more * per_warp)) < 2 * sms

@@ -286,7 +286,7 @@ def test_fc_fit_routes_to_the_step_kernels(cuda):
         assert torch.isfinite(model.cacg.covariance_eigenvalues).all()
 
 
-@pytest.mark.parametrize('T', [304, 1100])
+@pytest.mark.parametrize('T', [304, 1100, 37, 3753])
 def test_e_step_kernels_match_plain(cuda, T):
     from pb_bss_tpu_torch.ops import em_estep
     F, D, K = 65, 6, 3
@@ -316,6 +316,120 @@ def test_e_step_kernels_match_plain(cuda, T):
     for k, p in zip(s_k[:2], s_p[:2]):
         assert (k - p).abs().max() <= 1e-4 * s_p[0].abs().max()
     torch.testing.assert_close(s_k[2], s_p[2], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize('F,T', [(65, 3753), (257, 304), (133, 300)])
+def test_scatter_kernel_repeats_bit_for_bit(cuda, F, T):
+    """The split bins are summed in the launch in slot order, so two runs
+    agree bit for bit; the trainer's route (em_scatter_model on the
+    complex tensors) gives the same bits."""
+    from pb_bss_tpu_torch.ops import em_estep
+    D, K = 6, 3
+    g = torch.Generator(cuda).manual_seed(9)
+    y = torch.randn((F, D, T), dtype=torch.complex64, device=cuda,
+                    generator=g)
+    vec = torch.linalg.qr(torch.randn((F, K, D, D), dtype=torch.complex64,
+                                      device=cuda, generator=g))[0]
+    ev = 0.1 + 0.9 * torch.rand((F, K, D), device=cuda, generator=g)
+    w = torch.rand((F, K), device=cuda, generator=g) + 0.2
+    rest = (1. / ev, torch.log(ev).sum(-1), w / w.sum(-1, keepdim=True))
+    args = (y.real.contiguous(), y.imag.contiguous(), vec.real.contiguous(),
+            vec.imag.contiguous(), *rest)
+    first = em_estep.cacgmm_em_scatter(*args)
+    second = em_estep.cacgmm_em_scatter(*args)
+    model = em_estep.em_scatter_model(y, vec, *rest)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, second, model):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    ref = em_estep.cacgmm_em_scatter_reference(*args)
+    for k, p in zip(first[:2], ref[:2]):
+        assert (k - p).abs().max() <= 1e-4 * ref[0].abs().max()
+    torch.testing.assert_close(first[2], ref[2], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize('T', [304, 3753])
+@pytest.mark.parametrize('K', [5, 8])
+@pytest.mark.parametrize('D', list(range(1, 17)))
+def test_e_step_kernel_instantiations_match_plain(cuda, D, K, T):
+    """Both K11 kernels at every D against their twins, with two groups of
+    classes (the pass re-reads a segment and runs the E-step again a
+    group) and bins split over CTAs; the scatter repeats bit for bit."""
+    from pb_bss_tpu_torch.ops import em_estep
+    F = 33
+    g = torch.Generator(cuda).manual_seed(100 * D + K)
+    y = torch.randn((F, D, T), dtype=torch.complex64, device=cuda,
+                    generator=g)
+    vec = torch.linalg.qr(torch.randn((F, K, D, D), dtype=torch.complex64,
+                                      device=cuda, generator=g))[0]
+    ev = 0.1 + 0.9 * torch.rand((F, K, D), device=cuda, generator=g)
+    w = torch.rand((F, K), device=cuda, generator=g) + 0.2
+    args = (y.real.contiguous(), y.imag.contiguous(), vec.real.contiguous(),
+            vec.imag.contiguous(), 1. / ev, torch.log(ev).sum(-1),
+            w / w.sum(-1, keepdim=True))
+    aff_k, qf_k = em_estep.cacgmm_e_step(*args)
+    first = em_estep.cacgmm_em_scatter(*args)
+    second = em_estep.cacgmm_em_scatter(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    aff_p, qf_p = em_estep.cacgmm_e_step_reference(*args)
+    ref = em_estep.cacgmm_em_scatter_reference(*args)
+    torch.testing.assert_close(qf_k, qf_p, rtol=1e-4, atol=0)
+    torch.testing.assert_close(aff_k, aff_p, atol=1e-4, rtol=0)
+    for k, p in zip(first[:2], ref[:2]):
+        assert (k - p).abs().max() <= 1e-4 * ref[0].abs().max()
+    torch.testing.assert_close(first[2], ref[2], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize('D', list(range(1, 17)))
+def test_gev_kernel_instantiations_match_plain(cuda, D):
+    """K3 at every D against its twin: planted singular and all-zero
+    noise PSDs non-finite in both, the rest within 1e-3 after the phase
+    and B-normalized; get_gev_vector one launch that gives the twin's
+    two-call composition."""
+    from pb_bss_tpu_torch.extraction.beamformer import (
+        RETRY_LOADING, get_gev_vector)
+    from pb_bss_tpu_torch.ops.gev import gev_with_retry_reference
+    g = torch.Generator(cuda).manual_seed(20 + D)
+    B = 200
+    eye = torch.eye(D, dtype=torch.complex64, device=cuda)
+
+    def herm_pd(scale):
+        a = torch.randn((B, D, D), dtype=torch.complex64, device=cuda,
+                        generator=g)
+        return a @ a.conj().transpose(-1, -2) + scale * eye
+
+    phi_xx, phi_nn = herm_pd(0.1), herm_pd(0.5)
+    singular = torch.ones(D, device=cuda)
+    singular[-1] = 0
+    phi_nn[3] = torch.diag(singular).to(phi_nn.dtype)
+    phi_nn[7] = 0
+
+    def aligned_error(out, ref, ok):
+        inner = torch.einsum('bd,bd->b', ref[ok].conj(), out[ok])
+        return (out[ok] / (inner / inner.abs())[:, None]
+                - ref[ok]).abs().max().item()
+
+    out = gev(phi_xx, phi_nn)
+    ref = gev_reference(phi_xx, phi_nn)
+    torch.cuda.synchronize()
+    ok = torch.isfinite(out.abs()).all(-1)
+    assert torch.equal(ok, torch.isfinite(ref.abs()).all(-1))
+    assert not ok[3] and not ok[7] and int(ok.sum()) == B - 2
+    assert aligned_error(out, ref, ok) < 1e-3
+    bnb = torch.einsum('bd,bde,be->b', out[ok].conj(), phi_nn[ok], out[ok])
+    assert (bnb - 1).abs().max() < 1e-3
+
+    before = gev.launches
+    retried = get_gev_vector(phi_xx, phi_nn)
+    torch.cuda.synchronize()
+    assert gev.launches == before + 1
+    composed = gev_with_retry_reference(phi_xx, phi_nn, RETRY_LOADING)
+    fin = torch.isfinite(retried.abs()).all(-1)
+    assert torch.equal(fin, torch.isfinite(composed.abs()).all(-1))
+    assert bool(fin[3]) == (D > 1) and not fin[7]
+    assert torch.equal(retried[ok], out[ok])
+    assert aligned_error(retried, composed, fin) < 1e-3
 
 
 def test_use_pallas_em_routes_to_the_scatter_kernel(cuda):
