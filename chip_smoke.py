@@ -5,7 +5,7 @@
 Builds the hand-written CUDA kernels from pb_bss_tpu_torch/csrc (one
 nvcc per source, all at once), holds each against its plain PyTorch
 version on the card (the four cACGMM kernels also with an eigenvalue at
-the floor, pb_bss_tpu_torch.testing.em_floor), and drives six paths,
+the floor, pb_bss_tpu_torch.testing.em_floor), and drives seven paths,
 each with the launch counters reset just before and read just after:
 
 * the short-recording path: ``separate_batch`` of 4.8 s utterances
@@ -13,6 +13,14 @@ each with the launch counters reset just before and read just after:
   the loading retry inside it),
   ``separate`` at its defaults and the ``python -m pb_bss_tpu_torch``
   CLI;
+* the extraction layer: ``separate_batch`` of the same utterances with
+  the MVDR (Souden, ATF with a PCA or GEV ATF), wMWF, rank-1, PCA and
+  channel beamformers (the Jacobi kernel for each PCA and each stable
+  solve's pseudo-inverse, the GEV kernel for each GEV estimate),
+  ``get_bf_vector`` of each against the CPU, ``stable_solve`` at 6,168
+  systems with no host sync and ``quantile_mask`` above 2^24 elements;
+  and the FCA refinement, ``separate_batch(refine='fca')`` (the Jacobi
+  kernel once per IP row and iteration);
 * the long-recording path: ``separate_batch`` of 60 s recordings
   (streamed EM statistics kernel and batched Jacobi kernel, GEV
   kernel), ``separate`` at its defaults and the CLI on one of them, and
@@ -50,7 +58,7 @@ limit, and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without a CUDA device, outside a checkout of the repository,
 or when any phase fails. Imports nothing of JAX.
 
-    python3 chip_smoke.py --only floor,cacgmm,cbmm,cwmm,integration,splits,e2e,eigh,integration_stats,eigh_stats_splits,gev_estep_splits \
+    python3 chip_smoke.py --only floor,cacgmm,cbmm,cwmm,integration,splits,e2e,eigh,integration_stats,eigh_stats_splits,gev_estep_splits,extraction_checks,extraction \
         [--package DIR]
 
 runs only the named phases after the build (the floor checks, the cACGMM
@@ -62,7 +70,9 @@ whole-fit Watson EM, the whole-fit integration EM, the batched Jacobi
 and the integration statistics pass, the cACGMM separate_batch end to
 end, the batched Jacobi's checks, the integration statistics pass's
 checks, the split of the last two alone, the split of the GEV and the
-E-step kernels alone), with ``pb_bss_tpu_torch`` imported from DIR
+E-step kernels alone, the extraction and FCA checks, the timing of
+``separate_batch`` per extraction route, of ``stable_solve`` and of the
+FCA fit), with ``pb_bss_tpu_torch`` imported from DIR
 if given (another checkout, to time two versions in one call); it prints
 no kernels line.
 """
@@ -125,6 +135,40 @@ CWMM_SINGLE_FLOOR_DB = -3.0
 # the card too, to show that they part the two there.
 INLINE_MEAN_FLOOR_DB = 4.5
 INLINE_SINGLE_FLOOR_DB = -2.0
+
+# quality floors (mean per speaker, single estimate) for separate_batch(8
+# utterances, 20 iterations) with each extraction route, per-frequency
+# SI-SDR of the best estimate per speaker. The port's plain path on the
+# CPU gives (batch means per speaker; worst single), beside JAX's
+# separate on each utterance (tests/test_torch_pipeline.py::
+# test_extraction_quality_on_the_smoke_utterances, slow tier):
+#   mvdr_souden                5.76  6.16; -5.29   (JAX 4.72 4.50; -2.69)
+#   mvdr_souden+ban            3.88  6.15; -2.75   (JAX 4.83 4.89; -1.40)
+#   wmwf                       5.74  6.16; -5.29   (JAX 4.78 4.15; -3.00)
+#   rank1_gev+mvdr_souden+ban  4.77  5.92; -0.47   (JAX 4.58 5.00; -1.47)
+#   scaled_gev_atf+mvdr        0.84  2.32; -5.82   (JAX 1.17 2.30; -4.14)
+#   rank1_pca+mvdr_souden      5.94  4.92; -6.09   (JAX 4.74 4.16; -3.07)
+#   pca+mvdr                   4.49  5.70; -3.87   (JAX 4.80 4.90; -2.97)
+#   pca                        3.68  4.28; -3.06   (JAX 3.94 4.13; -2.84)
+#   ch0                       -6.51  6.00; -17.06  (JAX the same: the
+#                                                   mixture's channel 0)
+# EM trajectories on the card differ (different local optima per
+# utterance), hence margins as wide as the 'gev+ban' floors'.
+EXTRACTION_FLOORS_DB = {
+    'mvdr_souden': (2.0, -10.0), 'mvdr_souden+ban': (1.5, -8.0),
+    'wmwf': (2.0, -10.0), 'rank1_gev+mvdr_souden+ban': (2.0, -6.0),
+    'scaled_gev_atf+mvdr': (-1.5, -11.0),
+    'rank1_pca+mvdr_souden': (2.0, -11.0), 'pca+mvdr': (2.0, -9.0),
+    'pca': (1.0, -8.0), 'ch0': (-7.0, -17.5)}
+# quality floors for separate_batch(8 utterances, 20 iterations,
+# refine='fca', 20 refinement iterations), the plain (time-domain)
+# SI-SDR of the best estimate per speaker, as the mask path's: the
+# port's CPU run gives batch means of 2.34 and 9.48 dB and a worst
+# single estimate of -6.87 dB (JAX: 1.24, 9.56 and -10.33; the same
+# slow test). The JAX package holds the refinement with bss_eval's SDR
+# ("refined >= masked - 0.5 dB"), which the port does not have yet.
+FCA_MEAN_FLOOR_DB = -0.5
+FCA_SINGLE_FLOOR_DB = -13.0
 
 # published peaks of the H100 SXM (the least time of a kernel is the
 # larger of its bytes over the memory rate and its operations over the
@@ -232,6 +276,7 @@ def phase_device():
         '| torch.version.cuda', torch.version.cuda)
     log('nvcc:', (nvcc.stdout.strip().splitlines() or ['missing'])[-1])
     log('triton present:', importlib.util.find_spec('triton') is not None)
+    phase_device.card = card
     return card
 
 
@@ -2029,16 +2074,21 @@ def phase_kernels_cbmm():
 
 
 def phase_guards():
-    """Paths the port has not ported raise on CUDA instead of running
-    plain code on the card."""
+    """The one option the port has not ported (mesh=) raises on CUDA
+    instead of running plain code on the card, and
+    get_lcmv_vector_souden raises NotImplementedError as the JAX
+    package's does."""
     import torch
     import pb_bss_tpu_torch as P
+    from pb_bss_tpu_torch.extraction import get_lcmv_vector_souden
     g = torch.Generator('cuda').manual_seed(0)
     obs = torch.randn((6, 8000), device='cuda', generator=g)
+    psd = torch.eye(6, dtype=torch.complex64, device='cuda').expand(
+        257, 6, 6)
     for name, call in (
-            ("separate(refine='fca')", lambda: P.separate(obs, refine='fca')),
-            ("separate(beamformer='mvdr_souden')",
-             lambda: P.separate(obs, beamformer='mvdr_souden'))):
+            ("separate(mesh='f')", lambda: P.separate(obs, mesh='f')),
+            ('get_lcmv_vector_souden',
+             lambda: get_lcmv_vector_souden(psd, psd, psd))):
         try:
             call()
         except NotImplementedError as e:
@@ -2136,6 +2186,365 @@ def phase_cli(observation, name='mixture'):
         _, data = wavfile.read(f)
         if not (np.isfinite(data).all() and np.abs(data).max() > 0):
             fail(f'{f.name} is not a finite, non-silent signal')
+
+
+# (K3, K1) launches of one separate_batch of 8 x 4.8 s utterances (B=8,
+# F=257, K=3, D=6: 6,168 pencils) per extraction route: a GEV (K3) per
+# 'gev' or 'rank1_gev+' / 'scaled_gev_atf' estimate, a Jacobi (K1) per
+# PCA or per stable solve (its pseudo-inverse fallback)
+EXTRACTION_LAUNCHES = {
+    'mvdr_souden': (0, 1), 'mvdr_souden+ban': (0, 1), 'wmwf': (0, 1),
+    'rank1_gev+mvdr_souden+ban': (1, 1), 'scaled_gev_atf+mvdr': (1, 1),
+    'rank1_pca+mvdr_souden': (0, 2), 'pca+mvdr': (0, 2), 'pca': (0, 1),
+    'ch0': (0, 0)}
+# refine='fca' at 20 refinement iterations: a stable solve per IP row
+# (D=6) per iteration, and one for the inverse diagonalizer
+FCA_LAUNCHES = 20 * 6 + 1
+# how a route's vectors on the card are aligned to the CPU's before the
+# comparison: 'phase', by a unit complex number per pencil, for the names
+# whose vector carries an eigenvector's arbitrary phase; 'scale', by a
+# complex number per pencil, for MVDR-Souden on a rank-1 target, whose
+# columns are all proportional (Phi_nn^-1 a conj(a_R)), so that their
+# post-SNRs nearly tie and the reference channel (an argmax over them)
+# sets only a complex scale per bin
+EXTRACTION_ALIGN = {'scaled_gev_atf+mvdr': 'phase', 'pca+mvdr': 'phase',
+                    'pca': 'phase', 'rank1_gev+mvdr_souden+ban': 'scale',
+                    'rank1_pca+mvdr_souden': 'scale'}
+
+
+def pipeline_psds(obs):
+    """The (B, K, F, D, D) target and noise PSDs the pipeline hands to
+    get_bf_vector for ``obs`` ('mvdr_souden', 20 iterations), captured
+    at the call."""
+    import pb_bss_tpu_torch.pipeline as pipeline
+    captured = {}
+    original = pipeline.get_bf_vector
+
+    def spy(name, target, noise, **kwargs):
+        captured['psds'] = (target.contiguous(), noise.contiguous())
+        return original(name, target, noise, **kwargs)
+    pipeline.get_bf_vector = spy
+    try:
+        pipeline.separate_batch(obs, iterations=20, beamformer='mvdr_souden')
+    finally:
+        pipeline.get_bf_vector = original
+    return captured['psds']
+
+
+def per_pencil_error(out, ref):
+    """Max over D of |out - ref| / max|ref| per pencil."""
+    return (out - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)
+
+
+def check_bf_routes(psds):
+    """get_bf_vector of every extraction route on the card (the
+    kernels) against the plain route on the CPU for the same PSDs:
+    the eigenvector-based names after removing each pencil's phase; the
+    reference channels of 'mvdr_souden' and 'wmwf' exactly. Returns
+    {route: (max error, pencils above 1e-2)}."""
+    import torch
+    from pb_bss_tpu_torch.extraction import get_bf_vector
+    from pb_bss_tpu_torch.extraction import beamformer as bf
+    target, noise = psds
+    cpu = target.cpu(), noise.cpu()
+    results = {}
+    for route in EXTRACTION_LAUNCHES:
+        out = get_bf_vector(route, target, noise).cpu()
+        ref = get_bf_vector(route, *cpu)
+        align = EXTRACTION_ALIGN.get(route)
+        if align is not None:
+            inner = (out.conj() * ref).sum(-1, keepdim=True)
+            factor = inner / inner.abs() if align == 'phase' \
+                else inner / (out.abs() ** 2).sum(-1, keepdim=True)
+            out = out * factor.where(inner != 0, torch.ones_like(inner))
+        err = per_pencil_error(out, ref)
+        finite = bool(torch.isfinite(out).all())
+        # a pencil whose f32 LU residual sits at the stable solve's gate
+        # (sqrt(eps)) can take the LU solution on one device and the
+        # pseudo-inverse on the other; at most 1% of them may part
+        above = int((err > 1e-2).sum())
+        results[route] = (err.max().item(), above)
+        log(f'get_bf_vector({route!r}) on {tuple(target.shape)}: card vs '
+            f'CPU plain, max error {err.max().item():.3g}, '
+            f'{above} of {err.numel()} pencils above 1e-2')
+        if not finite or above > err.numel() // 100:
+            fail(f'get_bf_vector({route!r}) on the card parts from the '
+                 f'plain route: finite {finite}, {above} pencils above 1e-2')
+    def wmwf_channel(t, n):
+        phi = bf.stable_solve(n, t)
+        return bf._reference_channel(
+            phi / (1 + bf._trace(phi)[..., None, None]), t, n)
+
+    for name, call in (
+            ('mvdr_souden', lambda t, n: bf.get_mvdr_vector_souden(
+                t, n, return_ref_channel=True)[1]),
+            ('wmwf', wmwf_channel)):
+        card, plain = call(target, noise).cpu(), call(*cpu)
+        log(f'{name} reference channels per (utterance, class): card '
+            f'{card.tolist()}, CPU {plain.tolist()}')
+        if not torch.equal(card, plain):
+            fail(f'{name}: the reference channels on the card differ from '
+                 'the plain route on the CPU')
+    return results
+
+
+def check_stable_solve():
+    """stable_solve on 6,168 6 x 6 systems (the extraction stage's batch)
+    with zero, rank-deficient and infinite matrices planted, against the
+    plain route on the CPU: one K1 launch, no host sync (torch's sync
+    debug mode set to error), finite except the infinite system.
+    Returns the max error over the finite systems."""
+    import torch
+    from pb_bss_tpu_torch.ops import eigh
+    from pb_bss_tpu_torch.ops.linalg import stable_solve
+    g = torch.Generator('cuda').manual_seed(77)
+    a = torch.randn((6168, 6, 6), dtype=torch.complex64, device='cuda',
+                    generator=g)
+    a = a + 3 * torch.eye(6, dtype=a.dtype, device='cuda')
+    b = torch.randn((6168, 6, 6), dtype=torch.complex64, device='cuda',
+                    generator=g)
+    a[10] = 0
+    a[20, :, 0] = a[20, :, 1]
+    u = torch.randn((6, 2), dtype=a.dtype, device='cuda', generator=g)
+    a[30] = u @ u.conj().T
+    a[40] *= float('inf')
+    stable_solve(a, b)
+    sync()
+    eigh.eigh_jacobi.launches = 0
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        x = stable_solve(a, b)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    sync()
+    launches = eigh.eigh_jacobi.launches
+    ref = stable_solve(a.cpu(), b.cpu())
+    x = x.cpu()
+    keep = torch.ones(6168, dtype=torch.bool)
+    keep[40] = False
+    err = ((x[keep] - ref[keep]).abs().amax((-2, -1))
+           / ref[keep].abs().amax((-2, -1)).clamp_min(1e-30))
+    log(f'stable_solve 6168 x 6x6 (zero, rank-deficient, inf planted): '
+        f'K1 launches {launches}, no host sync, max error vs CPU plain '
+        f'{err.max().item():.3g}; zero system -> '
+        f'{x[10].abs().max().item()}, inf system finite '
+        f'{bool(torch.isfinite(x[40]).all())}')
+    if launches != 1:
+        fail(f'stable_solve launched K1 {launches} times, not once')
+    if not (bool(torch.isfinite(x[keep]).all())
+            and not bool(torch.isfinite(x[40]).all())
+            and bool((x[10] == 0).all()) and err.max().item() < 1e-3):
+        fail('stable_solve on the card parts from the plain route')
+    return err.max().item()
+
+
+def check_quantile_mask():
+    """quantile_mask over 6 x 513 x 7,500 (a minute at 16 kHz, F=513,
+    D=6: 23 M elements, above torch.quantile's 2^24 limit) on the card,
+    against the same code on the CPU (bit for bit) and np.percentile
+    (equal except where a value lies within 1e-6 of the threshold)."""
+    import numpy as np
+    import torch
+    from pb_bss_tpu_torch.extraction import quantile_mask
+    g = torch.Generator('cuda').manual_seed(78)
+    x = torch.randn((6, 513, 7500), dtype=torch.complex64, device='cuda',
+                    generator=g)
+    card = quantile_mask(x, quantile=(0.1, -0.9)).cpu()
+    plain = quantile_mask(x.cpu(), quantile=(0.1, -0.9))
+    rows = np.moveaxis(x.abs().cpu().numpy(), -2, -1).reshape(-1, 513)
+    mismatched = 0
+    for m, q, above in ((card[0], 0.9, True), (card[1], 0.9, False)):
+        threshold = np.percentile(rows.astype(np.float64), 100 * q, axis=-1)
+        hard = rows > threshold[:, None] if above \
+            else rows < threshold[:, None]
+        ours = np.moveaxis(m.numpy(), -2, -1).reshape(-1, 513) > 0.5
+        near = np.abs(rows - threshold[:, None]) <= 1e-6 * threshold[:, None]
+        mismatched += int(((ours != hard) & ~near).sum())
+    log(f'quantile_mask on {x.numel()} elements (> 2^24): card == CPU '
+        f'{torch.equal(card, plain)}, {mismatched} decisions apart from '
+        'np.percentile')
+    if not torch.equal(card, plain) or mismatched:
+        fail('quantile_mask on the card parts from the CPU or np.percentile')
+
+
+def phase_extraction():
+    """separate_batch of the 8 smoke utterances (20 iterations) with
+    each extraction route of the slice: finite output, the K3 / K1
+    launches of EXTRACTION_LAUNCHES, the SI-SDR floors; then
+    get_bf_vector of every route on the pipeline's PSDs against the CPU,
+    stable_solve at 6,168 systems and quantile_mask above 2^24
+    elements. Returns ({route: launches}, {check: max error})."""
+    import torch
+    import pb_bss_tpu_torch as P
+    from pb_bss_tpu_torch.evaluation import si_sdr_stft
+    obs, images = load_utterances(range(8))
+    obs = obs.cuda()
+    routes = {}
+    for route, (k3, k1) in EXTRACTION_LAUNCHES.items():
+        sync()
+        reset_counters()
+        out = P.separate_batch(obs, num_classes=3, iterations=20,
+                               beamformer=route)
+        sync()
+        launches = read_counters()
+        routes[route] = launches
+        want = dict.fromkeys(launches, 0)
+        want.update(cacgmm_em_full=1, gev=k3, eigh_jacobi=k1)
+        expect_launches(f'separate_batch(8 x 4.8 s, {route!r}, 20 it)',
+                        launches, want)
+        if not bool(torch.isfinite(out).all()):
+            fail(f'separate_batch({route!r}) output is not finite')
+        scores = si_sdr_stft(images[:, :, None],
+                             out.cpu().double()[:, None]).max(-1).values
+        means = scores.mean(0)
+        mean_floor, single_floor = EXTRACTION_FLOORS_DB[route]
+        log(f'  {route}: SI-SDR (stft) batch mean per speaker '
+            f'{[round(v, 2) for v in means.tolist()]}, worst '
+            f'{scores.min().item():.2f} dB (floors {mean_floor} / '
+            f'{single_floor})')
+        if not (bool((means >= mean_floor).all())
+                and bool((scores >= single_floor).all())):
+            fail(f'{route!r}: separation quality below the floor')
+    errors = {'bf_routes': check_bf_routes(pipeline_psds(obs)),
+              'stable_solve': check_stable_solve()}
+    check_quantile_mask()
+    return routes, errors
+
+
+def phase_fca():
+    """separate_batch(refine='fca') of the 8 smoke utterances (20 EM and
+    20 refinement iterations): finite output, FCA_LAUNCHES K1 launches
+    (the batch folded into FCA's bins: one stable solve a row for all
+    2,056 bins), and the quality floors beside the mask path's."""
+    import torch
+    import pb_bss_tpu_torch as P
+    from pb_bss_tpu_torch.evaluation import si_sdr, si_sdr_stft
+    obs, images = load_utterances(range(8))
+    obs = obs.cuda()
+    sync()
+    reset_counters()
+    out = P.separate_batch(obs, num_classes=3, iterations=20, refine='fca')
+    sync()
+    launches = read_counters()
+    want = dict.fromkeys(launches, 0)
+    want.update(cacgmm_em_full=1, eigh_jacobi=FCA_LAUNCHES)
+    expect_launches("separate_batch(8 x 4.8 s, refine='fca', 20 + 20 it)",
+                    launches, want)
+    if not bool(torch.isfinite(out).all()):
+        fail("separate_batch(refine='fca') output is not finite")
+    masked = P.separate_batch(obs, num_classes=3, iterations=20)
+    sync()
+    for metric in (si_sdr, si_sdr_stft):
+        for name, result in (('fca', out), ('mask', masked)):
+            scores = metric(images[:, :, None],
+                            result.cpu().double()[:, None]).max(-1).values
+            log(f'  {name} {metric.__name__}: batch mean per speaker '
+                f'{[round(v, 2) for v in scores.mean(0).tolist()]}, worst '
+                f'{scores.min().item():.2f} dB')
+            if name == 'fca' and metric is si_sdr:
+                means = scores.mean(0)
+                if not (bool((means >= FCA_MEAN_FLOOR_DB).all()) and bool(
+                        (scores >= FCA_SINGLE_FLOOR_DB).all())):
+                    fail("refine='fca': separation quality below the floor "
+                         f'({FCA_MEAN_FLOOR_DB} / {FCA_SINGLE_FLOOR_DB} dB)')
+    return launches
+
+
+def phase_extraction_checks():
+    """phase_extraction and phase_fca, for ``--only extraction_checks``."""
+    return phase_extraction(), phase_fca()
+
+
+def time_extraction():
+    """separate_batch of 8 x 4.8 s per extraction route and with
+    refine='fca': the host clock around synchronized calls (distinct
+    utterances a repetition, after a warm-up) and one call's device time
+    (the profiler) with the share of K1 and K3; get_bf_vector alone on
+    the pipeline's PSDs per route (call, device, host); stable_solve at
+    6,168 systems and the FCA fit alone on the folded 2,056 bins. Returns
+    {case: ms}."""
+    import statistics
+    import torch
+    import pb_bss_tpu_torch as P
+    from pb_bss_tpu_torch.extraction import get_bf_vector
+    from pb_bss_tpu_torch.models import FCATrainer
+    from pb_bss_tpu_torch.ops.linalg import stable_solve
+    from pb_bss_tpu_torch.transform import stft
+    out = {}
+    batches = [load_utterances(range(8 * r, 8 * r + 8))[0].cuda()
+               for r in range(1, 5)]
+    card = phase_device.card
+    for route in ['gev+ban', *EXTRACTION_LAUNCHES, 'fca']:
+        options = dict(refine='fca') if route == 'fca' \
+            else dict(beamformer=route)
+        P.separate_batch(batches[0], iterations=20, **options)
+        sync()
+        host = []
+        for obs in batches[1:]:
+            t0 = time.perf_counter()
+            P.separate_batch(obs, iterations=20, **options)
+            sync()
+            host.append(1e3 * (time.perf_counter() - t0))
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            P.separate_batch(batches[1], iterations=20, **options)
+            sync()
+        device = device_times(prof, '')['all kernels'][0] / 1e3
+        k1 = sum(us for us, _ in device_times(prof, 'eigh').values()) / 1e3
+        k3 = sum(us for us, _ in device_times(prof, 'gev').values()) / 1e3
+        out[f'{route} host'] = statistics.median(host)
+        out[f'{route} device'] = device
+        log(f'timing separate_batch(8 x 4.8 s, {route!r}, 20 it): host '
+            f'{[round(t, 3) for t in host]} ms a batch, device {device:.4f} '
+            f'ms, K1 {k1:.4f} ({k1 / device:.3f}), K3 {k3:.4f} '
+            f'({k3 / device:.3f}) [{card}]')
+    target, noise = pipeline_psds(batches[0])
+    for route in EXTRACTION_LAUNCHES:
+        split_four(out, f'get_bf_vector {route} 6168',
+                   lambda t, n, r=route: get_bf_vector(r, t, n),
+                   [(target, noise)] + [pipeline_psds(b) for b in
+                                        batches[1:3]], 'eigh')
+    g = torch.Generator('cuda').manual_seed(79)
+    ins = []
+    for _ in range(6):
+        a = torch.randn((6168, 6, 6), dtype=torch.complex64, device='cuda',
+                        generator=g)
+        ins.append((a @ a.conj().transpose(-1, -2),
+                    torch.randn((6168, 6, 6), dtype=torch.complex64,
+                                device='cuda', generator=g)))
+    split_four(out, 'stable_solve 6168', stable_solve, ins, 'eigh')
+    host = []
+    for a, b in ins:
+        sync()
+        t0 = time.perf_counter()
+        stable_solve(a, b)
+        host.append(1e3 * (time.perf_counter() - t0))
+    log(f'stable_solve 6168: host ms a call, synchronized before each: '
+        f'{[round(t, 3) for t in host]}')
+    top_kernels('stable_solve 6168', stable_solve, ins[1])
+    top_kernels("get_bf_vector('mvdr_souden+ban') 6168",
+                lambda t, n: get_bf_vector('mvdr_souden+ban', t, n),
+                (target, noise))
+    # the FCA fit alone on the folded bins of 8 x 4.8 s
+    obs = batches[1]
+    Y = stft(obs, 512, 128).permute(0, 3, 2, 1).reshape(
+        8 * 257, -1, 6)
+    fits = []
+    for _ in range(3):
+        masks = torch.rand((8 * 257, 3, Y.shape[1]), device='cuda',
+                           generator=g)
+        fits.append((Y, masks / masks.sum(-2, keepdim=True)))
+    split_four(out, 'FCATrainer.fit 2056 bins 20 it',
+               lambda y, m: FCATrainer().fit(y, initialization=m,
+                                             iterations=20).power,
+               fits, 'eigh')
+    top_kernels('FCATrainer.fit 2056 bins 20 it',
+                lambda y, m: FCATrainer().fit(y, initialization=m,
+                                              iterations=20).power, fits[0])
+    for key, ms in out.items():
+        log(f'  {key}: {ms:.4f} ms')
+    return out
 
 
 def long_recordings(first_seed, count):
@@ -3588,6 +3997,34 @@ def device_times(prof, key):
     return out
 
 
+def top_kernels(label, call, state, count=8):
+    """Log the ``count`` kernels of one call(*state) (after a warm-up
+    call) that take the most device time: name, ms and launches."""
+    import torch
+    call(*state)
+    sync()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call(*state)
+        sync()
+    rows = []
+    for event in prof.key_averages():
+        us = getattr(event, 'device_time_total', None)
+        if us is None:
+            us = getattr(event, 'cuda_time_total', 0)
+        if not us or getattr(event, 'device_type', None) is not None and \
+                'CUDA' not in str(event.device_type):
+            continue
+        rows.append((us, event.count, event.key[:70]))
+    rows.sort(reverse=True)
+    total = sum(us for us, _, _ in rows)
+    log(f'{label}: {total / 1e3:.4f} ms of device time in '
+        f'{sum(n for _, n, _ in rows)} kernels; the largest:')
+    for us, n, name in rows[:count]:
+        log(f'    {us / 1e3:.4f} ms  x{n}  {name}')
+
+
 def device_ms_per_launch(call, state, key, reps=20):
     """(device ms per launch of the kernels whose name holds ``key``,
     device ms of all kernels per call, host ms per call) of ``reps``
@@ -3993,7 +4430,8 @@ def main():
         help='comma-separated phases to run after the build instead of '
              'the whole smoke test (floor, splits, cacgmm, cbmm, cwmm, '
              'integration, e2e, eigh, integration_stats, '
-             'eigh_stats_splits, gev_estep_splits); '
+             'eigh_stats_splits, gev_estep_splits, extraction_checks, '
+             'extraction); '
              'prints no kernels line')
     parser.add_argument(
         '--package', default=None,
@@ -4022,7 +4460,9 @@ def main():
                   'e2e': time_e2e, 'eigh': phase_kernels_eigh,
                   'integration_stats': phase_kernels_integration_stats,
                   'eigh_stats_splits': time_eigh_stats_splits,
-                  'gev_estep_splits': time_gev_estep_splits}
+                  'gev_estep_splits': time_gev_estep_splits,
+                  'extraction_checks': phase_extraction_checks,
+                  'extraction': time_extraction}
         try:
             card = timed(phase_device)
             log('package:', importlib.util.find_spec(
@@ -4045,6 +4485,8 @@ def main():
         timed(phase_floor)
         timed(phase_guards)
         launches = timed(phase_main_path)
+        timed(phase_extraction)
+        timed(phase_fca)
         long_launches = timed(phase_long)
         fc_launches = timed(phase_fc_path)
         cwmm_launches = timed(phase_cwmm)

@@ -62,8 +62,14 @@ def build_parser():
     parser.add_argument('--iterations', '-i', type=int, default=20,
                         help='EM iterations (default 20)')
     parser.add_argument('--beamformer', '-b', default=None,
-                        help="extraction beamformer, 'gev' or 'gev+ban' "
-                             '(default: mask the reference channel)')
+                        help='extraction beamformer, a get_bf_vector name: '
+                             "'pca', 'pca+mvdr', 'scaled_gev_atf+mvdr', "
+                             "'mvdr_souden', 'gev' or 'wmwf' (the last "
+                             "three also after 'rank1_pca+' or "
+                             "'rank1_gev+'), or 'chX', each with an "
+                             "optional '+ban' suffix, e.g. 'gev+ban' or "
+                             "'rank1_gev+mvdr_souden+ban' (default: mask "
+                             'the reference channel)')
     parser.add_argument('--stft-size', type=int, default=512)
     parser.add_argument('--stft-shift', type=int, default=128)
     parser.add_argument('--output-dir', '-o', type=pathlib.Path,

@@ -11,6 +11,7 @@ from .complex_angular_central_gaussian import (  # noqa: F401
 )
 from .complex_watson import ComplexWatson, ComplexWatsonTrainer  # noqa: F401
 from .cwmm import CWMM, CWMMTrainer  # noqa: F401
+from .fca import FCA, FCATrainer  # noqa: F401
 from .gaussian import (  # noqa: F401
     DiagonalGaussian,
     Gaussian,

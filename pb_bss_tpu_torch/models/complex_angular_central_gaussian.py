@@ -29,7 +29,8 @@ def normalize_observation(observation):
     Returns:
         (..., D, N) unit-norm observations (zero vectors stay zero).
     """
-    observation = unit_norm(observation, axis=-1, eps=_tiny(observation))
+    observation = unit_norm(observation, axis=-1, eps=_tiny(observation),
+                            eps_style='where')
     return observation.transpose(-2, -1)
 
 

@@ -1,9 +1,10 @@
 """Batched small-matrix linear algebra.
 
-Counterpart of ``pb_bss_tpu.ops.linalg`` for the separation slice:
-Hermitian symmetrization, unit norm, the plain batched cyclic Jacobi
-eigensolver, diagonal loading and the GEV dominant eigenvector, with
-the JAX package's routing between plain code and hand-written kernels.
+Counterpart of ``pb_bss_tpu.ops.linalg``: Hermitian symmetrization,
+unit norm, the plain batched cyclic Jacobi eigensolver, the branchless
+stable solve with its pseudo-inverse fallback, PCA, diagonal loading and
+the GEV dominant eigenvector, with the JAX package's routing between
+plain code and hand-written kernels.
 
 Routing on CUDA follows the JAX package's TPU routing: where the JAX
 package launches its batched Jacobi kernel
@@ -22,6 +23,9 @@ __all__ = [
     'eigh',
     'eigh_jacobi',
     'sort_ascending',
+    'stable_solve',
+    'solve_pinv',
+    'get_pca',
     'condition_hermitian',
     'gev_max_eigvec',
 ]
@@ -32,13 +36,30 @@ def force_hermitian(matrix):
     return (matrix + matrix.conj().transpose(-1, -2)) / 2
 
 
-def unit_norm(signal, *, axis=-1, eps):
-    """Normalize vectors to unit 2-norm, dividing by ``eps`` only where
-    the norm is exactly zero (zero vectors stay zero; the JAX package's
-    ``eps_style='where'``)."""
-    norm = torch.sqrt(torch.sum(
-        (signal * signal.conj()).real, dim=axis, keepdim=True))
-    norm = torch.where(norm == 0, torch.full_like(norm, eps), norm)
+def unit_norm(signal, *, axis=-1, eps=1e-4, eps_style='plus', ord=None):
+    """Normalize vectors to unit norm (2-norm, or 1-norm with
+    ``ord=1``) with the JAX package's three eps styles:
+
+    - ``'plus'``: divide by ``norm + eps``;
+    - ``'max'``: divide by ``max(norm, eps)``;
+    - ``'where'``: divide by ``eps`` only where the norm is exactly zero
+      (zero vectors stay zero).
+    """
+    if ord is None or ord == 2:
+        norm = torch.sqrt(torch.sum(
+            (signal * signal.conj()).real, dim=axis, keepdim=True))
+    elif ord == 1:
+        norm = torch.sum(signal.abs(), dim=axis, keepdim=True)
+    else:
+        raise NotImplementedError(f'ord={ord}')
+    if eps_style == 'plus':
+        norm = norm + eps
+    elif eps_style == 'max':
+        norm = torch.clamp(norm, min=eps)
+    elif eps_style == 'where':
+        norm = torch.where(norm == 0, torch.full_like(norm, eps), norm)
+    else:
+        raise ValueError(eps_style)
     return signal / norm
 
 
@@ -163,6 +184,94 @@ def eigh(a, *, method='auto', sweeps=None, sort=True):
     if method == 'xla':
         return torch.linalg.eigh(a)
     raise ValueError(method)
+
+
+def solve_pinv(a, b, *, rcond=None, hermitian=False):
+    """Minimum-norm least-squares solve ``pinv(A) @ B``, batched, from
+    the eigendecomposition of ``A`` (``hermitian=True``) or of ``A^H A``
+    (the normal equations: ``pinv(A^H A) A^H B``), with eigenvalues
+    below ``rcond * max|eig|`` taken as zero. Zero matrices give zero
+    solutions.
+
+    The eigensolver is :func:`eigh` at ``method='auto'``: on CUDA, for
+    complex64 / float32 batches of at least 64 matrices with D <= 16,
+    one launch of the batched Jacobi kernel (K1,
+    :func:`pb_bss_tpu_torch.ops.eigh.eigh_jacobi`); elsewhere the plain
+    cyclic Jacobi of :func:`eigh_jacobi`. The JAX package calls its
+    XLA-level Jacobi here, whose algorithm both compute; run eagerly on
+    the card, the plain Jacobi would be hundreds of small launches a
+    call.
+    """
+    if rcond is None:
+        rcond = torch.finfo(_real_dtype(a)).eps * a.shape[-1] * 10
+    if hermitian:
+        h, rhs = a, b
+    else:
+        h = torch.einsum('...da,...db->...ab', a.conj(), a)
+        rhs = torch.einsum('...da,...dn->...an', a.conj(), b)
+    w, v = eigh(h)
+    cutoff = rcond * w.abs().amax(-1, keepdim=True)
+    keep = w.abs() > cutoff
+    w_inv = torch.where(keep, 1.0 / torch.where(keep, w, torch.ones_like(w)),
+                        torch.zeros_like(w)).to(v.dtype)
+    vhb = torch.einsum('...dk,...dn->...kn', v.conj(), rhs)
+    return torch.einsum('...dk,...k,...kn->...dn', v, w_inv, vhb)
+
+
+def _frobenius(m):
+    return torch.sqrt(torch.sum((m * m.conj()).real, dim=(-2, -1)))
+
+
+def stable_solve(a, b, *, hermitian=False):
+    """Branchless ``solve`` with a per-matrix least-squares fallback.
+
+    Solves every system by LU (``torch.linalg.solve_ex`` without its
+    error check, so a singular matrix gives non-finite values instead
+    of an exception, and CUDA no host sync), then takes the
+    pseudo-inverse solution (:func:`solve_pinv`) for each matrix whose
+    direct solution is not finite or leaves a relative residual above
+    ``sqrt(eps)``. Both are computed for every matrix and selected with
+    ``torch.where``: nothing is decided on the host. The solve and the
+    residual run in full fp32 (no TF32).
+
+    Args:
+        a: (..., D, D)
+        b: (..., D, N)
+    Returns:
+        x: (..., D, N) with ``a @ x ~= b``.
+    """
+    from ..models._precision import full_fp32  # models imports this module
+    assert a.shape[:-2] == b.shape[:-2], (a.shape, b.shape)
+    assert a.shape[-1] == b.shape[-2], (a.shape, b.shape)
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    a, b = a.to(dtype), b.to(dtype)
+    with full_fp32():
+        x, _ = torch.linalg.solve_ex(a, b, check_errors=False)
+        finite = torch.isfinite(x.abs() if x.is_complex() else x).all(
+            -1).all(-1)
+        x_safe = torch.where(finite[..., None, None], x,
+                             torch.zeros_like(x))
+        residual = _frobenius(a @ x_safe - b)
+        tol = torch.finfo(_real_dtype(a)).eps ** 0.5
+        bad = ~finite | (residual > tol * torch.clamp(
+            _frobenius(b), min=_tiny(a)))
+        x_ls = solve_pinv(a, b, hermitian=hermitian)
+        return torch.where(bad[..., None, None], x_ls, x_safe)
+
+
+def get_pca(target_psd_matrix, return_all_vecs=False):
+    """Dominant eigenvector and eigenvalue of batched Hermitian matrices
+    (:func:`eigh` at ``method='auto'``: the Jacobi kernel K1 on CUDA
+    batches it takes).
+
+    Returns (vector (..., D), eigenvalue (...,)) or, with
+    ``return_all_vecs``, all eigenvectors (columns) and eigenvalues,
+    ascending.
+    """
+    w, v = eigh(target_psd_matrix)
+    if return_all_vecs:
+        return v, w
+    return v[..., -1], w[..., -1]
 
 
 def condition_hermitian(x, gamma=1e-10):

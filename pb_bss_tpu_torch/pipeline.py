@@ -3,9 +3,11 @@
 The standard recipe — STFT -> spatial mixture model EM (cACGMM, the
 complex Watson mixture with ``model='cwmm'`` or the complex Bingham
 mixture with ``model='cbmm'``) -> DHTV permutation
-alignment -> mask-based extraction or GEV beamforming -> iSTFT — as
-:func:`separate` (one utterance) and :func:`separate_batch` (a leading
-batch axis through every stage). Counterpart of ``pb_bss_tpu.pipeline``.
+alignment -> mask-based extraction, any beamformer of
+:func:`~pb_bss_tpu_torch.extraction.get_bf_vector` or the FCA refinement
+-> iSTFT — as :func:`separate` (one utterance) and
+:func:`separate_batch` (a leading batch axis through every stage).
+Counterpart of ``pb_bss_tpu.pipeline``.
 On the card the EM runs one whole-fit launch for recordings inside its
 gate and the streamed route (one statistics launch per iteration) for
 longer ones, such as a minute at 8 kHz (T = 3753 frames: past the
@@ -21,10 +23,11 @@ from .extraction.beamformer import (
     get_power_spectral_density_matrix,
     phase_correction,
 )
-from .extraction.beamformer_wrapper import get_bf_vector
+from .extraction.beamformer_wrapper import get_bf_vector, parse_beamformer
 from .models.cacgmm import CACGMMTrainer
 from .models.cbmm import CBMMTrainer
 from .models.cwmm import CWMMTrainer
+from .models.fca import FCATrainer
 from .permutation_alignment import DHTVPermutationAlignment
 from .transform import istft, stft
 from .transform.stft_module import stft_frames
@@ -40,17 +43,13 @@ def _check_options(beamformer, model, mesh, refine):
             raise ValueError(
                 'refine and beamformer are mutually exclusive, got '
                 f'refine={refine!r}, beamformer={beamformer!r}')
-        raise NotImplementedError(
-            "refine='fca' is not ported yet (ROADMAP queue 1, FCA)")
     if model not in ('cacgmm', 'cwmm', 'cbmm'):
         raise ValueError(model)
     if mesh is not None:
         raise NotImplementedError(
             'mesh sharding is not ported yet (ROADMAP queue 1, parallel)')
-    if beamformer not in (None, 'gev', 'gev+ban'):
-        raise NotImplementedError(
-            f'beamformer {beamformer!r} is not ported yet (ROADMAP queue '
-            "1, extraction); available: None, 'gev', 'gev+ban'")
+    if beamformer is not None:
+        parse_beamformer(beamformer)
 
 
 def _random_affiliation(generator, shape, dtype, device):
@@ -62,7 +61,8 @@ def _random_affiliation(generator, shape, dtype, device):
 
 
 def _separate(observations, initialization, *, iterations, stft_size,
-              stft_shift, beamformer, reference_channel, eigh_sweeps, model):
+              stft_shift, beamformer, reference_channel, eigh_sweeps, model,
+              refine, refine_iterations):
     """observations (B, D, N), initialization (B, F, K, T) ->
     (B, K, N)."""
     num_samples = observations.shape[-1]
@@ -81,6 +81,18 @@ def _separate(observations, initialization, *, iterations, stft_size,
     pa = DHTVPermutationAlignment.from_stft_size(stft_size)
     masks = pa(affiliation.transpose(1, 2))  # (B, K, F, T)
 
+    if refine is not None:
+        # every bin is independent: the batch folds into the bin axis
+        B, F, T, D = Y.shape
+        fca = FCATrainer().fit(
+            Y.reshape(B * F, T, D),
+            initialization=masks.transpose(1, 2).reshape(B * F, -1, T),
+            iterations=refine_iterations)
+        images = fca.separate(Y.reshape(B * F, T, D))  # (B F, K, T, D)
+        estimate = images[..., reference_channel].reshape(B, F, -1, T)
+        return istft(estimate.permute(0, 2, 3, 1), stft_size, stft_shift,
+                     num_samples=num_samples)
+
     if beamformer is None:
         masked = masks.transpose(-1, -2) \
             * Observation[:, reference_channel, None]  # (B, K, T, F)
@@ -90,11 +102,14 @@ def _separate(observations, initialization, *, iterations, stft_size,
     psds = get_power_spectral_density_matrix(
         Y_fdt, masks.transpose(1, 2))  # (B, F, K, D, D)
     phi_nn = psds.sum(2, keepdim=True) - psds
-    # every class of every bin in one call (pencils are independent)
-    w = get_bf_vector(beamformer, psds, phi_nn)  # (B, F, K, D)
+    # every class of every bin in one call (pencils are independent), as
+    # (B, K, F, D, D): the MVDR-Souden and wMWF beamformers pick their
+    # reference channel per utterance and class, over the bins
+    w = get_bf_vector(beamformer, psds.transpose(1, 2),
+                      phi_nn.transpose(1, 2))  # (B, K, F, D)
     # eigenvector-based beamformers carry an arbitrary phase per bin;
     # align phases across bins before the synthesis
-    w = phase_correction(w.transpose(1, 2))  # (B, K, F, D)
+    w = phase_correction(w)
     out = apply_beamforming_vector(w, Y_fdt[:, None])  # (B, K, F, T)
     return istft(out.transpose(-1, -2), stft_size, stft_shift,
                  num_samples=num_samples)
@@ -118,15 +133,24 @@ def separate(observation, *, num_classes=3, iterations=80, stft_size=512,
         num_classes: number of mixture components (speakers + noise).
         iterations: EM iterations.
         beamformer: None for mask-based extraction at
-            ``reference_channel``, or ``'gev'`` / ``'gev+ban'`` applied
-            per class with the summed other classes as noise.
+            ``reference_channel``, or a
+            :func:`~pb_bss_tpu_torch.extraction.get_bf_vector` name (e.g.
+            ``'gev+ban'``, ``'mvdr_souden+ban'``,
+            ``'rank1_gev+mvdr_souden+ban'``, ``'wmwf'``, ``'ch0'``)
+            applied per class with the summed other classes as noise.
         generator: ``torch.Generator`` for the EM initialization
             (default: one seeded 0 on the observation's device).
         eigh_sweeps: optional Jacobi sweeps of the EM eigh.
         model: the spatial mixture model: ``'cacgmm'`` (default),
             ``'cwmm'`` (complex Watson) or ``'cbmm'`` (complex Bingham).
-        mesh / refine / refine_iterations: JAX options whose paths are
-            not ported yet (``NotImplementedError``).
+        mesh: the JAX package's sharding option, not ported yet
+            (``NotImplementedError``).
+        refine: ``'fca'`` replaces the mask or beamformer extraction
+            with a full-rank Wiener stage: the aligned masks warm-start
+            an :class:`~pb_bss_tpu_torch.models.fca.FCA` fit, and the
+            output is its Wiener source image at ``reference_channel``.
+            Mutually exclusive with ``beamformer``.
+        refine_iterations: MU / IP iterations of the refinement fit.
     Returns:
         (num_classes, num_samples) separated time signals (global class
         order is arbitrary).
@@ -145,7 +169,8 @@ def separate(observation, *, num_classes=3, iterations=80, stft_size=512,
         observation[None], init[None], iterations=iterations,
         stft_size=stft_size, stft_shift=stft_shift, beamformer=beamformer,
         reference_channel=reference_channel, eigh_sweeps=eigh_sweeps,
-        model=model)[0]
+        model=model, refine=refine,
+        refine_iterations=refine_iterations)[0]
 
 
 def utterance_generators(generator, batch, device):
@@ -166,8 +191,8 @@ def separate_batch(observations, *, num_classes=3, iterations=80,
                    refine_iterations=20):
     """Batched :func:`separate`: (B, D, num_samples) ->
     (B, num_classes, num_samples). The batch is a leading axis through
-    every stage (the EM kernels and one GEV launch per attempt take the
-    whole batch).
+    every stage (the EM kernels, the beamformer's kernels and the FCA
+    refinement, whose bins fold the batch, take the whole batch).
     Utterance i is initialized from the i-th of
     :func:`utterance_generators` (default master: seeded 0)."""
     assert observations.ndim == 3, observations.shape
@@ -186,4 +211,4 @@ def separate_batch(observations, *, num_classes=3, iterations=80,
         observations, init, iterations=iterations, stft_size=stft_size,
         stft_shift=stft_shift, beamformer=beamformer,
         reference_channel=reference_channel, eigh_sweeps=eigh_sweeps,
-        model=model)
+        model=model, refine=refine, refine_iterations=refine_iterations)

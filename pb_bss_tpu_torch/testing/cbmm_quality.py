@@ -96,7 +96,8 @@ def cbmm_quality(observations, images, recipe):
     out = _separate(observations, init, iterations=_ITERATIONS,
                     stft_size=_STFT[0], stft_shift=_STFT[1],
                     beamformer='gev+ban', reference_channel=0,
-                    eigh_sweeps=None, model='cbmm')
+                    eigh_sweeps=None, model='cbmm', refine=None,
+                    refine_iterations=0)
     return si_sdr_stft(images[:, :, None].cpu().double(),
                        out.cpu().double()[:, None]).max(-1).values
 

@@ -1427,3 +1427,86 @@ def test_integration_whole_fit_kernel_instantiations_match_plain(cuda, D,
     p_p = _integration_next_posterior(y, emb, ref, mode, spherical, N // U)
     agree = (p_k.argmax(-2) == p_p.argmax(-2)).float().mean()
     assert agree > 0.9, agree
+
+
+# (K3, K1) launches of one get_bf_vector call on a batch the kernels take
+BF_LAUNCHES = {
+    'gev+ban': (1, 0), 'mvdr_souden': (0, 1), 'mvdr_souden+ban': (0, 1),
+    'wmwf': (0, 1), 'rank1_gev+mvdr_souden+ban': (1, 1),
+    'scaled_gev_atf+mvdr': (1, 1), 'rank1_pca+mvdr_souden': (0, 2),
+    'pca+mvdr': (0, 2), 'pca': (0, 1), 'ch0': (0, 0)}
+BF_PHASE_FREE = {'gev+ban', 'scaled_gev_atf+mvdr', 'pca+mvdr', 'pca'}
+
+
+def _class_psds(B, K, F, D, device, seed):
+    g = torch.Generator(device).manual_seed(seed)
+    a = torch.randn((B, K, F, D, 2 * D), dtype=torch.complex64,
+                    device=device, generator=g)
+    psds = a @ a.conj().transpose(-1, -2) / (2 * D) \
+        + 0.05 * torch.eye(D, dtype=torch.complex64, device=device)
+    return psds, psds.sum(1, keepdim=True) - psds
+
+
+@pytest.mark.parametrize('name', sorted(BF_LAUNCHES))
+def test_get_bf_vector_launches_and_matches_plain(cuda, name):
+    from pb_bss_tpu_torch.extraction import get_bf_vector
+    from pb_bss_tpu_torch.ops.eigh import eigh_jacobi
+    psds, phi_nn = _class_psds(2, 3, 33, 6, cuda, seed=3)
+    before = gev.launches, eigh_jacobi.launches
+    out = get_bf_vector(name, psds, phi_nn)
+    torch.cuda.synchronize()
+    assert (gev.launches - before[0],
+            eigh_jacobi.launches - before[1]) == BF_LAUNCHES[name]
+    ref = get_bf_vector(name, psds.cpu(), phi_nn.cpu())
+    out = out.cpu()
+    assert torch.isfinite(out).all()
+    if name in BF_PHASE_FREE:
+        inner = (ref.conj() * out).sum(-1, keepdim=True)
+        out = out / (inner / inner.abs())
+    # f32 LU and Jacobi sweeps on the card against the CPU's
+    torch.testing.assert_close(out, ref, atol=2e-3 * ref.abs().max(),
+                               rtol=2e-3)
+
+
+def test_stable_solve_is_one_jacobi_launch_with_no_host_sync(cuda):
+    from pb_bss_tpu_torch.ops.eigh import eigh_jacobi
+    from pb_bss_tpu_torch.ops.linalg import stable_solve
+    g = torch.Generator(cuda).manual_seed(4)
+    a = torch.randn((600, 6, 6), dtype=torch.complex64, device=cuda,
+                    generator=g)
+    b = torch.randn((600, 6, 2), dtype=torch.complex64, device=cuda,
+                    generator=g)
+    a[3] = 0
+    a[5, :, 0] = a[5, :, 1]
+    a[7] *= float('inf')
+    stable_solve(a, b)  # build and load the kernel first
+    torch.cuda.synchronize()
+    before = eigh_jacobi.launches
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        x = stable_solve(a, b)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    assert eigh_jacobi.launches == before + 1
+    ref = stable_solve(a.cpu(), b.cpu())
+    finite = torch.ones(600, dtype=torch.bool)
+    finite[7] = False
+    assert torch.isfinite(x.cpu()[finite]).all()
+    assert not torch.isfinite(x.cpu()[7]).all()
+    torch.testing.assert_close(x.cpu()[finite], ref[finite], atol=1e-3,
+                               rtol=1e-3)
+
+
+def test_separate_batch_fca_launches_jacobi_per_ip_row(cuda):
+    from pb_bss_tpu_torch import separate_batch
+    from pb_bss_tpu_torch.ops.eigh import eigh_jacobi
+    g = torch.Generator(cuda).manual_seed(5)
+    obs = torch.randn((2, 6, 8000), device=cuda, generator=g)
+    before = eigh_jacobi.launches
+    out = separate_batch(obs, iterations=3, refine='fca',
+                         refine_iterations=2)
+    torch.cuda.synchronize()
+    # a stable solve per IP row (D=6) per iteration, and one for Q^-1
+    assert eigh_jacobi.launches - before == 2 * 6 + 1
+    assert out.shape == (2, 3, 8000) and torch.isfinite(out).all()

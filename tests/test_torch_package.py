@@ -22,10 +22,13 @@ import torch
 import pb_bss_tpu_torch
 from pb_bss_tpu_torch import (cli, permutation_alignment, pipeline)
 from pb_bss_tpu_torch.evaluation import module_si_sdr
-from pb_bss_tpu_torch.extraction import beamformer, beamformer_wrapper
+from pb_bss_tpu_torch.extraction import (
+    beamform_utils, beamformer, beamformer_wrapper, mask_module)
+from pb_bss_tpu_torch.math import solve
 from pb_bss_tpu_torch.models import (
     base, cacgmm, complex_angular_central_gaussian, complex_watson, cwmm,
-    gaussian, gcacgmm, mixture_model_utils, vmfcacgmm, von_mises_fisher)
+    fca, gaussian, gcacgmm, mixture_model_utils, vmfcacgmm, von_mises_fisher)
+from pb_bss_tpu_torch import utils
 from pb_bss_tpu_torch.ops import (
     _build, cwmm_loop, em_loop, gev, integration_em, integration_em_loop,
     linalg, mm_stream)
@@ -58,6 +61,15 @@ for trainer, kw in ((vmfcacgmm.VMFCACGMMTrainer(), {}),
         model = trainer.fit(obs, emb, num_classes=3, iterations=3,
                             use_fused_em=route, **kw)
         assert model.predict(obs, emb).shape == (4, 3, 20)
+phi_nn = phi + torch.eye(6)
+for name in ('rank1_gev+mvdr_souden+ban', 'pca+mvdr', 'wmwf'):
+    assert beamformer_wrapper.get_bf_vector(name, phi, phi_nn).shape == (5, 6)
+y = torch.randn((5, 20, 3), dtype=torch.complex64, generator=g)
+masks = torch.full((5, 2, 20), 0.5)
+assert fca.FCATrainer().fit(y, initialization=masks,
+                            iterations=1).predict().shape == (5, 2, 20)
+from pb_bss_tpu_torch.ops import eigh
+assert eigh.eigh_jacobi.launches == 0
 assert integration_em.e_stats.launches == 0
 assert integration_em_loop.integration_em_full.launches == 0
 assert em_loop.cacgmm_em_full.launches == 0

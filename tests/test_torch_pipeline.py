@@ -14,9 +14,14 @@ from pb_bss_tpu.pipeline import separate as jax_separate
 from pb_bss_tpu.testing.dummy_data import low_reverberation_data
 from pb_bss_tpu_torch import cli, separate, separate_batch
 from pb_bss_tpu_torch.evaluation import si_sdr, si_sdr_stft
+from pb_bss_tpu_torch.ops.eigh import eigh_jacobi
 from pb_bss_tpu_torch.ops.em_loop import cacgmm_em_full
 from pb_bss_tpu_torch.ops.gev import gev
-from pb_bss_tpu_torch.pipeline import utterance_generators
+from pb_bss_tpu_torch.pipeline import (
+    _init_shape,
+    _separate,
+    utterance_generators,
+)
 
 torch.set_num_threads(2)
 
@@ -74,18 +79,49 @@ def test_separate_cwmm_quality_matches_jax(scenario, beamformer, metric):
     assert (ours > 5.0).all(), ours
 
 
-def _check_batch_equals_single(observation, model):
+@pytest.mark.parametrize('options,metric', [
+    (dict(beamformer='mvdr_souden+ban'), si_sdr_stft),
+    (dict(beamformer='rank1_gev+mvdr_souden+ban'), si_sdr_stft),
+    (dict(refine='fca'), si_sdr)])
+def test_separate_matches_jax_from_its_initialization(scenario, options,
+                                                      metric):
+    """The extraction routes of this slice from the JAX package's own EM
+    initialization (``jax.random.uniform`` at ``key(0)``, as its
+    ``separate`` draws it) through the port's pipeline: the same EM, the
+    same masks, the same beamformer or FCA refinement, so the quality
+    agrees to a hundredth of a dB (measured: within 0.01 dB)."""
+    import jax
+    observation, images = scenario
+    obs = torch.as_tensor(observation)
+    init = np.asarray(jax.random.uniform(
+        jax.random.key(0), _init_shape(obs, 3, 512, 128), jnp.float32))
+    init = torch.as_tensor(init / init.sum(-2, keepdims=True))
+    kwargs = dict(beamformer=None, refine=None, refine_iterations=20)
+    kwargs.update(options)
+    out = _separate(obs[None], init[None], iterations=ITERATIONS,
+                    stft_size=512, stft_shift=128, reference_channel=0,
+                    eigh_sweeps=None, model='cacgmm', **kwargs)[0]
+    assert out.shape == (3, NUM_SAMPLES) and torch.isfinite(out).all()
+    ref = np.array(jax_separate(jnp.asarray(observation),
+                                iterations=ITERATIONS, **options))
+    ours = metric(images[:, None], out[None].double()).max(-1).values
+    theirs = metric(images[:, None],
+                    torch.as_tensor(ref)[None].double()).max(-1).values
+    assert ((ours - theirs).abs() < 0.1).all(), (ours, theirs)
+
+
+def _check_batch_equals_single(observation, model, **options):
+    options = options or dict(beamformer='gev+ban')
     observations = torch.stack([
         torch.as_tensor(observation[:, :8000]),
         torch.as_tensor(observation[:, 8000:])])
-    batched = separate_batch(observations, iterations=5,
-                             beamformer='gev+ban', model=model)
+    batched = separate_batch(observations, iterations=5, model=model,
+                             **options)
     generators = utterance_generators(torch.Generator().manual_seed(0), 2,
                                       'cpu')
     for i in range(2):
         single = separate(observations[i], iterations=5,
-                          beamformer='gev+ban', generator=generators[i],
-                          model=model)
+                          generator=generators[i], model=model, **options)
         # same initialization; batched vs unbatched f32 products only
         torch.testing.assert_close(batched[i], single, atol=1e-4,
                                    rtol=1e-3)
@@ -97,6 +133,17 @@ def test_separate_batch_equals_separate_per_utterance(scenario):
 
 def test_separate_batch_cwmm_equals_separate_per_utterance(scenario):
     _check_batch_equals_single(scenario[0], 'cwmm')
+
+
+@pytest.mark.parametrize('options', [
+    dict(beamformer='mvdr_souden+ban'), dict(beamformer='wmwf'),
+    dict(refine='fca', refine_iterations=3)])
+def test_separate_batch_extraction_equals_separate_per_utterance(scenario,
+                                                                 options):
+    """The batched call picks the MVDR-Souden / wMWF reference channel
+    per utterance and class, and folds the batch into FCA's bins: each
+    utterance's output equals its separate()."""
+    _check_batch_equals_single(scenario[0], 'cacgmm', **options)
 
 
 def test_separate_cbmm_runs_on_the_cpu_with_no_launch(scenario):
@@ -127,18 +174,34 @@ def test_separate_cbmm_runs_on_the_cpu_with_no_launch(scenario):
 
 def test_cpu_run_launches_no_kernel(scenario):
     observation, _ = scenario
-    before = (cacgmm_em_full.launches, gev.launches)
-    separate(torch.as_tensor(observation[:, :4000]), iterations=2,
-             beamformer='gev+ban')
-    assert (cacgmm_em_full.launches, gev.launches) == before
+
+    def counts():
+        return cacgmm_em_full.launches, gev.launches, eigh_jacobi.launches
+    before = counts()
+    for options in (dict(beamformer='gev+ban'),
+                    dict(beamformer='rank1_pca+mvdr_souden'),
+                    dict(refine='fca', refine_iterations=1)):
+        separate(torch.as_tensor(observation[:, :4000]), iterations=2,
+                 **options)
+    assert counts() == before
 
 
 def test_unported_options_raise(scenario):
+    """Only mesh= is left unported; an unknown beamformer or refine
+    stage raises ValueError and LCMV fails its assert, before any
+    work, as in the JAX package."""
     observation = torch.as_tensor(scenario[0][:, :2000])
-    for kwargs in (dict(mesh='f'), dict(refine='fca'),
-                   dict(beamformer='mvdr_souden')):
-        with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):
+        separate(observation, iterations=1, mesh='f')
+    for kwargs in (dict(beamformer='mvdr_soudem'), dict(refine='nmf'),
+                   dict(refine='fca', beamformer='gev+ban')):
+        with pytest.raises(ValueError):
             separate(observation, iterations=1, **kwargs)
+        with pytest.raises(ValueError):
+            jax_separate(jnp.asarray(observation.numpy()), iterations=1,
+                         **kwargs)
+    with pytest.raises(AssertionError, match='LCMV'):
+        separate_batch(observation[None], iterations=1, beamformer='lcmv')
 
 
 def test_cli_on_cpu(scenario, tmp_path):
@@ -245,3 +308,43 @@ def test_cbmm_quality_on_the_smoke_utterances(capsys):
     assert (warm >= WARM_SINGLE_FLOOR_DB).all()
     assert not ((control.mean(0) >= WARM_MEAN_FLOOR_DB).all()
                 and (control >= WARM_SINGLE_FLOOR_DB).all())
+
+
+EXTRACTION_ROUTES = [
+    'mvdr_souden', 'mvdr_souden+ban', 'wmwf', 'rank1_gev+mvdr_souden+ban',
+    'scaled_gev_atf+mvdr', 'rank1_pca+mvdr_souden', 'pca+mvdr', 'pca',
+    'ch0', 'fca']
+
+
+@pytest.mark.slow
+def test_extraction_quality_on_the_smoke_utterances(capsys):
+    """The numbers behind chip_smoke.py's extraction and FCA floors:
+    separate_batch of the smoke's eight 4.8 s utterances (20 iterations)
+    with each extraction route of the slice (``'fca'``: refine='fca',
+    20 refinement iterations) on the CPU, beside JAX's separate on each
+    utterance. Per-frequency SI-SDR of the best estimate per speaker,
+    and for 'fca' also the plain SI-SDR."""
+    from pb_bss_tpu_torch.testing import low_reverberation_data as data_of
+    data = [data_of(seed=s) for s in range(8)]
+    observations = np.stack([d['observation'] for d in data]).astype(
+        np.float32)
+    images = torch.as_tensor(np.stack([d['speech_image'][:, 0]
+                                       for d in data]))
+    for route in EXTRACTION_ROUTES:
+        options = dict(refine='fca') if route == 'fca' \
+            else dict(beamformer=route)
+        ours = separate_batch(torch.as_tensor(observations), iterations=20,
+                              **options)
+        assert torch.isfinite(ours).all(), route
+        theirs = torch.stack([torch.as_tensor(np.array(jax_separate(
+            jnp.asarray(o), iterations=20, **options)))
+            for o in observations])
+        metrics = (si_sdr_stft, si_sdr) if route == 'fca' else (si_sdr_stft,)
+        for metric in metrics:
+            with capsys.disabled():
+                for name, out in (('port', ours), ('jax', theirs)):
+                    s = metric(images[:, :, None],
+                               out.double()[:, None]).max(-1).values
+                    print(f'\n{route} {metric.__name__} {name}: batch means '
+                          f'{s.mean(0).numpy().round(2).tolist()}; worst '
+                          f'{s.min().item():.2f} dB')
