@@ -5,7 +5,7 @@
 Builds the hand-written CUDA kernels from pb_bss_tpu_torch/csrc (one
 nvcc per source, all at once), holds each against its plain PyTorch
 version on the card (the four cACGMM kernels also with an eigenvalue at
-the floor, pb_bss_tpu_torch.testing.em_floor), and drives seven paths,
+the floor, pb_bss_tpu_torch.testing.em_floor), and drives eight paths,
 each with the launch counters reset just before and read just after:
 
 * the short-recording path: ``separate_batch`` of 4.8 s utterances
@@ -21,6 +21,14 @@ each with the launch counters reset just before and read just after:
   systems with no host sync and ``quantile_mask`` above 2^24 elements;
   and the FCA refinement, ``separate_batch(refine='fca')`` (the Jacobi
   kernel once per IP row and iteration);
+* the streaming separator: ``StreamingSeparator`` at its defaults on
+  a 60 s recording in chunks of 4,096 samples, in mask mode and with
+  the GEV+BAN beamformer (the whole-fit EM kernel once for the warm-up,
+  the Jacobi kernel in each streamed block's M-step, the GEV kernel once
+  a beamformed block), with its reconstruction, snapshot and resume,
+  chunking, card-against-CPU and quality checks, and the rest of the
+  model surface (GMM, k-means, vMF mixture, complex Gaussian, the cACG
+  trainer, the cACGMM sampler and log-likelihood) against the CPU;
 * the long-recording path: ``separate_batch`` of 60 s recordings
   (streamed EM statistics kernel and batched Jacobi kernel, GEV
   kernel), ``separate`` at its defaults and the CLI on one of them, and
@@ -58,7 +66,7 @@ limit, and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without a CUDA device, outside a checkout of the repository,
 or when any phase fails. Imports nothing of JAX.
 
-    python3 chip_smoke.py --only floor,cacgmm,cbmm,cwmm,integration,splits,e2e,eigh,integration_stats,eigh_stats_splits,gev_estep_splits,extraction_checks,extraction \
+    python3 chip_smoke.py --only floor,cacgmm,cbmm,cwmm,integration,splits,e2e,eigh,integration_stats,eigh_stats_splits,gev_estep_splits,extraction_checks,extraction,streaming,surface \
         [--package DIR]
 
 runs only the named phases after the build (the floor checks, the cACGMM
@@ -72,7 +80,8 @@ end, the batched Jacobi's checks, the integration statistics pass's
 checks, the split of the last two alone, the split of the GEV and the
 E-step kernels alone, the extraction and FCA checks, the timing of
 ``separate_batch`` per extraction route, of ``stable_solve`` and of the
-FCA fit), with ``pb_bss_tpu_torch`` imported from DIR
+FCA fit, the streaming checks with the stream's block timings, the model
+surface), with ``pb_bss_tpu_torch`` imported from DIR
 if given (another checkout, to time two versions in one call); it prints
 no kernels line.
 """
@@ -2455,6 +2464,450 @@ def phase_extraction_checks():
     return phase_extraction(), phase_fca()
 
 
+# ---------------------------------------------------------------------
+# the streaming separator
+# ---------------------------------------------------------------------
+
+# StreamingSeparator at its defaults (K=3, 512/128, 16-frame blocks, a
+# 256-frame warm-up, realignment every 8 blocks) on the first 60 s
+# recording of long_recordings (testing.streaming_quality.recording), in
+# chunks of 4,096 samples. Time-domain SI-SDR of the best output per
+# speaker against the reverberant images at channel 0. The port's plain
+# path on the CPU (python -m pb_bss_tpu_torch.testing.streaming_quality
+# --device cpu) gives mask -3.72 / -0.49 dB and 'gev+ban' -19.78 /
+# -14.61 dB, the JAX package's stream -3.14 / -1.00 and -30.64 / -16.94
+# dB (tests/test_torch_streaming.py::test_streaming_quality_on_the_smoke_
+# recording, slow tier, prints both), and the mixture's channel 0 scores
+# -2.17 / 2.04 dB: this synthetic
+# minute (a new room every 4.8 s) streams as poorly as it separates
+# offline (LONG_*_FLOOR_DB), in both packages, so no floor can sit above
+# the mixture there. The floors (mean over the speakers, worst speaker)
+# sit below the CPU numbers and catch a broken path; the card's random
+# start differs from the CPU's. STREAM_STATIC_* hold the stream above the
+# mixture on a static scene.
+STREAM_FLOORS_DB = {'mask': (-5.0, -8.0), 'gev+ban': (-22.0, -27.0)}
+# the 2-speaker 4.8 s scene (low_reverberation_data(0)) streamed as the
+# JAX package's slow tests stream it (32-frame blocks, forgetting 1, two
+# inner iterations, 20 warm-up iterations; tests/test_torch_streaming.py's
+# slow twins print the CPU numbers): on the CPU the mask stream
+# scores 2.84 / 11.90 dB against the mixture's -7.95 / 7.72 (time
+# domain), the 'gev+ban' stream 8.64 / 6.41 dB against -7.80 / 7.85 per
+# frequency (a beamformer's output is its target up to a filter, which
+# the time-domain score counts as distortion: -10.79 / -18.31 dB there);
+# tests/test_torch_streaming.py's slow tests hold the same margins: each
+# speaker 1 dB above the mixture (mask), the mean 1 dB above (beamformer).
+STREAM_STATIC_MARGIN_DB = 1.0
+STREAM_CHUNK = 4096
+# card against CPU for one block from the same state: the E-step of the
+# loaded model in f32 on each side (posteriors), the mask synthesis, and
+# for 'gev+ban' the PSD update and K3 against the plain GEV (outputs,
+# relative to their peak)
+STREAM_POSTERIOR_ATOL = 1e-4
+STREAM_OUTPUT_RTOL = {'mask': 1e-4, 'gev+ban': 1e-3}
+
+
+def stream_separator(beamformer, **kwargs):
+    from pb_bss_tpu_torch import StreamingSeparator
+    return StreamingSeparator(num_classes=3, beamformer=beamformer, **kwargs)
+
+
+def stream_launches(got):
+    return {k: got[k] for k in ('cacgmm_em_full', 'eigh_jacobi', 'gev')}
+
+
+def stream_expected(sep, samples, beamformer):
+    """Launches of a stream of ``samples`` at the separator's config: K2
+    once (the warm-up fit), K1 per streamed block and inner iteration
+    (each block's M-step; flush pads the rest to one more block), K3 per
+    synthesized block in 'gev+ban' mode (one get_bf_vector call on all
+    classes a block, the warm-up catch-up's blocks included), and no
+    other kernel."""
+    block = sep.block_frames * sep.shift
+    total = -(-samples // block)
+    warm = sep.init_frames // sep.block_frames
+    want = dict.fromkeys(read_counters(), 0)
+    want.update(cacgmm_em_full=1,
+                eigh_jacobi=(total - warm) * sep.stream.inner_iterations,
+                gev=total if beamformer else 0)
+    return want, total - warm
+
+
+def feed(sep, observation, start=0, stop=None, chunk=STREAM_CHUNK):
+    stop = observation.shape[-1] if stop is None else stop
+    return [sep.process(observation[:, i:min(i + chunk, stop)])
+            for i in range(start, stop, chunk)]
+
+
+def stream_main(observation, images, beamformer):
+    """One mode's main-path run: launches, finite output, reconstruction
+    (mask mode), snapshot and resume on the card, flush, quality.
+    Returns the launches of K2, K1 and K3."""
+    import numpy as np
+    from pb_bss_tpu_torch.testing.streaming_quality import scores
+    mode = beamformer or 'mask'
+    N = observation.shape[-1]
+    middle = (N // 2 // STREAM_CHUNK) * STREAM_CHUNK
+    sep = stream_separator(beamformer)
+    sync()
+    reset_counters()
+    t0 = time.perf_counter()
+    first = feed(sep, observation, 0, middle)
+    snapshot = sep.state_dict()
+    second = feed(sep, observation, middle) + [sep.flush()]
+    sync()
+    seconds = time.perf_counter() - t0
+    got = read_counters()
+    want, streamed = stream_expected(sep, N, beamformer)
+    expect_launches(f'StreamingSeparator({mode}) 60 s, {streamed} streamed '
+                    f'blocks', got, want)
+    out = np.concatenate(first + second, axis=-1)
+    delay = sep.size - sep.shift
+    if out.shape != (3, N + delay) or not np.isfinite(out).all():
+        fail(f'stream ({mode}) gave {out.shape} or non-finite output')
+    if sep.flush().shape != (3, 0):
+        fail('a second flush() was not empty')
+    try:
+        sep.process(observation[:, :100])
+    except RuntimeError:
+        pass
+    else:
+        fail('process() after flush() did not raise')
+    log(f'stream ({mode}): {seconds:.2f} s for {N / 8000:.0f} s of audio '
+        f'(a snapshot inside), real-time factor {seconds / (N / 8000):.4f}'
+        f' | {card_note()}')
+
+    peak = float(np.abs(observation).max())
+    if beamformer is None:
+        # the K posteriors sum to one per bin: the outputs sum to the
+        # delayed reference channel (the JAX test's 2e-4 on unit-variance
+        # noise, whose peak is ~4: 5e-5 of the peak)
+        err = float(np.abs(out.sum(0)[delay:N]
+                           - observation[0, :N - delay]).max())
+        log(f'stream reconstruction: max error {err:.3e} '
+            f'({err / peak:.2e} of the peak)')
+        if err > 5e-5 * peak:
+            fail(f'stream reconstruction error {err} > 5e-5 x {peak}')
+
+    resumed = stream_separator(beamformer).load_state_dict(snapshot)
+    rest = np.concatenate(feed(resumed, observation, middle)
+                          + [resumed.flush()], axis=-1)
+    tail = np.concatenate(second, axis=-1)
+    err = float(np.abs(rest - tail).max()) if rest.shape == tail.shape \
+        else math.inf
+    log(f'stream ({mode}) snapshot at {middle} samples, resumed on a fresh '
+        f'card separator: max difference {err:.3e}')
+    if err > 1e-5 * max(float(np.abs(tail).max()), 1e-30):
+        fail(f'the resumed stream ({mode}) parts from the original: {err}')
+
+    result = scores(images, out[:, delay:delay + N])
+    mean_floor, single_floor = STREAM_FLOORS_DB[mode]
+    log(f'stream ({mode}) SI-SDR per speaker '
+        f"{[round(float(v), 2) for v in result['si_sdr']]} dB (per "
+        f"frequency {[round(float(v), 2) for v in result['si_sdr_stft']]}"
+        f'; floors {mean_floor} mean / {single_floor} single)')
+    if not (result['si_sdr'].mean() >= mean_floor
+            and result['si_sdr'].min() >= single_floor):
+        fail(f'stream ({mode}) quality below the floor')
+    return stream_launches(got)
+
+
+def card_note():
+    return f'card {getattr(phase_device, "card", "unknown")}'
+
+
+def stream_chunkings(observation):
+    """Two chunkings of the first 20 s (mask mode) give the same samples
+    (before flush)."""
+    import numpy as np
+    n = 20 * 8000
+    outs = []
+    for chunk in (STREAM_CHUNK, 997):
+        sep = stream_separator(None)
+        outs.append(np.concatenate(feed(sep, observation, 0, n, chunk), -1))
+    m = min(o.shape[-1] for o in outs)
+    err = float(np.abs(outs[0][:, :m] - outs[1][:, :m]).max())
+    log(f'stream chunkings 4096 / 997 of 20 s: {m} samples each, max '
+        f'difference {err:.3e}')
+    # the JAX test's 1e-5 on unit-variance noise, relative to the peak
+    if m < n - 4096 or err > 2.5e-6 * float(np.abs(outs[0]).max()):
+        fail(f'two chunkings part: {err} over {m} samples')
+
+
+def stream_card_against_cpu(observation, beamformer):
+    """After warm-up the card's state_dict() is loaded into a CPU
+    separator; both take the same next block: posteriors (the block's
+    columns of the alignment window) and outputs agree."""
+    import numpy as np
+    mode = beamformer or 'mask'
+    card = stream_separator(beamformer)
+    block = card.block_frames * card.shift
+    warm = card.init_frames * card.shift
+    feed(card, observation, 0, warm, block)
+    cpu = stream_separator(beamformer, device='cpu').load_state_dict(
+        card.state_dict())
+    chunk = observation[:, warm:warm + block]
+    out_card, out_cpu = card.process(chunk), cpu.process(chunk)
+    B = card.block_frames
+    post = float((card._aff_hist[..., -B:].cpu()
+                  - cpu._aff_hist[..., -B:]).abs().max())
+    err = float(np.abs(out_card - out_cpu).max())
+    rel = err / max(float(np.abs(out_cpu).max()), 1e-30)
+    log(f'stream ({mode}) card against CPU, one block from the same state: '
+        f'posteriors {post:.2e}, outputs {err:.3e} ({rel:.2e} of the peak)')
+    if not (post <= STREAM_POSTERIOR_ATOL
+            and rel <= STREAM_OUTPUT_RTOL[mode]):
+        fail(f'stream ({mode}): the card parts from the CPU on one block')
+
+
+def stream_static_scene():
+    """The 2-speaker 4.8 s scene streamed as the JAX slow tests stream
+    it: the mask stream beats the mixture's channel 0 by the margin per
+    speaker (time-domain SI-SDR), the 'gev+ban' stream on the mean (per
+    frequency)."""
+    import numpy as np
+    from pb_bss_tpu_torch.testing import low_reverberation_data
+    from pb_bss_tpu_torch.testing.streaming_quality import (
+        run_stream, scores)
+    data = low_reverberation_data(seed=0)
+    obs = data['observation'].astype(np.float32)
+    images = data['speech_image'][:, 0].astype(np.float64)
+    mixture = scores(images, np.broadcast_to(obs[0], images.shape))
+    for beamformer, metric in ((None, 'si_sdr'), ('gev+ban', 'si_sdr_stft')):
+        out = run_stream(stream_separator(
+            beamformer, block_frames=32, forgetting=1.0, inner_iterations=2,
+            init_iterations=20), obs)
+        result = scores(images, out)
+        mode = beamformer or 'mask'
+        log(f'static scene stream ({mode}) {metric} '
+            f'{[round(float(v), 2) for v in result[metric]]} dB, mixture '
+            f'{[round(float(v), 2) for v in mixture[metric]]} dB (time '
+            f"domain {[round(float(v), 2) for v in result['si_sdr']]})")
+        ours, mix = result[metric], mixture[metric]
+        ok = (bool((ours > mix + STREAM_STATIC_MARGIN_DB).all())
+              if beamformer is None else
+              ours.mean() > mix.mean() + STREAM_STATIC_MARGIN_DB)
+        if not (ok and np.isfinite(out).all()):
+            fail(f'static scene stream ({mode}) not above the mixture')
+
+
+def phase_streaming():
+    """StreamingSeparator on the card at its defaults on a 60 s
+    recording, mask mode then 'gev+ban': the launches of K2 (1), K1 (per
+    streamed block) and K3 (per synthesized block in 'gev+ban' mode),
+    reconstruction, snapshot and resume, flush, the quality floors; two
+    chunkings; card against CPU on one block; the static scene above the
+    mixture. Returns {mode: launches of K2, K1 and K3}."""
+    import numpy as np
+    from pb_bss_tpu_torch.testing.streaming_quality import recording, scores
+    observation, images = recording()
+    mixture = scores(images, np.broadcast_to(observation[0], images.shape))
+    log('stream mixture channel 0 SI-SDR per speaker '
+        f"{[round(float(v), 2) for v in mixture['si_sdr']]} dB")
+    launches = {beamformer or 'mask': stream_main(observation, images,
+                                                  beamformer)
+                for beamformer in (None, 'gev+ban')}
+    stream_chunkings(observation)
+    for beamformer in (None, 'gev+ban'):
+        stream_card_against_cpu(observation, beamformer)
+    stream_static_scene()
+    return launches
+
+
+def phase_streaming_checks():
+    """phase_streaming and time_streaming, for ``--only streaming``."""
+    return phase_streaming(), time_streaming()
+
+
+def time_streaming():
+    """Block timings of the stream on the card, per mode, on the first
+    30 s: the real-time factor of a whole stream in chunks of 4,096
+    (host clock, synchronized; after a first stream of the same audio);
+    then a stream fed one block at a time with CUDA events and the host
+    clock (after a synchronize) around each process() call, split into
+    the warm-up burst, the realignment blocks and the steady blocks, and
+    the profiler's device time and kernel count over the seven steady
+    blocks after the warm-up (the idle share against the steady blocks'
+    host clock without the profiler)."""
+    import statistics
+    import torch
+    from pb_bss_tpu_torch.testing.streaming_quality import (
+        recording, run_stream)
+    observation, _ = recording(30 * 8000)
+    seconds = observation.shape[-1] / 8000
+    out = {}
+    for beamformer in (None, 'gev+ban'):
+        mode = beamformer or 'mask'
+        rtf = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            run_stream(stream_separator(beamformer), observation)
+            sync()
+            rtf.append((time.perf_counter() - t0) / seconds)
+        log(f'stream ({mode}) real-time factor of a 30 s stream: first '
+            f'{rtf[0]:.4f}, again {rtf[1]:.4f} | {card_note()}')
+        sep = stream_separator(beamformer)
+        block = sep.block_frames * sep.shift
+        kinds = {'burst': [], 'realign': [], 'steady': []}
+        profiled = None
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        i = 0
+        while i + block <= observation.shape[-1]:
+            warm = sep._em_state is None
+            realign = (not warm and sep._blocks_since_align + 1
+                       >= sep.realign_interval)
+            chunk = observation[:, i:i + block]
+            if (profiled is None and not warm and not realign
+                    and sep._blocks_since_align == 0
+                    and i + 8 * block <= observation.shape[-1]):
+                profiled = profile_stream_blocks(sep, observation, i, 7)
+                i += 7 * block
+                continue
+            sync()
+            t0 = time.perf_counter()
+            start.record()
+            result = sep.process(chunk)
+            end.record()
+            sync()
+            host = 1e3 * (time.perf_counter() - t0)
+            device = start.elapsed_time(end)
+            if warm and result.shape[-1]:
+                kinds['burst'].append((device, host))
+            elif not warm:
+                kinds['realign' if realign else 'steady'].append(
+                    (device, host))
+            i += block
+        row = {}
+        for kind, times in kinds.items():
+            if times:
+                row[kind] = (statistics.median(t[0] for t in times),
+                             statistics.median(t[1] for t in times),
+                             len(times))
+        steady_host = row['steady'][1]
+        log(f'stream timing ({mode}), medians of CUDA events / host clock '
+            f'per block: ' + '; '.join(
+                f'{k} {v[0]:.3f} / {v[1]:.3f} ms (x{v[2]})'
+                for k, v in row.items())
+            + f'; a block is {1e3 * block / 8000:.0f} ms of audio: '
+            f'steady real-time factor {steady_host / (1e3 * block / 8000):.4f}'
+            f' | {card_note()}')
+        device_ms, wall_ms, kernels = profiled
+        log(f'stream profile ({mode}), per steady block: device '
+            f'{device_ms:.3f} ms, {kernels:.1f} kernels ({wall_ms:.3f} ms '
+            f'of wall under the profiler); idle share '
+            f'{1 - device_ms / steady_host:.3f} of the {steady_host:.3f} ms '
+            'steady block')
+        out[mode] = dict(row, profile=profiled, rtf=rtf[1])
+    return out
+
+
+def profile_stream_blocks(sep, observation, start, count):
+    """(device ms, wall ms, kernels) per block of ``count`` steady blocks
+    fed one at a time under the profiler."""
+    block = sep.block_frames * sep.shift
+
+    def run():
+        for j in range(count):
+            sep.process(observation[:, start + j * block:
+                                    start + (j + 1) * block])
+
+    prof, wall = profile_device(run)
+    device_us, kernels = device_times(prof, '')['all kernels']
+    return device_us / 1e3 / count, 1e3 * wall / count, kernels / count
+
+
+def phase_surface():
+    """The rest of the model surface once each on the card against the
+    same call on the CPU: GMM, BinaryGMM (k-means), VMFMM, the complex
+    circular-symmetric Gaussian, the cACG trainer's fit (its eigh on K1
+    at 257 bins), sample_cacgmm (by its moments: the card's generator
+    draws other samples) and CACGMM.log_likelihood."""
+    import itertools
+    import numpy as np
+    import torch
+    from pb_bss_tpu_torch import models as M
+    rng = np.random.default_rng(0)
+    checks = {}
+
+    def compare(name, card, cpu, atol):
+        card = card.cpu() if isinstance(card, torch.Tensor) else card
+        err = float((torch.as_tensor(card) - torch.as_tensor(cpu)).abs()
+                    .max())
+        finite = bool(torch.isfinite(torch.as_tensor(card).abs()).all())
+        checks[name] = err
+        log(f'surface {name}: card against CPU {err:.2e} (atol {atol})')
+        if not finite or err > atol:
+            fail(f'surface {name}: non-finite or card/CPU error {err}')
+
+    def both(fn, *arrays):
+        cpu = fn(*[torch.as_tensor(a) for a in arrays])
+        card = fn(*[torch.as_tensor(a).cuda() for a in arrays])
+        return card, cpu
+
+    # float64 GMM / VMFMM EM from the same initialization
+    x = np.concatenate([rng.standard_normal((400, 3)) + 4,
+                        rng.standard_normal((400, 3)) - 4])
+    init = rng.random((2, 800))
+    init /= init.sum(0)
+    card, cpu = both(lambda x, i: M.GMMTrainer().fit(
+        x, initialization=i, iterations=10).gaussian.covariance, x, init)
+    compare('GMM covariance (f64, 10 it)', card, cpu, 1e-9)
+    card, cpu = both(lambda x, i: M.VMFMMTrainer().fit(
+        x, initialization=i, iterations=10).vmf.mean, x, init)
+    compare('VMFMM mean (f64, 10 it)', card, cpu, 1e-9)
+    labels = []
+    for device in ('cpu', 'cuda'):
+        means = M.BinaryGMMTrainer().fit(
+            torch.as_tensor(x, device=device), 2).means
+        labels.append(M.BinaryGMM(means=means).predict(
+            torch.as_tensor(x, device=device)).argmax(0).cpu().numpy())
+    same = any(np.array_equal(np.asarray(p)[labels[0]], labels[1])
+               for p in itertools.permutations(range(2)))
+    log(f'surface BinaryGMM: card and CPU partitions agree {same}')
+    if not same:
+        fail('surface BinaryGMM: card and CPU partitions differ')
+
+    y = (rng.standard_normal((257, 200, 6))
+         + 1j * rng.standard_normal((257, 200, 6))).astype(np.complex64)
+    y *= np.linspace(0.3, 2, 6).astype(np.float32)
+    card, cpu = both(lambda y: M.ComplexCircularSymmetricGaussianTrainer()
+                     .fit(y).log_pdf(y), y)
+    compare('cCSG log_pdf (c64)', card, cpu, 1e-3)
+    before = read_counters()['eigh_jacobi']
+    card, cpu = both(lambda y: M.ComplexAngularCentralGaussianTrainer().fit(
+        y, iterations=5).covariance, y)
+    if read_counters()['eigh_jacobi'] - before != 5:
+        fail('the cACG fit on 257 bins did not launch K1 once per '
+             'iteration')
+    compare('cACG fit covariance (c64, 5 it)', card, cpu, 1e-4)
+    model = M.ComplexAngularCentralGaussianTrainer().fit(
+        torch.as_tensor(y), iterations=2)
+    mixture = M.CACGMM(weight=torch.full((257, 1, 1), 1.0), cacg=model)
+    card = M.CACGMM(weight=mixture.weight.cuda(), cacg=type(model)(
+        covariance_eigenvectors=model.covariance_eigenvectors.cuda(),
+        covariance_eigenvalues=model.covariance_eigenvalues.cuda()))
+    ll_card = float(card.log_likelihood(torch.as_tensor(y).cuda()))
+    ll_cpu = float(mixture.log_likelihood(torch.as_tensor(y)))
+    compare('CACGMM.log_likelihood (c64, 51,400 frames)',
+            torch.tensor(ll_card / abs(ll_cpu)),
+            torch.tensor(ll_cpu / abs(ll_cpu)), 1e-5)
+    weight = np.array([0.2, 0.3, 0.5])
+    covariance = np.stack([np.diag([1.0, 0.5, 0.1]).astype(np.complex64),
+                           np.diag([0.1, 1.0, 0.5]).astype(np.complex64),
+                           np.diag([0.5, 0.1, 1.0]).astype(np.complex64)])
+    moments = []
+    for device in ('cpu', 'cuda'):
+        xs, lab = M.sample_cacgmm(40000, weight, torch.as_tensor(
+            covariance, device=device), return_label=True)
+        moments.append(np.stack([
+            (xs[lab == k].T @ xs[lab == k].conj()).cpu().numpy()
+            / int((lab == k).sum()) for k in range(3)]))
+    compare('sample_cacgmm second moments (40,000 draws)',
+            torch.as_tensor(moments[1]), torch.as_tensor(moments[0]), 0.02)
+    return checks
+
+
 def time_extraction():
     """separate_batch of 8 x 4.8 s per extraction route and with
     refine='fca': the host clock around synchronized calls (distinct
@@ -3211,7 +3664,8 @@ def integration_flops(frames, K, D, E, mode):
 
 
 def phase_timing(errors, launches, long_launches, fc_launches,
-                 cwmm_launches, cbmm_launches, integration_launches):
+                 cwmm_launches, cbmm_launches, integration_launches,
+                 stream_launches_):
     import torch
     from pb_bss_tpu_torch.ops.eigh import eigh_jacobi, eigh_jacobi_reference
     from pb_bss_tpu_torch.ops.em_loop import (
@@ -3318,15 +3772,22 @@ def phase_timing(errors, launches, long_launches, fc_launches,
                       model['eigenvectors'], model['weight']) \
         + 2 * N * K * (D * D * 8 + 4)
     k4_flops = em_flops(N * T, K, D) + N * K * 2 * D ** 2
+    # the streaming path's launches (both modes) join the counts of the
+    # kernels it runs: K2 (the warm-up fits), K1 (each block's M-step)
+    # and K3 (each beamformed block)
+    streamed = {k: sum(m[k] for m in stream_launches_.values())
+                for k in ('cacgmm_em_full', 'eigh_jacobi', 'gev')}
     rows = [
         ('cacgmm_em_full', 'em_loop.cu', 'pallas_em_loop.py:386',
-         launches['cacgmm_em_full'], errors['em_slice'], slice_ms,
-         slice_plain, bound(k2_bytes, k2_flops), None),
-        ('gev', 'gev.cu', 'pallas_gev.py:176', launches['gev'],
-         errors['gev_slice'], gslice_ms, gslice_plain,
-         bound(k3_bytes, k3_flops), None),
+         launches['cacgmm_em_full'] + streamed['cacgmm_em_full'],
+         errors['em_slice'], slice_ms, slice_plain,
+         bound(k2_bytes, k2_flops), None),
+        ('gev', 'gev.cu', 'pallas_gev.py:176',
+         launches['gev'] + streamed['gev'], errors['gev_slice'], gslice_ms,
+         gslice_plain, bound(k3_bytes, k3_flops), None),
         ('eigh_jacobi', 'eigh.cu', 'pallas_eigh.py:124',
-         long_launches['eigh_jacobi'], errors['eigh'], eigh_ms, eigh_plain,
+         long_launches['eigh_jacobi'] + streamed['eigh_jacobi'],
+         errors['eigh'], eigh_ms, eigh_plain,
          bound(k1_bytes, jacobi_flops(n1, D, 6)), eigh_library),
         ('cacgmm_em_long', 'em_stream.cu', 'pallas_em_stream.py:248',
          long_launches['cacgmm_em_long'], errors['stream'], stats_ms,
@@ -4025,26 +4486,45 @@ def top_kernels(label, call, state, count=8):
         log(f'    {us / 1e3:.4f} ms  x{n}  {name}')
 
 
+def profile_device(run, attempts=3):
+    """(profile, seconds of wall) of run() under the profiler. A capture
+    that recorded no device time at all (the card's CUPTI capture has
+    come back empty once, in a window of 20 launches) is taken again, up
+    to ``attempts`` times; an empty capture after that fails the run."""
+    import torch
+    for attempt in range(attempts):
+        sync()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            sync()
+            wall = time.perf_counter() - t0
+        if device_times(prof, '')['all kernels'][0] > 0:
+            return prof, wall
+        log(f'profiler: capture {attempt + 1} recorded no device time')
+    fail(f'the profiler recorded no device time in {attempts} captures')
+
+
 def device_ms_per_launch(call, state, key, reps=20):
     """(device ms per launch of the kernels whose name holds ``key``,
     device ms of all kernels per call, host ms per call) of ``reps``
     calls of call(*state): the profiler for the device, the host clock
     around the calls (no synchronization inside the window) for the
     host."""
-    import torch
     call(*state)
     sync()
     t0 = time.perf_counter()
     for _ in range(reps):
         call(*state)
     host = 1e3 * (time.perf_counter() - t0) / reps
-    sync()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(reps):
             call(*state)
-        sync()
+
+    prof, _ = profile_device(run)
     kernel = sum(us for us, _ in device_times(prof, key).values())
     every = device_times(prof, '')['all kernels'][0]
     return kernel / reps / 1e3, every / reps / 1e3, host
@@ -4431,7 +4911,7 @@ def main():
              'the whole smoke test (floor, splits, cacgmm, cbmm, cwmm, '
              'integration, e2e, eigh, integration_stats, '
              'eigh_stats_splits, gev_estep_splits, extraction_checks, '
-             'extraction); '
+             'extraction, streaming, surface); '
              'prints no kernels line')
     parser.add_argument(
         '--package', default=None,
@@ -4462,7 +4942,9 @@ def main():
                   'eigh_stats_splits': time_eigh_stats_splits,
                   'gev_estep_splits': time_gev_estep_splits,
                   'extraction_checks': phase_extraction_checks,
-                  'extraction': time_extraction}
+                  'extraction': time_extraction,
+                  'streaming': phase_streaming_checks,
+                  'surface': phase_surface}
         try:
             card = timed(phase_device)
             log('package:', importlib.util.find_spec(
@@ -4487,6 +4969,8 @@ def main():
         launches = timed(phase_main_path)
         timed(phase_extraction)
         timed(phase_fca)
+        stream_launches_ = timed(phase_streaming)
+        timed(phase_surface)
         long_launches = timed(phase_long)
         fc_launches = timed(phase_fc_path)
         cwmm_launches = timed(phase_cwmm)
@@ -4494,8 +4978,9 @@ def main():
         integration_launches = timed(phase_integration)
         kernels = timed(phase_timing, errors, launches, long_launches,
                         fc_launches, cwmm_launches, cbmm_launches,
-                        integration_launches)
+                        integration_launches, stream_launches_)
         timed(time_fc_stages)
+        timed(time_streaming)
     except SystemExit:
         raise
     except Exception:

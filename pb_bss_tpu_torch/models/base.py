@@ -4,19 +4,24 @@ Same dict schema as ``pb_bss_tpu.models.base.Model`` (``to_dict`` /
 ``from_dict``), so a model fitted by either package loads in the other:
 ``from_dict`` accepts numpy arrays (e.g. a JAX model's ``to_dict()``
 with its arrays converted by ``np.asarray``) and turns them into
-tensors.
+tensors. Also the JAX package's helpers around it: ``Model.replace``,
+``static_field``, ``parameter_from_dict``,
+``get_trainer_class_from_model`` and ``stack_parameters``.
 """
 from __future__ import annotations
 
 import dataclasses
 import sys
+import typing
 
 import numpy as np
 import torch
 
 from ..ops.linalg import force_hermitian, unit_norm  # noqa: F401
 
-__all__ = ['Model', 'modelclass', 'force_hermitian', 'unit_norm']
+__all__ = ['Model', 'modelclass', 'static_field', 'parameter_from_dict',
+           'get_trainer_class_from_model', 'stack_parameters',
+           'force_hermitian', 'unit_norm']
 
 
 def _as_tensor(v):
@@ -51,6 +56,10 @@ class Model:
                 kwargs[k] = _as_tensor(v)
         return cls(**kwargs)
 
+    def replace(self, **changes):
+        """A copy with the given fields replaced."""
+        return dataclasses.replace(self, **changes)
+
 
 def _resolve_model_type(field_type, owner_cls):
     """A dataclass field annotation as a Model subclass, or None
@@ -69,3 +78,57 @@ def modelclass(cls):
     if Model not in cls.__mro__:
         raise TypeError(f'{cls} must inherit from Model')
     return cls
+
+
+def static_field(default=None):
+    """A dataclass field of static metadata (axis tuples, fixed
+    exponents). The JAX package keeps such fields out of the pytree's
+    leaves; here there is no pytree, and the field is marked alike."""
+    return dataclasses.field(default=default, metadata={'static': True})
+
+
+def parameter_from_dict(parameter_class_or_str, d: dict):
+    """Instantiate a model from its dict representation by class or by
+    its name in :mod:`pb_bss_tpu_torch.models`."""
+    if isinstance(parameter_class_or_str, str):
+        from pb_bss_tpu_torch import models
+        parameter_class_or_str = getattr(models, parameter_class_or_str)
+    return parameter_class_or_str.from_dict(d)
+
+
+def get_trainer_class_from_model(parameter):
+    """Name-convention lookup: ``Foo`` -> ``FooTrainer``.
+
+    >>> from pb_bss_tpu_torch.models import CACGMM
+    >>> get_trainer_class_from_model(CACGMM).__name__
+    'CACGMMTrainer'
+    """
+    from pb_bss_tpu_torch import models
+    if not hasattr(parameter, '__name__'):
+        parameter = parameter.__class__
+    name = parameter.__name__
+    assert 'Trainer' not in name, name
+    return getattr(models, name + 'Trainer')
+
+
+def stack_parameters(parameters: typing.List[Model]):
+    """Stack structurally identical models along a new leading axis.
+
+    >>> from pb_bss_tpu_torch.models.gaussian import SphericalGaussian
+    >>> g = SphericalGaussian(mean=torch.zeros(2), covariance=torch.ones(()))
+    >>> tuple(stack_parameters([g, g, g]).mean.shape)
+    (3, 2)
+    """
+    types = {p.__class__ for p in parameters}
+    assert len(types) == 1, types
+    out_type = list(types)[0]
+    out = {}
+    for k in parameters[0].__dataclass_fields__:
+        datas = [getattr(p, k) for p in parameters]
+        data_types = {d.__class__ for d in datas}
+        assert len(data_types) == 1, data_types
+        if isinstance(datas[0], Model):
+            out[k] = stack_parameters(datas)
+        else:
+            out[k] = torch.stack([torch.as_tensor(d) for d in datas])
+    return out_type(**out)

@@ -57,6 +57,7 @@ from .complex_angular_central_gaussian import (
     ComplexAngularCentralGaussian,
     ComplexAngularCentralGaussianTrainer,
     normalize_observation,
+    sample_complex_angular_central_gaussian,
 )
 from .mixture_model_utils import (
     apply_inline_permutation_alignment,
@@ -65,10 +66,54 @@ from .mixture_model_utils import (
 )
 from ._precision import full_fp32
 
-__all__ = ['CACGMM', 'CACGMMTrainer']
+__all__ = ['CACGMM', 'CACGMMTrainer', 'sample_cacgmm']
 
 T_BLOCK_AUTO_THRESHOLD = 8192
 T_BLOCK_AUTO = 2048
+
+
+def sample_cacgmm(size, weight, covariance, return_label=False,
+                  generator=None):
+    """Draw ``size`` samples of a cACG mixture.
+
+    Args:
+        size: int, the number of samples.
+        weight: (K,) class probabilities.
+        covariance: (K, D, D) class covariances.
+        return_label: also return the (size,) class labels.
+        generator: ``torch.Generator`` (default: one seeded 0 on the
+            covariance's device); it draws the labels, then each class's
+            samples in class order.
+    Returns:
+        (size, D) complex samples (and the labels).
+    """
+    weight = np.asarray(weight)
+    assert weight.ndim == 1, weight
+    assert isinstance(size, int), size
+    covariance = torch.as_tensor(covariance)
+    assert covariance.ndim == 3, covariance.shape
+    num_classes, = weight.shape
+    D = covariance.shape[-1]
+    assert covariance.shape == (num_classes, D, D), (
+        covariance.shape, num_classes, D)
+    device = covariance.device
+    if generator is None:
+        generator = torch.Generator(device).manual_seed(0)
+    labels = torch.multinomial(
+        torch.as_tensor(weight, dtype=torch.float64, device=device), size,
+        replacement=True, generator=generator)
+    # every class for every slot, selected by label (as the JAX package)
+    samples = torch.stack([
+        sample_complex_angular_central_gaussian(
+            (size,),
+            ComplexAngularCentralGaussian.from_covariance(
+                covariance=covariance[k]).covariance,
+            generator=generator)
+        for k in range(num_classes)])  # (K, size, D)
+    x = samples[labels, torch.arange(size, device=device)]
+    if return_label:
+        return x, labels
+    return x
 
 
 @modelclass
@@ -87,6 +132,14 @@ class CACGMM(Model):
         if return_quadratic_form:
             return affiliation, quadratic_form
         return affiliation
+
+    def log_likelihood(self, y):
+        """Sum over all leading dims and samples of the log-sum-exp of
+        the class log-pdfs (the weights do not enter, as in the JAX
+        package). y: (..., N, D) complex."""
+        assert y.is_complex(), y.dtype
+        _, _, log_pdf = self._predict(normalize_observation(y))
+        return torch.logsumexp(log_pdf, dim=-2).sum()
 
     def _predict(self, y, source_activity_mask=None, affiliation_eps=0.):
         """E-step; y in time-last layout (..., D, N). Returns

@@ -13,10 +13,14 @@ from .._dtypes import real_dtype as _real_dtype, tiny as _tiny
 from ..ops.linalg import eigh
 from ._precision import full_fp32
 from .base import Model, force_hermitian, modelclass, unit_norm
+from .complex_circular_symmetric_gaussian import (
+    ComplexCircularSymmetricGaussian,
+)
 
 __all__ = [
     'ComplexAngularCentralGaussian',
     'ComplexAngularCentralGaussianTrainer',
+    'sample_complex_angular_central_gaussian',
     'normalize_observation',
 ]
 
@@ -32,6 +36,22 @@ def normalize_observation(observation):
     observation = unit_norm(observation, axis=-1, eps=_tiny(observation),
                             eps_style='where')
     return observation.transpose(-2, -1)
+
+
+def sample_complex_angular_central_gaussian(size, covariance,
+                                            generator=None):
+    """Draw cACG samples: complex circular-symmetric Gaussian draws of
+    ``covariance`` (D, D), normalized to unit norm.
+
+    Args:
+        size: int or tuple, the sample shape; returns (*size, D).
+        generator: ``torch.Generator`` (default: one seeded 0 on the
+            covariance's device).
+    """
+    csg = ComplexCircularSymmetricGaussian(
+        covariance=torch.as_tensor(covariance))
+    x = csg.sample(size=size, generator=generator)
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
 
 @modelclass
@@ -70,8 +90,26 @@ class ComplexAngularCentralGaussian(Model):
                    covariance_eigenvectors=eigenvecs)
 
     @property
+    def covariance(self):
+        """``V diag(lambda) V^H`` (..., D, D)."""
+        vectors = self.covariance_eigenvectors
+        return torch.einsum(
+            '...wx,...x,...zx->...wz', vectors,
+            self.covariance_eigenvalues.to(vectors.dtype), vectors.conj())
+
+    @property
     def log_determinant(self):
         return torch.log(self.covariance_eigenvalues).sum(-1)
+
+    def sample(self, size, generator=None):
+        """(*size, D) unit-norm samples (unbatched model)."""
+        return sample_complex_angular_central_gaussian(
+            size=size, covariance=self.covariance, generator=generator)
+
+    def log_pdf(self, y):
+        """y: (..., N, D) -> (..., N)."""
+        log_pdf, _ = self._log_pdf(normalize_observation(y))
+        return log_pdf
 
     def _log_pdf(self, y):
         """y in time-last layout (..., D, N); returns (log_pdf,
@@ -92,6 +130,33 @@ class ComplexAngularCentralGaussian(Model):
 
 
 class ComplexAngularCentralGaussianTrainer:
+    def fit(self, y, saliency=None, hermitize=True,
+            covariance_norm='eigenvalue', eigenvalue_floor=1e-10,
+            iterations=10):
+        """Fixed-point iteration for a single cACG: ``iterations``
+        M-steps, each from the previous model's quadratic form (the
+        first from ones).
+
+        Args:
+            y: (..., N, D) complex; normalized to unit norm here.
+            saliency: optional (..., N) weights.
+        """
+        assert y.is_complex(), y.dtype
+        assert y.shape[-1] > 1
+        *independent, N, D = y.shape
+        y = normalize_observation(y)  # (..., D, N)
+        assert iterations > 0, iterations
+        quadratic_form = torch.ones((*independent, N),
+                                    dtype=_real_dtype(y), device=y.device)
+        model = None
+        for _ in range(iterations):
+            model = self._fit(
+                y=y, saliency=saliency, quadratic_form=quadratic_form,
+                hermitize=hermitize, covariance_norm=covariance_norm,
+                eigenvalue_floor=eigenvalue_floor)
+            _, quadratic_form = model._log_pdf(y)
+        return model
+
     def _fit(self, y, saliency, quadratic_form, hermitize=True,
              covariance_norm='eigenvalue', eigenvalue_floor=1e-10,
              eigh_sweeps=None, eigh_method='auto'):

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import itertools
+import math
 
 import torch
 
@@ -81,11 +82,18 @@ def _axes(axis):
 
 
 def estimate_mixture_weight(affiliation, saliency=None,
-                            weight_constant_axis=-1):
+                            weight_constant_axis=-1,
+                            dirichlet_prior_concentration=1):
     """M-step mixture weight with ``weight_constant_axis`` semantics:
     an axis resolving to -2 (the class axis) fixes the weights to 1/K
     with shape (K, 1); otherwise the (saliency-weighted, then
-    L1-normalized over classes) mean over the given axes, keepdims."""
+    L1-normalized over classes) mean over the given axes, keepdims.
+
+    Without saliency, ``dirichlet_prior_concentration`` alpha > 1 takes
+    the MAP estimate under a symmetric Dirichlet prior, per-bin weights
+    only: ``(sum_t gamma + alpha - 1) / (T + (alpha - 1) K)``; ``inf``
+    gives 1/K of shape (..., K, 1); the default 1 is the plain mean.
+    """
     if isinstance(weight_constant_axis, int) and \
             weight_constant_axis % affiliation.ndim - affiliation.ndim == -2:
         K = affiliation.shape[-2]
@@ -93,7 +101,20 @@ def estimate_mixture_weight(affiliation, saliency=None,
                           device=affiliation.device)
     axes = _axes(weight_constant_axis)
     if saliency is None:
-        return affiliation.mean(dim=axes, keepdim=True)
+        if dirichlet_prior_concentration == 1:
+            return affiliation.mean(dim=axes, keepdim=True)
+        *independent, K, T = affiliation.shape
+        if math.isinf(dirichlet_prior_concentration) \
+                and dirichlet_prior_concentration > 0:
+            return torch.full((*independent, K, 1), 1. / K,
+                              dtype=affiliation.dtype,
+                              device=affiliation.device)
+        assert dirichlet_prior_concentration >= 1, \
+            dirichlet_prior_concentration
+        assert weight_constant_axis in ((-1,), -1), weight_constant_axis
+        return (affiliation.sum(-1, keepdim=True)
+                + (dirichlet_prior_concentration - 1)) / (
+            T + (dirichlet_prior_concentration - 1) * K)
     masked = (affiliation * saliency[..., None, :]).sum(
         dim=axes, keepdim=True)
     norm = masked.abs().sum(-2, keepdim=True)

@@ -1510,3 +1510,46 @@ def test_separate_batch_fca_launches_jacobi_per_ip_row(cuda):
     # a stable solve per IP row (D=6) per iteration, and one for Q^-1
     assert eigh_jacobi.launches - before == 2 * 6 + 1
     assert out.shape == (2, 3, 8000) and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize('beamformer', [None, 'gev+ban'])
+def test_streaming_launches_per_mode(cuda, beamformer):
+    """StreamingSeparator on the card: the warm-up fit is one K2 launch,
+    each streamed block's M-step one K1 launch (inner_iterations=1), and
+    in 'gev+ban' mode each synthesized block one K3 launch (the
+    warm-up's catch-up blocks included)."""
+    from pb_bss_tpu_torch import StreamingSeparator
+    from pb_bss_tpu_torch.ops.eigh import eigh_jacobi
+    g = np.random.default_rng(7)
+    x = g.standard_normal((3, 2048 * 7)).astype(np.float32)
+    sep = StreamingSeparator(num_classes=2, init_frames=32,
+                             beamformer=beamformer)
+    before = (cacgmm_em_full.launches, eigh_jacobi.launches, gev.launches)
+    out = np.concatenate([sep.process(x), sep.flush()], axis=-1)
+    torch.cuda.synchronize()
+    after = (cacgmm_em_full.launches, eigh_jacobi.launches, gev.launches)
+    warm, streamed = 2, 5  # 7 blocks, the first two the warm-up
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        1, streamed, warm + streamed if beamformer else 0)
+    assert out.shape == (2, 2048 * 7 + 384) and np.isfinite(out).all()
+
+
+@pytest.mark.parametrize('beamformer', [None, 'gev+ban'])
+def test_streaming_card_against_cpu_for_one_block(cuda, beamformer):
+    """After warm-up the card's snapshot loads into a CPU separator and
+    both take the next block: posteriors within 1e-4, outputs within
+    1e-4 (mask) / 1e-3 (GEV) of their peak."""
+    from pb_bss_tpu_torch import StreamingSeparator
+    g = np.random.default_rng(8)
+    x = g.standard_normal((4, 2048 * 3)).astype(np.float32)
+    kwargs = dict(num_classes=3, init_frames=32, beamformer=beamformer)
+    card = StreamingSeparator(**kwargs)
+    card.process(x[:, :4096])
+    cpu = StreamingSeparator(device='cpu', **kwargs).load_state_dict(
+        card.state_dict())
+    out_card = card.process(x[:, 4096:])
+    out_cpu = cpu.process(x[:, 4096:])
+    post = (card._aff_hist[..., -16:].cpu() - cpu._aff_hist[..., -16:])
+    assert float(post.abs().max()) <= 1e-4
+    rtol = 1e-3 if beamformer else 1e-4
+    assert np.abs(out_card - out_cpu).max() <= rtol * np.abs(out_cpu).max()

@@ -26,9 +26,15 @@ from pb_bss_tpu_torch.extraction import (
     beamform_utils, beamformer, beamformer_wrapper, mask_module)
 from pb_bss_tpu_torch.math import solve
 from pb_bss_tpu_torch.models import (
-    base, cacgmm, complex_angular_central_gaussian, complex_watson, cwmm,
-    fca, gaussian, gcacgmm, mixture_model_utils, vmfcacgmm, von_mises_fisher)
-from pb_bss_tpu_torch import utils
+    base, cacgmm, cacgmm_streaming, complex_angular_central_gaussian,
+    complex_circular_symmetric_gaussian, complex_watson, cwmm, fca,
+    gaussian, gcacgmm, gmm, mixture_model_utils, vmfcacgmm, vmfmm,
+    von_mises_fisher)
+from pb_bss_tpu_torch import initializer, streaming, utils
+from pb_bss_tpu_torch.initializer import iid
+from pb_bss_tpu_torch.utils import checkpoint
+from pb_bss_tpu_torch.testing import streaming_quality
+from pb_bss_tpu_torch.distribution.utils import stack_parameters
 from pb_bss_tpu_torch.ops import (
     _build, cwmm_loop, em_loop, gev, integration_em, integration_em_loop,
     linalg, mm_stream)
@@ -68,6 +74,12 @@ y = torch.randn((5, 20, 3), dtype=torch.complex64, generator=g)
 masks = torch.full((5, 2, 20), 0.5)
 assert fca.FCATrainer().fit(y, initialization=masks,
                             iterations=1).predict().shape == (5, 2, 20)
+import numpy as np
+sep = streaming.StreamingSeparator(num_classes=2, init_frames=32,
+                                   beamformer='gev+ban', device='cpu')
+x = np.random.default_rng(0).standard_normal((3, 128 * 16 * 4))
+assert np.isfinite(np.concatenate(
+    [sep.process(x.astype(np.float32)), sep.flush()], -1)).all()
 from pb_bss_tpu_torch.ops import eigh
 assert eigh.eigh_jacobi.launches == 0
 assert integration_em.e_stats.launches == 0
@@ -118,3 +130,29 @@ def test_library_name_follows_the_sources():
     assert len(set(paths.values())) == len(paths)
     for path in paths.values():
         assert path.parent == PACKAGE / '_kernels'
+
+
+def test_every_jax_model_name_has_a_counterpart():
+    """Every name pb_bss_tpu.models exports exists in
+    pb_bss_tpu_torch.models; the root exposes the distribution aliases,
+    the aligners, the streaming separator and the subpackages."""
+    import pb_bss_tpu.models as jax_models
+    import pb_bss_tpu_torch
+    import pb_bss_tpu_torch.models as models
+    jax_names = {n for n in dir(jax_models) if not n.startswith('_')}
+    missing = sorted(n for n in jax_names if not hasattr(models, n))
+    assert not missing, missing
+    assert pb_bss_tpu_torch.distribution is models
+    assert sys.modules['pb_bss_tpu_torch.distribution'] is models
+    assert sys.modules['pb_bss_tpu_torch.distribution.utils'] is models.base
+    from pb_bss_tpu_torch.distribution.utils import (  # noqa: F401
+        get_trainer_class_from_model,
+        parameter_from_dict,
+    )
+    for name in ('StreamingSeparator', 'DHTVPermutationAlignment',
+                 'GreedyPermutationAlignment', 'OraclePermutationAlignment',
+                 'separate', 'separate_batch', 'utils', 'pipeline',
+                 'streaming', 'math', 'ops', 'initializer',
+                 'permutation_alignment', 'extraction', 'evaluation',
+                 'transform', 'models', 'distribution'):
+        assert hasattr(pb_bss_tpu_torch, name), name
