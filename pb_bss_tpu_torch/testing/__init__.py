@@ -1,1 +1,4 @@
-from .dummy_data import low_reverberation_data  # noqa: F401
+from .dummy_data import (  # noqa: F401
+    low_reverberation_data,
+    reverberation_data,
+)

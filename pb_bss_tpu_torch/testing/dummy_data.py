@@ -7,7 +7,8 @@ simulated room impulse responses (direct path from distinct directions
 + exponentially decaying diffuse tail) convolved with speech-like
 sources (amplitude-modulated, low-pass shaped noise with pauses).
 
-Returned dict: ``observation`` (D, T), ``speech_source`` (K, T),
+``reverberation_data`` has a 512-tap room response with a long diffuse
+tail. Returned dict: ``observation`` (D, T), ``speech_source`` (K, T),
 ``speech_image`` (K, D, T), ``noise_image`` (D, T), plus
 ``sample_rate``.
 """
@@ -16,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.signal
 
-__all__ = ['low_reverberation_data']
+__all__ = ['low_reverberation_data', 'reverberation_data']
 
 SAMPLE_RATE = 8000
 NUM_SAMPLES = 38520
@@ -88,3 +89,9 @@ def low_reverberation_data(seed=0):
     """2-speaker 6-channel scenario with a short RIR (mostly direct
     path)."""
     return _scenario(seed, rir_taps=64, decay=12.0, snr_db=20)
+
+
+def reverberation_data(seed=1):
+    """2-speaker 6-channel scenario with a longer diffuse tail (512-tap
+    RIR)."""
+    return _scenario(seed, rir_taps=512, decay=180.0, snr_db=15)

@@ -22,14 +22,21 @@ import numpy as np
 import scipy.signal
 import torch
 
-__all__ = ['stft', 'istft', 'stft_frames']
+__all__ = ['stft', 'istft', 'stft_frames', 'STFT']
 
 
 @functools.lru_cache(maxsize=None)
-def _get_window(window, size):
-    """Periodic window by name ('blackman', 'hann', 'hamming',
-    'boxcar'), as scipy.signal.get_window(..., fftbins=True)."""
+def _named_window(window, size):
     return scipy.signal.get_window(window, size, fftbins=True)
+
+
+def _get_window(window, size):
+    """float64 analysis window: a periodic window by name ('blackman',
+    'hann', 'hamming', 'boxcar'), as scipy.signal.get_window(...,
+    fftbins=True), or ``window(size)`` for a callable."""
+    if callable(window):
+        return np.asarray(window(size), np.float64)
+    return _named_window(window, size)
 
 
 def _biorthogonal_window(analysis_window, shift):
@@ -73,7 +80,7 @@ def stft(time_signal, size: int = 512, shift: int = 128, *,
         time_signal: (..., num_samples) real tensor.
         size: frame size == FFT size.
         shift: frame shift (hop).
-        window: window name.
+        window: window name or callable size -> array.
         fading: pad ``size - shift`` zeros on both ends.
         pad: zero-pad the end so the last partial frame is kept.
     Returns:
@@ -126,6 +133,8 @@ def istft(stft_signal, size: int = 512, shift: int = 128, *,
 
     Args:
         stft_signal: (..., T, F) complex tensor.
+        window: window name or callable size -> array (the analysis
+            window; synthesis uses its biorthogonal window).
         num_samples: when given, the output is cut/padded to exactly
             that length (after fading removal).
     Returns:
@@ -151,3 +160,28 @@ def istft(stft_signal, size: int = 512, shift: int = 128, *,
             time_signal = torch.nn.functional.pad(
                 time_signal, (0, num_samples - cur))
     return time_signal
+
+
+class STFT:
+    """Object-style frontend bundling the parameters:
+    ``STFT(512, 128)(signal)`` / ``.inverse(Signal)``."""
+
+    def __init__(self, size=512, shift=128, *, window='blackman',
+                 fading=True):
+        self.size = size
+        self.shift = shift
+        self.window = window
+        self.fading = fading
+
+    def __call__(self, time_signal):
+        return stft(time_signal, self.size, self.shift,
+                    window=self.window, fading=self.fading)
+
+    def inverse(self, stft_signal, num_samples=None):
+        return istft(stft_signal, self.size, self.shift,
+                     window=self.window, fading=self.fading,
+                     num_samples=num_samples)
+
+    @property
+    def frequencies(self):
+        return self.size // 2 + 1

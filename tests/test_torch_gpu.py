@@ -1553,3 +1553,125 @@ def test_streaming_card_against_cpu_for_one_block(cuda, beamformer):
     assert float(post.abs().max()) <= 1e-4
     rtol = 1e-3 if beamformer else 1e-4
     assert np.abs(out_card - out_cpu).max() <= rtol * np.abs(out_cpu).max()
+
+
+# ---------------------------------------------------------------------
+# the evaluation layer and the transforms (torch.fft / torch.linalg on
+# the card, no kernel of their own): the card in float32 against the
+# port's host float64 oracles at the JAX package's float32 bounds, and
+# the transforms against the same call on the CPU
+# ---------------------------------------------------------------------
+
+def _eval_scene(samples=16000, utterances=2):
+    from pb_bss_tpu_torch.testing import low_reverberation_data
+    sources, estimates = [], []
+    for seed in range(utterances):
+        d = low_reverberation_data(seed)
+        images = d['speech_image'][:, 0, :samples]
+        rng = np.random.RandomState(seed)
+        noise = d['noise_image'][0, :samples] + 0.3 * rng.randn(samples)
+        estimates.append(np.stack([images[1] + 0.2 * images[0], noise,
+                                   images[0] + 0.1 * images[1]]))
+        sources.append(d['speech_source'][:, :samples])
+    return np.stack(sources), np.stack(estimates)
+
+
+def test_output_metrics_batch_on_the_card_matches_the_host(cuda):
+    from pb_bss_tpu_torch.evaluation import OutputMetrics, OutputMetricsBatch
+    sources, estimates = _eval_scene()
+    card = OutputMetricsBatch(
+        torch.as_tensor(estimates, dtype=torch.float32, device=cuda),
+        torch.as_tensor(sources, dtype=torch.float32, device=cuda),
+        sample_rate=8000, enable_si_sdr=True, device='cuda').as_dict()
+    for b in range(len(sources)):
+        host = OutputMetrics(
+            estimates[b].astype(np.float32).astype(np.float64),
+            sources[b].astype(np.float32).astype(np.float64),
+            sample_rate=8000, enable_si_sdr=True, device='cpu').as_dict()
+        np.testing.assert_array_equal(card['mir_eval_selection'][b],
+                                      host['mir_eval_selection'])
+        for key in ('mir_eval_sdr', 'mir_eval_sir', 'mir_eval_sar',
+                    'si_sdr'):
+            np.testing.assert_allclose(card[key][b], host[key], atol=0.05)
+        np.testing.assert_allclose(card['stoi'][b], host['stoi'], atol=2e-3)
+        np.testing.assert_allclose(card['srmr'][b], host['srmr'],
+                                   rtol=2e-3)
+
+
+def test_input_metrics_batch_on_the_card_matches_the_host(cuda):
+    from pb_bss_tpu_torch.evaluation import InputMetrics, InputMetricsBatch
+    sources, estimates = _eval_scene(utterances=1)
+    observation = estimates[:, :2] + 0.5 * estimates[:, 2:]
+    card = InputMetricsBatch(
+        torch.as_tensor(observation, device=cuda, dtype=torch.float32),
+        torch.as_tensor(sources, device=cuda, dtype=torch.float32),
+        sample_rate=8000, device='cuda').as_dict()
+    host = InputMetrics(observation[0].astype(np.float32).astype(float),
+                        sources[0].astype(np.float32).astype(float),
+                        sample_rate=8000, device='cpu').as_dict()
+    for key in ('mir_eval_sdr', 'mir_eval_sir', 'mir_eval_sar'):
+        np.testing.assert_allclose(card[key][0], host[key], atol=0.05)
+    np.testing.assert_allclose(card['stoi'][0], host['stoi'], atol=2e-3)
+    np.testing.assert_allclose(card['srmr'][0], host['srmr'], rtol=2e-3)
+
+
+def test_metric_programs_on_the_card_match_the_cpu(cuda):
+    """float64 on the card against float64 on the CPU: the same
+    programs, so the gaps are rounding."""
+    from pb_bss_tpu_torch.evaluation import (
+        bss_eval_sources_batch, srmr_batch, stoi_batch)
+    sources, estimates = _eval_scene()
+    for device in ('cuda', 'cpu'):
+        out = bss_eval_sources_batch(sources, estimates, device=device)
+        st = stoi_batch(sources, estimates[:, [2, 0]], 8000, device=device)
+        sr = srmr_batch(estimates, 8000, device=device)
+        if device == 'cuda':
+            card = out, st, sr
+    np.testing.assert_array_equal(card[0]['selection'], out['selection'])
+    for key in ('sdr', 'sir', 'sar'):
+        np.testing.assert_allclose(card[0][key], out[key], atol=1e-6)
+    np.testing.assert_allclose(card[1], st, atol=1e-9)
+    np.testing.assert_allclose(card[2], sr, rtol=1e-9)
+
+
+def test_transforms_on_the_card_match_the_cpu(cuda):
+    from pb_bss_tpu_torch.transform import gammatone_filterbank, stft
+    from pb_bss_tpu_torch.transform.griffin_lim_module import (
+        griffin_lim, misi)
+    sources, estimates = _eval_scene(utterances=1)
+    x = torch.as_tensor(estimates[0, [0, 2]], dtype=torch.float32)
+    for method, rtol in (('fft', 1e-5), ('scan', 1e-3)):
+        card = gammatone_filterbank(x.to(cuda), 8000, method=method).cpu()
+        cpu = gammatone_filterbank(x, 8000, method=method)
+        assert float((card - cpu).abs().max()) <= rtol * float(
+            cpu.abs().max())
+    X = stft(x, fading=False)
+    y = x.sum(0)
+    for card, cpu in ((griffin_lim(X.to(cuda), 10).cpu(), griffin_lim(X, 10)),
+                      (misi(X.to(cuda), y.to(cuda), 10).cpu(),
+                       misi(X, y, 10))):
+        assert float((card - cpu).abs().max()) <= 1e-4 * float(
+            cpu.abs().max())
+
+
+def test_metric_entry_points_raise_without_cuda(monkeypatch):
+    """device='cuda' (the default) never drops to the CPU; runs on any
+    machine."""
+    from pb_bss_tpu_torch.evaluation import (
+        InputMetrics, InputMetricsBatch, OutputMetrics, OutputMetricsBatch,
+        bss_eval_sources_batch, srmr_batch, stoi_batch)
+    from pb_bss_tpu_torch.transform import gammatone_filterbank
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    sources, estimates = _eval_scene(samples=4000, utterances=1)
+    calls = (
+        lambda: bss_eval_sources_batch(sources, estimates),
+        lambda: stoi_batch(sources, sources, 8000),
+        lambda: srmr_batch(sources, 8000),
+        lambda: gammatone_filterbank(sources[0], 8000),
+        lambda: OutputMetrics(estimates[0], sources[0]),
+        lambda: InputMetrics(estimates[0], sources[0]),
+        lambda: OutputMetricsBatch(estimates, sources),
+        lambda: InputMetricsBatch(estimates, sources))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

@@ -21,7 +21,11 @@ import sys
 import torch
 import pb_bss_tpu_torch
 from pb_bss_tpu_torch import (cli, permutation_alignment, pipeline)
-from pb_bss_tpu_torch.evaluation import module_si_sdr
+from pb_bss_tpu_torch.evaluation import (
+    _fused_eval_device, batch_wrapper, module_bss_eval,
+    module_bss_eval_device, module_mir_eval, module_pesq, module_si_sdr,
+    module_srmr, module_srmr_device, module_stoi, module_stoi_device,
+    sxr_module, wrapper)
 from pb_bss_tpu_torch.extraction import (
     beamform_utils, beamformer, beamformer_wrapper, mask_module)
 from pb_bss_tpu_torch.math import solve
@@ -39,7 +43,9 @@ from pb_bss_tpu_torch.ops import (
     _build, cwmm_loop, em_loop, gev, integration_em, integration_em_loop,
     linalg, mm_stream)
 from pb_bss_tpu_torch.testing import dummy_data
-from pb_bss_tpu_torch.transform import stft_module
+from pb_bss_tpu_torch.transform import (
+    filters, gammatone, griffin_lim_module, stft_module)
+from pb_bss_tpu_torch import _device
 assert 'jax' not in sys.modules, 'jax was imported'
 assert 'pb_bss_tpu' not in sys.modules, 'pb_bss_tpu was imported'
 assert _build.load.cache_info().currsize == 0, 'a kernel was loaded'
@@ -80,6 +86,13 @@ sep = streaming.StreamingSeparator(num_classes=2, init_frames=32,
 x = np.random.default_rng(0).standard_normal((3, 128 * 16 * 4))
 assert np.isfinite(np.concatenate(
     [sep.process(x.astype(np.float32)), sep.flush()], -1)).all()
+refs = np.random.default_rng(1).standard_normal((2, 3, 2, 4000))
+m = batch_wrapper.OutputMetricsBatch(
+    torch.as_tensor(refs[:, :, :, :]) + 0.1, refs, sample_rate=8000,
+    device='cpu').as_dict()
+assert m['mir_eval_sdr'].shape == (2, 3, 2)
+assert gammatone.gammatone_filterbank(
+    torch.as_tensor(refs[0, 0]), 8000, n=4).shape == (4, 2, 4000)
 from pb_bss_tpu_torch.ops import eigh
 assert eigh.eigh_jacobi.launches == 0
 assert integration_em.e_stats.launches == 0
@@ -156,3 +169,29 @@ def test_every_jax_model_name_has_a_counterpart():
                  'permutation_alignment', 'extraction', 'evaluation',
                  'transform', 'models', 'distribution'):
         assert hasattr(pb_bss_tpu_torch, name), name
+
+
+def test_every_jax_evaluation_and_transform_name_has_a_counterpart():
+    """Every public name of pb_bss_tpu.evaluation / .transform (the
+    STFT's TPU-only ``method=`` aside) exists in the port; the
+    functions of the device programs take ``device=``."""
+    import inspect
+    import pb_bss_tpu.evaluation as jax_evaluation
+    import pb_bss_tpu.transform as jax_transform
+    import pb_bss_tpu_torch.evaluation as evaluation
+    import pb_bss_tpu_torch.transform as transform
+    for jax_module, module in ((jax_evaluation, evaluation),
+                               (jax_transform, transform)):
+        names = {n for n in dir(jax_module) if not n.startswith('_')}
+        missing = sorted(n for n in names if not hasattr(module, n))
+        assert not missing, (module.__name__, missing)
+    for name in ('bss_eval_sources_batch', 'bss_eval_sources_device',
+                 'mir_eval_sources_batch', 'stoi_batch', 'stoi_device',
+                 'srmr_batch', 'srmr_device', 'InputMetrics',
+                 'OutputMetrics', 'InputMetricsBatch',
+                 'OutputMetricsBatch'):
+        default = inspect.signature(getattr(evaluation, name)).parameters[
+            'device'].default
+        assert default == 'cuda', name
+    assert 'method' not in inspect.signature(transform.stft).parameters
+    assert {'si_sdr_allow_float32', 'si_sdr_stft'} <= set(dir(evaluation))

@@ -3,11 +3,12 @@ numpy signals."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.signal
 import torch
 from numpy.testing import assert_allclose
 
-from pb_bss_tpu.transform import istft as jistft, stft as jstft
-from pb_bss_tpu_torch.transform import istft, stft
+from pb_bss_tpu.transform import STFT as JSTFT, istft as jistft, stft as jstft
+from pb_bss_tpu_torch.transform import STFT, istft, stft
 from pb_bss_tpu_torch.transform.stft_module import stft_frames
 
 torch.set_num_threads(2)
@@ -54,3 +55,45 @@ def test_perfect_reconstruction(dtype, atol):
     x_hat = istft(stft(x), num_samples=5000)
     assert x_hat.dtype == dtype
     assert_allclose(x_hat.numpy(), x.numpy(), atol=atol)
+
+
+def _ramp_window(size):
+    return np.linspace(0.1, 1.0, size) ** 2
+
+
+@pytest.mark.parametrize('window', ['hann', 'hamming', _ramp_window])
+def test_windows_by_name_and_callable_match_jax(window):
+    x = np.random.default_rng(4).standard_normal((2, 3000))
+    ref = np.asarray(jstft(jnp.asarray(x), 256, 64, window=window))
+    out = stft(torch.as_tensor(x), 256, 64, window=window)
+    assert_allclose(out.numpy(), ref, atol=1e-10)
+    X = ref.astype(np.complex128)
+    ref_x = np.asarray(jistft(jnp.asarray(X), 256, 64, window=window,
+                              num_samples=3000))
+    out_x = istft(torch.as_tensor(X), 256, 64, window=window,
+                  num_samples=3000)
+    assert_allclose(out_x.numpy(), ref_x, atol=1e-10)
+    assert_allclose(out_x.numpy(), x, atol=1e-10)
+
+
+def test_a_callable_window_equals_its_named_twin():
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(2000))
+    named = stft(x, 128, 32, window='hann')
+    called = stft(x, 128, 32, window=lambda size: scipy.signal.get_window(
+        'hann', size, fftbins=True))
+    assert torch.equal(named, called)
+
+
+@pytest.mark.parametrize('fading', [True, False])
+def test_stft_class_matches_jax(fading):
+    x = np.random.default_rng(6).standard_normal((3, 2500))
+    ours = STFT(256, 64, window='hann', fading=fading)
+    ref = JSTFT(256, 64, window='hann', fading=fading)
+    assert ours.frequencies == ref.frequencies == 129
+    X = ours(torch.as_tensor(x))
+    assert_allclose(X.numpy(), np.asarray(ref(jnp.asarray(x))), atol=1e-10)
+    back = ours.inverse(X, num_samples=2500)
+    assert_allclose(back.numpy(), np.asarray(
+        ref.inverse(jnp.asarray(X.numpy()), num_samples=2500)), atol=1e-10)
+    if fading:
+        assert_allclose(back.numpy(), x, atol=1e-10)
