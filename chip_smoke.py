@@ -5,7 +5,7 @@
 Builds the hand-written CUDA kernels from pb_bss_tpu_torch/csrc (one
 nvcc per source, all at once), holds each against its plain PyTorch
 version on the card (the four cACGMM kernels also with an eigenvalue at
-the floor, pb_bss_tpu_torch.testing.em_floor), and drives nine paths,
+the floor, pb_bss_tpu_torch.testing.em_floor), and drives ten paths,
 each with the launch counters reset just before and read just after:
 
 * the short-recording path: ``separate_batch`` of 4.8 s utterances
@@ -36,6 +36,15 @@ each with the launch counters reset just before and read just after:
   chunking, card-against-CPU and quality checks, and the rest of the
   model surface (GMM, k-means, vMF mixture, complex Gaussian, the cACG
   trainer, the cACGMM sampler and log-likelihood) against the CPU;
+* the last modules: ``parallel`` on a world of size 1 over NCCL,
+  ``separate_batch(mesh=)`` on the 4.8 s utterances (whole-fit EM
+  kernel, GEV kernel once) against the meshless call with the host and
+  device ms of both, ``fit_cacgmm_sharded`` with frequency-constant
+  weights (the per-iteration EM kernels) and ``fit_integration_sharded``
+  (the integration statistics kernel, the Jacobi kernel) against the
+  same fits without a mesh; ``deflationSeed`` (the Jacobi kernel) and
+  ``flag`` against the CPU, and ``utils.profiling.trace`` around one
+  ``separate``;
 * the long-recording path: ``separate_batch`` of 60 s recordings
   (streamed EM statistics kernel and batched Jacobi kernel, GEV
   kernel), ``separate`` at its defaults and the CLI on one of them, and
@@ -73,7 +82,7 @@ limit, and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero without a CUDA device, outside a checkout of the repository,
 or when any phase fails. Imports nothing of JAX.
 
-    python3 chip_smoke.py --only floor,cacgmm,cbmm,cwmm,integration,splits,e2e,eigh,integration_stats,eigh_stats_splits,gev_estep_splits,extraction_checks,extraction,streaming,surface,evaluation \
+    python3 chip_smoke.py --only floor,cacgmm,cbmm,cwmm,integration,splits,e2e,eigh,integration_stats,eigh_stats_splits,gev_estep_splits,extraction_checks,extraction,streaming,surface,parallel,evaluation \
         [--package DIR]
 
 runs only the named phases after the build (the floor checks, the cACGMM
@@ -88,7 +97,8 @@ checks, the split of the last two alone, the split of the GEV and the
 E-step kernels alone, the extraction and FCA checks, the timing of
 ``separate_batch`` per extraction route, of ``stable_solve`` and of the
 FCA fit, the streaming checks with the stream's block timings, the model
-surface, the evaluation stage), with ``pb_bss_tpu_torch`` imported from DIR
+surface, the parallel module on a world of size 1 with the initializers
+and the profiler's trace, the evaluation stage), with ``pb_bss_tpu_torch`` imported from DIR
 if given (another checkout, to time two versions in one call); it prints
 no kernels line.
 """
@@ -97,6 +107,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -2092,9 +2103,9 @@ def phase_kernels_cbmm():
 
 
 def phase_guards():
-    """The one option the port has not ported (mesh=) raises on CUDA
-    instead of running plain code on the card, and
-    get_lcmv_vector_souden raises NotImplementedError as the JAX
+    """Checks that fail before any work on CUDA instead of running plain
+    code on the card: a mesh that is not a DeviceMesh raises TypeError,
+    and get_lcmv_vector_souden raises NotImplementedError as the JAX
     package's does."""
     import torch
     import pb_bss_tpu_torch as P
@@ -2103,16 +2114,18 @@ def phase_guards():
     obs = torch.randn((6, 8000), device='cuda', generator=g)
     psd = torch.eye(6, dtype=torch.complex64, device='cuda').expand(
         257, 6, 6)
-    for name, call in (
-            ("separate(mesh='f')", lambda: P.separate(obs, mesh='f')),
+    for name, call, error in (
+            ("separate(mesh='f')", lambda: P.separate(obs, mesh='f'),
+             TypeError),
             ('get_lcmv_vector_souden',
-             lambda: get_lcmv_vector_souden(psd, psd, psd))):
+             lambda: get_lcmv_vector_souden(psd, psd, psd),
+             NotImplementedError)):
         try:
             call()
-        except NotImplementedError as e:
-            log(f'guard {name}: NotImplementedError ({str(e)[:60]}...)')
+        except error as e:
+            log(f'guard {name}: {error.__name__} ({str(e)[:60]}...)')
         else:
-            fail(f'{name} did not raise NotImplementedError on CUDA')
+            fail(f'{name} did not raise {error.__name__} on CUDA')
 
 
 def load_utterances(seeds):
@@ -3196,6 +3209,201 @@ def phase_surface():
     return checks
 
 
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def mesh_gap(label, mesh_out, plain_out, rtol=1e-5):
+    """Log how far a mesh call's output is from the meshless one's (0
+    expected at world size 1) and fail above ``rtol`` of its largest
+    magnitude."""
+    import torch
+    diff = float((mesh_out - plain_out).abs().max())
+    scale = float(plain_out.abs().max())
+    log(f'parallel {label}: mesh against meshless: bit for bit '
+        f'{bool(torch.equal(mesh_out, plain_out))}, max |diff| {diff:.3e} '
+        f'of max |out| {scale:.3e}')
+    if not (math.isfinite(diff) and diff <= rtol * scale):
+        fail(f'parallel {label}: the mesh call parts from the meshless '
+             f'one by {diff} (> {rtol} of {scale})')
+
+
+def phase_parallel_and_rest():
+    """The last modules on the card. ``parallel`` on a world of size 1
+    over NCCL (``initialize_distributed`` at a tcp address of this host,
+    ``make_mesh((1, 1), ('b', 'f'))``): ``separate_batch(mesh=)`` on the
+    slice cell (8 x 4.8 s, 20 iterations, 'gev+ban'; K2 once and K3 once,
+    as the meshless call) against the meshless call, with the host and
+    device ms of both; ``fit_cacgmm_sharded`` with frequency-constant
+    weights at the bench shape (B=8, F=513, T=300: K5) and
+    ``fit_integration_sharded`` at config 3 (F=513, T=300, E=20: K10)
+    against the same fits without a mesh. The collectives run at world
+    size 1, where they are no-ops, so the mesh results equal the
+    meshless ones. Then ``deflationSeed`` (K1 once a deflation step) and
+    ``flag`` on the first utterance against the CPU, and
+    ``utils.profiling.trace`` around one ``separate``. Returns the
+    launches of the kernels on these paths."""
+    import tempfile
+    import warnings
+    import torch
+    import torch.distributed as dist
+    import pb_bss_tpu_torch as P
+    from pb_bss_tpu_torch.initializer.deflation import deflationSeed
+    from pb_bss_tpu_torch.initializer.deterministic import flag
+    from pb_bss_tpu_torch.models import CACGMMTrainer, VMFCACGMMTrainer
+    from pb_bss_tpu_torch.parallel import (
+        fit_cacgmm_sharded, fit_integration_sharded, initialize_distributed,
+        make_mesh)
+    from pb_bss_tpu_torch.utils import profiling
+    path = dict.fromkeys(('cacgmm_em_full', 'gev', 'cacgmm_em_fc_init',
+                          'cacgmm_em_fc_step', 'integration_e_stats',
+                          'eigh_jacobi'), 0)
+    idle = dict.fromkeys(counters(), 0)
+    card = getattr(phase_device, 'card', '')
+
+    def run(what, call, want, strict=True):
+        """call() with the counters reset; fail unless the kernels in
+        ``want`` (and, if ``strict``, no other) launched as given."""
+        sync()
+        reset_counters()
+        out = call()
+        sync()
+        launches = read_counters()
+        expect_launches(what, launches, {**idle, **want} if strict
+                        else want)
+        for k in path:
+            path[k] += launches[k]
+        return out
+
+    initialize_distributed(f'127.0.0.1:{free_port()}', 1, 0)
+    try:
+        mesh = make_mesh((1, 1), ('b', 'f'))
+        log(f'parallel: world {dist.get_world_size()} over '
+            f'{dist.get_backend()}, mesh {tuple(mesh.shape)} '
+            f'{mesh.mesh_dim_names} on {mesh.device_type}')
+
+        obs, _ = load_utterances(range(8))
+        obs = obs.cuda()
+        options = dict(num_classes=3, iterations=20, beamformer='gev+ban')
+        plain = P.separate_batch(obs, **options)
+        slice_launches = {'cacgmm_em_full': 1, 'gev': 1}
+        meshed = run("separate_batch(mesh=(1, 1) ('b', 'f')) 8 x 4.8 s, "
+                     "'gev+ban', 20 it",
+                     lambda: P.separate_batch(obs, mesh=mesh, **options),
+                     slice_launches)
+        if not bool(torch.isfinite(meshed).all()):
+            fail('separate_batch(mesh=) output is not finite')
+        mesh_gap('separate_batch', meshed, plain)
+        host = {'meshless': [], 'mesh': []}
+        for _ in range(3):
+            for label, kwargs in (('meshless', {}), ('mesh', {'mesh': mesh})):
+                sync()
+                t0 = time.perf_counter()
+                P.separate_batch(obs, **kwargs, **options)
+                sync()
+                host[label].append(1e3 * (time.perf_counter() - t0))
+        device, names = {}, {}
+        for label, kwargs in (('meshless', {}), ('mesh', {'mesh': mesh})):
+            prof, _ = profile_device(
+                lambda: P.separate_batch(obs, **kwargs, **options))
+            device[label] = device_times(prof, '')['all kernels']
+            names[label] = kernel_table(prof)
+        extra = {k: v for k, v in names['mesh'].items()
+                 if v[1] != names['meshless'].get(k, (0, 0))[1]}
+        log('parallel separate_batch: kernels whose launches the mesh '
+            'changed (device us, launches; meshless in brackets):')
+        for key, (us, n) in sorted(extra.items(), key=lambda kv: -kv[1][0]):
+            log(f'    {us:9.1f} x{n:<4d} ({names["meshless"].get(key)}) '
+                f'{key[:80]}')
+        for label in ('meshless', 'mesh'):
+            log(f'timing parallel separate_batch {label} (8 x 4.8 s, '
+                f"'gev+ban', 20 it; {card}): host ms "
+                f'{[round(v, 2) for v in host[label]]}, device ms '
+                f'{device[label][0] / 1e3:.4f} in {device[label][1]} '
+                'kernels')
+
+        y, aff, _ = em_inputs(8, 513, 6, 3, 300, seed=140)
+        Y = y.transpose(-1, -2).contiguous()
+        fc = dict(iterations=20, weight_constant_axis=(-3, -1))
+        k5 = {'cacgmm_em_fc_init': 1, 'cacgmm_em_fc_step': 19,
+              'cacgmm_em_full': 0, 'cacgmm_em_long': 0}
+        sharded = run('fit_cacgmm_sharded fc B=8 F=513 T=300, 20 it',
+                      lambda: fit_cacgmm_sharded(
+                          Y, mesh, initialization=aff, frequency_axis=1,
+                          **fc), k5, strict=False)
+        unsharded = run('CACGMMTrainer.fit fc (no mesh)',
+                        lambda: CACGMMTrainer().fit(
+                            Y, initialization=aff, **fc), k5, strict=False)
+        mesh_gap('fit_cacgmm_sharded weight', sharded.weight,
+                 unsharded.weight)
+        mesh_gap('fit_cacgmm_sharded eigenvalues',
+                 sharded.cacg.covariance_eigenvalues,
+                 unsharded.cacg.covariance_eigenvalues)
+
+        y, _, _ = em_inputs(1, 513, 6, 3, 300, seed=150)
+        obs3 = y[0].transpose(-1, -2).contiguous()
+        g = torch.Generator('cuda').manual_seed(151)
+        emb = torch.randn((513, 300, 20), generator=g, device='cuda')
+        emb = emb / emb.norm(dim=-1, keepdim=True)
+        k10 = {'integration_e_stats': 19, 'eigh_jacobi': 20}
+        sharded = run('fit_integration_sharded vMF F=513 T=300 E=20, 20 it',
+                      lambda: fit_integration_sharded(
+                          obs3, emb, mesh, num_classes=3, iterations=20),
+                      k10)
+        unsharded = run('VMFCACGMMTrainer.fit (no mesh)',
+                        lambda: VMFCACGMMTrainer().fit(
+                            obs3, emb, num_classes=3, iterations=20), k10)
+        for leaf in ('mean', 'concentration'):
+            mesh_gap(f'fit_integration_sharded vmf.{leaf}',
+                     getattr(sharded.vmf, leaf),
+                     getattr(unsharded.vmf, leaf))
+        mesh_gap('fit_integration_sharded eigenvalues',
+                 sharded.cacg.covariance_eigenvalues,
+                 unsharded.cacg.covariance_eigenvalues)
+    finally:
+        dist.destroy_process_group()
+
+    Y = P.transform.stft(obs[0], 512, 128).permute(2, 1, 0).contiguous()
+    seed = run('deflationSeed F=257 T=304 D=6, 3 sources',
+               lambda: deflationSeed(Y, 3), {'eigh_jacobi': 2})
+    cpu = deflationSeed(Y.cpu(), 3)
+    err = float((seed.cpu() - cpu).abs().max())
+    log(f'deflationSeed card against CPU: {err:.2e} (atol 1e-3)')
+    if not (bool(torch.isfinite(seed).all()) and err <= 1e-3):
+        fail(f'deflationSeed on the card parts from the CPU by {err}')
+    for minimum in (0, 0.1):
+        card_flag = flag(Y, 3, permutation_free=True, minimum=minimum)
+        if card_flag.device.type != 'cuda' or not torch.equal(
+                card_flag.cpu(), flag(Y.cpu(), 3, permutation_free=True,
+                                      minimum=minimum)):
+            fail(f'flag(minimum={minimum}) on the card differs from the CPU')
+    log('flag: card equals CPU (minimum 0 and 0.1)')
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always', RuntimeWarning)
+            with profiling.trace(log_dir):
+                P.separate(obs[0], iterations=20, beamformer='gev+ban')
+                sync()
+        [trace_file] = [f for f in os.listdir(log_dir)
+                        if f.endswith('.pt.trace.json')]
+        size = os.path.getsize(os.path.join(log_dir, trace_file))
+        with open(os.path.join(log_dir, trace_file)) as f:
+            kernels = sum(1 for e in json.load(f)['traceEvents']
+                          if e.get('cat') == 'kernel')
+        empty = [str(w.message) for w in caught
+                 if 'no device event' in str(w.message)]
+        log(f'profiling.trace around separate(): {size} bytes, {kernels} '
+            f'kernel events, device events captured {not empty}'
+            + (f' (warned: {empty[0]})' if empty else ''))
+        if size == 0:
+            fail('profiling.trace wrote an empty file')
+    return path
+
+
 def time_extraction():
     """separate_batch of 8 x 4.8 s per extraction route and with
     refine='fca': the host clock around synchronized calls (distinct
@@ -3950,7 +4158,7 @@ def integration_flops(frames, K, D, E, mode):
 
 def phase_timing(errors, launches, long_launches, fc_launches,
                  cwmm_launches, cbmm_launches, integration_launches,
-                 stream_launches_):
+                 stream_launches_, parallel_launches):
     import torch
     from pb_bss_tpu_torch.ops.eigh import eigh_jacobi, eigh_jacobi_reference
     from pb_bss_tpu_torch.ops.em_loop import (
@@ -4062,6 +4270,10 @@ def phase_timing(errors, launches, long_launches, fc_launches,
     # and K3 (each beamformed block)
     streamed = {k: sum(m[k] for m in stream_launches_.values())
                 for k in ('cacgmm_em_full', 'eigh_jacobi', 'gev')}
+    # and so do the parallel phase's (the mesh separate_batch, the
+    # sharded fits, deflationSeed)
+    for k in streamed:
+        streamed[k] += parallel_launches[k]
     rows = [
         ('cacgmm_em_full', 'em_loop.cu', 'pallas_em_loop.py:386',
          launches['cacgmm_em_full'] + streamed['cacgmm_em_full'],
@@ -4078,10 +4290,12 @@ def phase_timing(errors, launches, long_launches, fc_launches,
          long_launches['cacgmm_em_long'], errors['stream'], stats_ms,
          stats_plain, bound(k4_bytes, k4_flops), None),
         ('cacgmm_em_fc_init', 'em_step.cu', 'pallas_em_step.py:288',
-         fc_launches['cacgmm_em_fc_init'], errors['fc']['init'],
+         fc_launches['cacgmm_em_fc_init']
+         + parallel_launches['cacgmm_em_fc_init'], errors['fc']['init'],
          *fc_times['init'], None),
         ('cacgmm_em_fc_step', 'em_step.cu', 'pallas_em_step.py:288',
-         fc_launches['cacgmm_em_fc_step'], errors['fc']['step'],
+         fc_launches['cacgmm_em_fc_step']
+         + parallel_launches['cacgmm_em_fc_step'], errors['fc']['step'],
          *fc_times['step'], None),
         ('cacgmm_e_step', 'em_estep.cu', 'pallas_em.py:83',
          fc_launches['cacgmm_e_step'], errors['e_step'],
@@ -4106,7 +4320,8 @@ def phase_timing(errors, launches, long_launches, fc_launches,
          *cbmm_times['cbmm_em_long'], None),
         ('integration_e_stats', 'integration_em.cu',
          'pallas_integration_em.py:282',
-         integration_launches['integration_e_stats'],
+         integration_launches['integration_e_stats']
+         + parallel_launches['integration_e_stats'],
          errors['integration_stats'],
          *integration_times['integration_e_stats'], None),
         ('integration_em_full', 'integration_em_loop.cu',
@@ -4708,8 +4923,25 @@ def device_times(prof, key):
     :func:`profile_device`) has none to give: NaN under 'all kernels'."""
     if prof is None:
         return {} if key else {'all kernels': (math.nan, 0)}
+    table = kernel_table(prof)
+    if not key:
+        return {'all kernels': (round(sum(us for us, _ in table.values()), 1),
+                                sum(n for _, n in table.values()))}
     out = {}
-    total = [0., 0]
+    for event_key, (us, count) in table.items():
+        if key in event_key:
+            name = re.search(r'(\w+)\((?!anonymous)', event_key)
+            out[name.group(1) if name else event_key] = (round(us, 1),
+                                                         count)
+    return out
+
+
+def kernel_table(prof):
+    """{kernel name: (device us, launches)} of every device event of a
+    profile (empty when the capture recorded nothing)."""
+    if prof is None:
+        return {}
+    out = {}
     for event in prof.key_averages():
         us = getattr(event, 'device_time_total', None)
         if us is None:
@@ -4717,14 +4949,7 @@ def device_times(prof, key):
         if not us or getattr(event, 'device_type', None) is not None and \
                 'CUDA' not in str(event.device_type):
             continue
-        if key and key in event.key:
-            name = re.search(r'(\w+)\((?!anonymous)', event.key)
-            out[name.group(1) if name else event.key] = (
-                round(us, 1), event.count)
-        total[0] += us
-        total[1] += event.count
-    if not key:
-        out['all kernels'] = (round(total[0], 1), total[1])
+        out[event.key] = (us, event.count)
     return out
 
 
@@ -4737,16 +4962,8 @@ def top_kernels(label, call, state, count=8):
     if prof is None:
         log(f'{label}: device time not measured (empty profiler capture)')
         return
-    rows = []
-    for event in prof.key_averages():
-        us = getattr(event, 'device_time_total', None)
-        if us is None:
-            us = getattr(event, 'cuda_time_total', 0)
-        if not us or getattr(event, 'device_type', None) is not None and \
-                'CUDA' not in str(event.device_type):
-            continue
-        rows.append((us, event.count, event.key[:70]))
-    rows.sort(reverse=True)
+    rows = sorted(((us, n, key[:70]) for key, (us, n)
+                   in kernel_table(prof).items()), reverse=True)
     total = sum(us for us, _, _ in rows)
     log(f'{label}: {total / 1e3:.4f} ms of device time in '
         f'{sum(n for _, n, _ in rows)} kernels; the largest:')
@@ -5185,7 +5402,7 @@ def main():
              'the whole smoke test (floor, splits, cacgmm, cbmm, cwmm, '
              'integration, e2e, eigh, integration_stats, '
              'eigh_stats_splits, gev_estep_splits, extraction_checks, '
-             'extraction, streaming, surface, evaluation); '
+             'extraction, streaming, surface, parallel, evaluation); '
              'prints no kernels line')
     parser.add_argument(
         '--package', default=None,
@@ -5219,6 +5436,7 @@ def main():
                   'extraction': time_extraction,
                   'streaming': phase_streaming_checks,
                   'surface': phase_surface,
+                  'parallel': phase_parallel_and_rest,
                   'evaluation': phase_evaluation}
         try:
             card = timed(phase_device)
@@ -5247,6 +5465,7 @@ def main():
         timed(phase_fca)
         stream_launches_ = timed(phase_streaming)
         timed(phase_surface)
+        parallel_launches = timed(phase_parallel_and_rest)
         long_launches = timed(phase_long)
         fc_launches = timed(phase_fc_path)
         cwmm_launches = timed(phase_cwmm)
@@ -5254,7 +5473,8 @@ def main():
         integration_launches = timed(phase_integration)
         kernels = timed(phase_timing, errors, launches, long_launches,
                         fc_launches, cwmm_launches, cbmm_launches,
-                        integration_launches, stream_launches_)
+                        integration_launches, stream_launches_,
+                        parallel_launches)
         timed(time_fc_stages)
         timed(time_streaming)
     except SystemExit:

@@ -4,7 +4,9 @@ Multi-channel blind source separation on an NVIDIA Hopper GPU:
 ``separate`` / ``separate_batch`` run STFT -> cACGMM (or, with
 ``model='cwmm'``, complex Watson, with ``model='cbmm'``, complex
 Bingham mixture) EM -> DHTV permutation alignment -> mask or GEV
-beamformer extraction -> iSTFT, with the EM fit (whole-fit for short
+beamformer extraction -> iSTFT (``mesh=`` splits the batch and the
+frequency bins over the ranks of a ``torch.distributed`` mesh,
+``parallel``), with the EM fit (whole-fit for short
 recordings, streamed statistics plus batched Jacobi for long ones; the
 Bingham moment inversion in a chord-solve kernel) and the GEV beamformer
 in hand-written CUDA kernels (``ops/em_loop.py``, ``ops/em_stream.py``,
@@ -22,6 +24,7 @@ aliases of ``models`` (and ``models.base``), as in the JAX package.
 import sys as _sys
 
 from . import utils  # noqa: F401
+from . import parallel  # noqa: F401
 from . import pipeline  # noqa: F401
 from .pipeline import separate, separate_batch  # noqa: F401
 from . import streaming  # noqa: F401

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from .._dtypes import real_dtype as _real_dtype, tiny as _tiny
+from .._shard import frequency_sum
 from ..models._precision import full_fp32
 from ..ops.gev import gev_with_retry
 from ..ops.linalg import (
@@ -290,10 +291,10 @@ def apply_online_beamforming_vector(vector, mix):
 
 def _snr(w_mat, target_psd_matrix, noise_psd_matrix, eps):
     """Post-beamforming SNR of each column of ``w_mat`` (..., F, D, R),
-    summed over the bins, (..., R)."""
+    summed over the bins (every bin of a sharded pipeline), (..., R)."""
     def power(psd):
-        return torch.einsum('...FdR,...FdD,...FDR->...R', w_mat.conj(), psd,
-                            w_mat)
+        return frequency_sum(torch.einsum(
+            '...FdR,...FdD,...FDR->...R', w_mat.conj(), psd, w_mat))
     return power(target_psd_matrix) / torch.clamp(
         power(noise_psd_matrix).real, min=eps)
 

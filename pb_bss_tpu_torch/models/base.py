@@ -6,7 +6,9 @@ Same dict schema as ``pb_bss_tpu.models.base.Model`` (``to_dict`` /
 with its arrays converted by ``np.asarray``) and turns them into
 tensors. Also the JAX package's helpers around it: ``Model.replace``,
 ``static_field``, ``parameter_from_dict``,
-``get_trainer_class_from_model`` and ``stack_parameters``.
+``get_trainer_class_from_model``, ``stack_parameters`` and the
+reference's observation normalizers ``_unit_norm``, ``_phase_norm`` and
+``_frequency_norm``.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from ..ops.linalg import force_hermitian, unit_norm  # noqa: F401
 
 __all__ = ['Model', 'modelclass', 'static_field', 'parameter_from_dict',
            'get_trainer_class_from_model', 'stack_parameters',
-           'force_hermitian', 'unit_norm']
+           '_unit_norm', 'force_hermitian', 'unit_norm', '_phase_norm',
+           '_frequency_norm']
 
 
 def _as_tensor(v):
@@ -132,3 +135,54 @@ def stack_parameters(parameters: typing.List[Model]):
         else:
             out[k] = torch.stack([torch.as_tensor(d) for d in datas])
     return out_type(**out)
+
+
+def _unit_norm(signal, *, axis=-1, eps=1e-4, eps_style='plus', ord=None):
+    """Alias of :func:`pb_bss_tpu_torch.ops.linalg.unit_norm` (the
+    reference's name)."""
+    return unit_norm(signal, axis=axis, eps=eps, eps_style=eps_style,
+                     ord=ord)
+
+
+def _phase_norm(signal, reference_channel=0):
+    """Phase normalization against a reference channel. signal:
+    (..., T, D) complex."""
+    angles = torch.angle(
+        signal[..., reference_channel:reference_channel + 1])
+    return signal * torch.exp(-1j * angles)
+
+
+def _frequency_norm(
+        signal,
+        max_sensor_distance=None, shrink_factor=1.2,
+        fft_size=1024, sample_rate=16000, sound_velocity=343,
+):
+    """Frequency normalization: each bin's phase scaled by
+    ``sound_velocity / (2 f shrink_factor max_sensor_distance)``, which
+    maps the phase differences of all bins onto one range. Raises
+    ``ValueError`` when the sensors are too far apart for the highest
+    bin.
+
+    signal: (F, T, D) complex STFT signal.
+    """
+    from ..utils import get_stft_center_frequencies
+    frequency = get_stft_center_frequencies(fft_size, sample_rate)
+    F = signal.shape[0]
+    assert len(frequency) == F, (len(frequency), F)
+    with np.errstate(divide='ignore'):
+        norm_factor = sound_velocity / (
+            2 * frequency * shrink_factor * max_sensor_distance
+        )
+    norm_factor = np.nan_to_num(norm_factor)
+    if norm_factor[-1] < 1:
+        raise ValueError(
+            'Distance between the sensors too high: {:.2} > {:.2}'.format(
+                max_sensor_distance, sound_velocity / (2 * frequency[-1])
+            )
+        )
+    # float64: the DC bin's factor (finite by nan_to_num) overflows f32
+    norm_factor = torch.as_tensor(
+        norm_factor[:, None, None], dtype=torch.float64,
+        device=signal.device)
+    phase = torch.angle(signal).to(torch.float64) * norm_factor
+    return signal.abs() * torch.exp(1j * phase).to(signal.dtype)

@@ -107,15 +107,20 @@ class GaussianTrainer:
         return self._fit(y, saliency=saliency,
                          covariance_type=covariance_type)
 
-    def _fit(self, y, saliency, covariance_type):
+    def _fit(self, y, saliency, covariance_type, reduce=None):
+        """``reduce`` (optional, with ``saliency``) completes each sum
+        over the observations, e.g. over the ranks of a sharded fit."""
         dimension = y.shape[-1]
+        if reduce is None:
+            def reduce(x):
+                return x
         if saliency is None:
             denominator = torch.tensor(y.shape[-2], dtype=y.dtype,
                                        device=y.device)
             mean = y.sum(-2)
         else:
-            denominator = torch.clamp(saliency.sum(-1), min=_tiny(y))
-            mean = torch.einsum('...n,...nd->...d', saliency, y)
+            denominator = torch.clamp(reduce(saliency.sum(-1)), min=_tiny(y))
+            mean = reduce(torch.einsum('...n,...nd->...d', saliency, y))
         mean = mean / denominator[..., None]
         difference = y - mean[..., None, :]
 
@@ -137,6 +142,6 @@ class GaussianTrainer:
         if saliency is None:
             covariance = torch.einsum(operation, difference, difference)
         else:
-            covariance = torch.einsum('...n,' + operation, saliency,
-                                      difference, difference)
+            covariance = reduce(torch.einsum('...n,' + operation, saliency,
+                                             difference, difference))
         return model_cls(mean=mean, covariance=covariance / denominator_c)

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .._dtypes import real_dtype as _real_dtype, tiny as _tiny
+from .._shard import frequency_sum, spans_frequency
 from ..ops import integration_em, integration_em_loop
 from .base import Model, modelclass
 from .complex_angular_central_gaussian import (
@@ -159,6 +160,8 @@ def _integration_weight(masked_affiliation, weight_constant_axis):
         return torch.tensor(1.0 / K, dtype=masked_affiliation.dtype,
                             device=masked_affiliation.device)
     weight = masked_affiliation.sum(weight_constant_axis, keepdim=True)
+    if spans_frequency(weight_constant_axis, masked_affiliation.ndim):
+        weight = frequency_sum(weight)  # over every bin of a sharded fit
     weight = weight / weight.sum(-2, keepdim=True)
     for axis in sorted((a % weight.ndim for a in weight_constant_axis),
                        reverse=True):
@@ -397,7 +400,7 @@ def _gcacgmm_fit_em(observation, embedding, affiliation, saliency,
             y=embedding.reshape(*batch, 1, F * T, E),
             saliency=masked_affiliation.movedim(-2, -3).reshape(
                 *batch, K, F * T),
-            covariance_type=covariance_type)
+            covariance_type=covariance_type, reduce=frequency_sum)
         if fixed_covariance is not None:
             assert fixed_covariance.shape == gaussian.covariance.shape, (
                 f'{tuple(fixed_covariance.shape)} != '
@@ -469,11 +472,12 @@ def _gcacgmm_fit_em(observation, embedding, affiliation, saliency,
                 affiliation_eps=affiliation_eps, saliency=fold.saliency)
             scatter = fold.from_bins(scatter)  # (*batch, F, K, D, D)
             asum = fold.from_bins(asum)  # (*batch, F, K)
-            r = fold.from_bins(r).sum(-3)  # (*batch, K, E)
-            m2 = fold.from_bins(m2).sum(-3)
+            # the global moments: over every bin of a sharded fit
+            r = frequency_sum(fold.from_bins(r).sum(-3))  # (*batch, K, E)
+            m2 = frequency_sum(fold.from_bins(m2).sum(-3))
             weight = asum / torch.clamp(asum.sum(-1, keepdim=True), min=tiny)
-            mean, covariance = _gaussian_finish(r, asum.sum(-2), m2,
-                                                spherical)
+            mean, covariance = _gaussian_finish(
+                r, frequency_sum(asum.sum(-2)), m2, spherical)
             if fixed_covariance is not None:
                 covariance = fixed_covariance.to(torch.float32)
             g = g.__class__(mean=mean, covariance=covariance)

@@ -8,6 +8,13 @@ import math
 import torch
 
 from .._dtypes import tiny as _tiny
+from .._shard import (
+    frequency_bins,
+    frequency_gather,
+    frequency_rows,
+    frequency_sum,
+    spans_frequency,
+)
 
 __all__ = ['log_pdf_to_affiliation',
            'log_pdf_to_affiliation_for_integration_models_with_inline_pa',
@@ -102,7 +109,14 @@ def estimate_mixture_weight(affiliation, saliency=None,
     axes = _axes(weight_constant_axis)
     if saliency is None:
         if dirichlet_prior_concentration == 1:
-            return affiliation.mean(dim=axes, keepdim=True)
+            if not spans_frequency(axes, affiliation.ndim):
+                return affiliation.mean(dim=axes, keepdim=True)
+            # over every bin of a sharded fit
+            count = math.prod(affiliation.shape[a] for a in axes) \
+                // affiliation.shape[-3] \
+                * frequency_bins(affiliation.shape[-3])
+            return frequency_sum(
+                affiliation.sum(dim=axes, keepdim=True)) / count
         *independent, K, T = affiliation.shape
         if math.isinf(dirichlet_prior_concentration) \
                 and dirichlet_prior_concentration > 0:
@@ -117,6 +131,8 @@ def estimate_mixture_weight(affiliation, saliency=None,
             T + (dirichlet_prior_concentration - 1) * K)
     masked = (affiliation * saliency[..., None, :]).sum(
         dim=axes, keepdim=True)
+    if spans_frequency(axes, affiliation.ndim):
+        masked = frequency_sum(masked)
     norm = masked.abs().sum(-2, keepdim=True)
     norm = torch.where(norm == 0, torch.full_like(norm, 1e-10), norm)
     return masked / norm
@@ -145,7 +161,9 @@ def apply_inline_permutation_alignment(affiliation, *, quadratic_form=None,
         'mixture_model_utils.py:264-306 enforces the same).'
     )
     a_kft = affiliation.transpose(0, 1)
-    mapping = aligner.calculate_mapping(a_kft)
+    # the aligner walks every bin (gathered in a sharded fit)
+    mapping = frequency_rows(
+        aligner.calculate_mapping(frequency_gather(a_kft, 1)), 1)
     affiliation = aligner.apply_mapping(a_kft, mapping).transpose(0, 1)
     if quadratic_form is None:
         return affiliation

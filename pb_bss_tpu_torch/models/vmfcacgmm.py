@@ -25,6 +25,7 @@ from operator import xor
 import torch
 
 from .._dtypes import real_dtype as _real_dtype, tiny as _tiny
+from .._shard import frequency_sum
 from ..ops import integration_em, integration_em_loop
 from .base import Model, modelclass
 from .complex_angular_central_gaussian import (
@@ -266,7 +267,7 @@ def _vmfcacgmm_fit_em(observation, embedding, affiliation, saliency, *,
             saliency=masked_affiliation.movedim(-2, -3).reshape(
                 *batch, K, F * T),
             min_concentration=min_concentration,
-            max_concentration=max_concentration)
+            max_concentration=max_concentration, reduce=frequency_sum)
         cacg = ComplexAngularCentralGaussianTrainer()._fit(
             y=observation[..., None, :, :].transpose(-1, -2),
             saliency=masked_affiliation, quadratic_form=quadratic_form,
@@ -333,10 +334,12 @@ def _vmfcacgmm_fit_em(observation, embedding, affiliation, saliency, *,
                 affiliation_eps=affiliation_eps, saliency=fold.saliency)
             scatter = fold.from_bins(scatter)  # (*batch, F, K, D, D)
             asum = fold.from_bins(asum)  # (*batch, F, K)
-            r = fold.from_bins(r).sum(-3)  # (*batch, K, E)
+            # the global resultants: over every bin of a sharded fit
+            r = frequency_sum(fold.from_bins(r).sum(-3))  # (*batch, K, E)
             weight = asum / torch.clamp(asum.sum(-1, keepdim=True), min=tiny)
             mean, concentration = _vmf_finish(
-                r, asum.sum(-2), E, min_concentration, max_concentration)
+                r, frequency_sum(asum.sum(-2)), E, min_concentration,
+                max_concentration)
             vmf = VonMisesFisher(mean=mean, concentration=concentration)
             cacg = ComplexAngularCentralGaussian.from_covariance(
                 D * scatter / torch.clamp(asum, min=tiny)[

@@ -112,17 +112,22 @@ class VonMisesFisherTrainer:
                          max_concentration=max_concentration)
 
     def _fit(self, y, saliency, min_concentration,
-             max_concentration) -> VonMisesFisher:
+             max_concentration, reduce=None) -> VonMisesFisher:
+        """``reduce`` (optional) completes each sum over the
+        observations, e.g. over the ranks of a sharded fit."""
         D = y.shape[-1]
+        if reduce is None:
+            def reduce(x):
+                return x
         if saliency is None:
             saliency = torch.ones(y.shape[:-1], dtype=y.dtype,
                                   device=y.device)
         # [Banerjee2005vMF] Equation 2.4
-        r = torch.einsum('...n,...nd->...d', saliency, y)
+        r = reduce(torch.einsum('...n,...nd->...d', saliency, y))
         norm = torch.linalg.vector_norm(r, dim=-1)
         mean = r / torch.clamp(norm, min=torch.finfo(y.dtype).tiny)[..., None]
         # [Banerjee2005vMF] Equation 2.5
-        r_bar = norm / saliency.sum(-1)
+        r_bar = norm / reduce(saliency.sum(-1))
         # [Banerjee2005vMF] Equation 4.4
         concentration = (r_bar * D - r_bar ** 3) / (1 - r_bar ** 2)
         concentration = torch.clamp(concentration, min_concentration,

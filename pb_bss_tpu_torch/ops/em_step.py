@@ -49,6 +49,12 @@ from __future__ import annotations
 import torch
 
 from .._dtypes import tiny as _tiny
+from .._shard import (
+    frequency_bins,
+    frequency_gather,
+    frequency_rows,
+    frequency_sum,
+)
 from ._build import SMEM_LIMIT
 from .em_loop import cta_threads
 from .linalg import eigh_jacobi, sort_ascending
@@ -346,19 +352,21 @@ def _em_fc(init_pass, step_pass, y, affiliation, quadratic_form, *,
 
     def weight_from_asum(asum):
         """The per-utterance weight (B, K) from the per-bin sums: the
-        one reduction over bins."""
-        sums = asum.reshape(B, F, K).sum(1)
+        one reduction over bins (over every bin of a sharded fit)."""
+        sums = frequency_sum(asum.reshape(B, F, K).sum(1))
         if sal is not None:
             denom = sums.sum(-1, keepdim=True)
             denom = torch.where(denom == 0, torch.full_like(denom, 1e-10),
                                 denom)
             return sums / denom
-        return sums / (F * T)
+        return sums / (frequency_bins(F) * T)
 
     def align(vec, eig, asum, posterior):
         """Permute the per-class state with the aligner's mapping of
         the emitted posterior: aligned[f, k] = x[f, mapping[k, f]]."""
-        mapping = aligner.calculate_mapping(posterior.transpose(0, 1))
+        # the aligner walks every bin (gathered in a sharded fit)
+        mapping = frequency_rows(aligner.calculate_mapping(
+            frequency_gather(posterior.transpose(0, 1), 1)), 1)
         index = mapping.transpose(0, 1).to(torch.long)  # (F, K)
         return (torch.gather(vec, 1, index[..., None, None].expand(
                     vec.shape)),

@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from .._dtypes import tiny as _tiny
+from .._shard import frequency_bins, frequency_sum
 from . import _plan
 from ._build import SMEM_LIMIT
 from .eigh import default_sweeps, eigh_jacobi, eigh_jacobi_reference
@@ -227,8 +228,10 @@ def mixture_weight(asum, *, weight_mode, lead, frames, saliency):
     if weight_mode == 'per_bin':
         sums, count = asum, frames
     else:
-        sums = asum.reshape(-1, F, asum.shape[-1]).sum(1)
-        sums, count = (sums if len(lead) == 2 else sums[0]), F * frames
+        # over every bin of a sharded fit
+        sums = frequency_sum(asum.reshape(-1, F, asum.shape[-1]).sum(1))
+        sums = sums if len(lead) == 2 else sums[0]
+        count = frequency_bins(F) * frames
     if saliency:
         denom = sums.sum(-1, keepdim=True)
         denom = torch.where(denom == 0, torch.full_like(denom, 1e-10), denom)

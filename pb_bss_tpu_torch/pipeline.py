@@ -28,6 +28,12 @@ from .models.cacgmm import CACGMMTrainer
 from .models.cbmm import CBMMTrainer
 from .models.cwmm import CWMMTrainer
 from .models.fca import FCATrainer
+from ._shard import (
+    axis_shard,
+    frequency_gather,
+    frequency_rows,
+    frequency_sharded,
+)
 from .permutation_alignment import DHTVPermutationAlignment
 from .transform import istft, stft
 from .transform.stft_module import stft_frames
@@ -35,7 +41,7 @@ from .transform.stft_module import stft_frames
 __all__ = ['separate', 'separate_batch']
 
 
-def _check_options(beamformer, model, mesh, refine):
+def _check_options(beamformer, model, mesh, refine, device):
     if refine is not None:
         if refine != 'fca':
             raise ValueError(f'Unknown refine stage: {refine!r}')
@@ -46,8 +52,16 @@ def _check_options(beamformer, model, mesh, refine):
     if model not in ('cacgmm', 'cwmm', 'cbmm'):
         raise ValueError(model)
     if mesh is not None:
-        raise NotImplementedError(
-            'mesh sharding is not ported yet (ROADMAP queue 1, parallel)')
+        from torch.distributed.device_mesh import DeviceMesh
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f'mesh must be a DeviceMesh, got {mesh!r}')
+        names = mesh.mesh_dim_names or ()
+        if not names or not set(names) <= {'b', 'f'}:
+            raise ValueError(
+                f"mesh axes must be 'b' and / or 'f', got {names}")
+        if mesh.device_type != device.type:
+            raise ValueError(f'a {mesh.device_type} mesh cannot shard '
+                             f'observations on {device}')
     if beamformer is not None:
         parse_beamformer(beamformer)
 
@@ -62,12 +76,50 @@ def _random_affiliation(generator, shape, dtype, device):
 
 def _separate(observations, initialization, *, iterations, stft_size,
               stft_shift, beamformer, reference_channel, eigh_sweeps, model,
-              refine, refine_iterations):
+              refine, refine_iterations, mesh=None, batch_sharded=True):
     """observations (B, D, N), initialization (B, F, K, T) ->
-    (B, K, N)."""
+    (B, K, N).
+
+    With a ``mesh``, every rank takes its utterances over ``'b'`` (the
+    rows of ``initialization`` too, which holds the whole batch) and its
+    bins over ``'f'``: the fit and the extraction run on them, the
+    affiliations and the beamforming vectors are gathered over ``'f'``
+    for the steps that walk every bin (DHTV, the phase correction; both
+    replicated on the ranks), the reference-channel SNR is all-reduced
+    over ``'f'`` (``_shard.frequency_sum``), and the per-class spectra
+    and the waveforms are gathered before they are returned. Without a
+    mesh the gathers and slices are the identity.
+    """
     num_samples = observations.shape[-1]
-    Observation = stft(observations, stft_size, stft_shift)  # (B, D, T, F)
+    batch = axis_shard(mesh, 'b', observations.shape[0]) \
+        if batch_sharded else None
+    if batch is not None:
+        observations = batch.rows(observations, 0)
+        initialization = batch.rows(initialization, 0)
+    bins = axis_shard(mesh, 'f', stft_size // 2 + 1)
+    with frequency_sharded(bins):
+        out = _separate_bins(
+            observations, initialization, iterations=iterations,
+            stft_size=stft_size, stft_shift=stft_shift,
+            beamformer=beamformer, reference_channel=reference_channel,
+            eigh_sweeps=eigh_sweeps, model=model, refine=refine,
+            refine_iterations=refine_iterations)
+        out = istft(frequency_gather(out, -1), stft_size, stft_shift,
+                    num_samples=num_samples)  # (B, K, N)
+    return out if batch is None else batch.gather(out, 0)
+
+
+def _separate_bins(observations, initialization, *, iterations, stft_size,
+                   stft_shift, beamformer, reference_channel, eigh_sweeps,
+                   model, refine, refine_iterations):
+    """The pipeline up to the synthesis on this rank's bins (all bins
+    outside :func:`~pb_bss_tpu_torch._shard.frequency_sharded`):
+    observations (B, D, N), initialization (B, F, K, T) of every bin ->
+    the per-class spectra (B, K, T, F) of this rank's bins."""
+    Observation = frequency_rows(
+        stft(observations, stft_size, stft_shift), -1)  # (B, D, T, F)
     Y = Observation.permute(0, 3, 2, 1)  # (B, F, T, D)
+    initialization = frequency_rows(initialization, 1)
     if model == 'cwmm':
         affiliation = CWMMTrainer().fit_predict(
             Y, initialization=initialization, iterations=iterations)
@@ -79,7 +131,10 @@ def _separate(observations, initialization, *, iterations, stft_size,
             Y, initialization=initialization, iterations=iterations,
             eigh_sweeps=eigh_sweeps)  # (B, F, K, T)
     pa = DHTVPermutationAlignment.from_stft_size(stft_size)
-    masks = pa(affiliation.transpose(1, 2))  # (B, K, F, T)
+    # DHTV walks overlapping segments of every bin
+    masks = frequency_rows(
+        pa(frequency_gather(affiliation.transpose(1, 2), 2)),
+        2)  # (B, K, F, T)
 
     if refine is not None:
         # every bin is independent: the batch folds into the bin axis
@@ -90,13 +145,11 @@ def _separate(observations, initialization, *, iterations, stft_size,
             iterations=refine_iterations)
         images = fca.separate(Y.reshape(B * F, T, D))  # (B F, K, T, D)
         estimate = images[..., reference_channel].reshape(B, F, -1, T)
-        return istft(estimate.permute(0, 2, 3, 1), stft_size, stft_shift,
-                     num_samples=num_samples)
+        return estimate.permute(0, 2, 3, 1)
 
     if beamformer is None:
-        masked = masks.transpose(-1, -2) \
+        return masks.transpose(-1, -2) \
             * Observation[:, reference_channel, None]  # (B, K, T, F)
-        return istft(masked, stft_size, stft_shift, num_samples=num_samples)
 
     Y_fdt = Observation.permute(0, 3, 1, 2)  # (B, F, D, T)
     psds = get_power_spectral_density_matrix(
@@ -108,11 +161,11 @@ def _separate(observations, initialization, *, iterations, stft_size,
     w = get_bf_vector(beamformer, psds.transpose(1, 2),
                       phi_nn.transpose(1, 2))  # (B, K, F, D)
     # eigenvector-based beamformers carry an arbitrary phase per bin;
-    # align phases across bins before the synthesis
-    w = phase_correction(w)
+    # align phases across bins (a walk over every bin) before the
+    # synthesis
+    w = frequency_rows(phase_correction(frequency_gather(w, 2)), 2)
     out = apply_beamforming_vector(w, Y_fdt[:, None])  # (B, K, F, T)
-    return istft(out.transpose(-1, -2), stft_size, stft_shift,
-                 num_samples=num_samples)
+    return out.transpose(-1, -2)
 
 
 def _init_shape(observation, num_classes, stft_size, stft_shift):
@@ -143,8 +196,14 @@ def separate(observation, *, num_classes=3, iterations=80, stft_size=512,
         eigh_sweeps: optional Jacobi sweeps of the EM eigh.
         model: the spatial mixture model: ``'cacgmm'`` (default),
             ``'cwmm'`` (complex Watson) or ``'cbmm'`` (complex Bingham).
-        mesh: the JAX package's sharding option, not ported yet
-            (``NotImplementedError``).
+        mesh: optional ``DeviceMesh``
+            (:func:`pb_bss_tpu_torch.parallel.make_mesh`) with an ``'f'``
+            axis: every rank of ``'f'`` computes the STFT and keeps its
+            frequency bins, and the EM, DHTV's masks and the extraction
+            are partitioned over the bins (sequence parallelism; DHTV and
+            the phase correction run on the gathered bins, replicated).
+            Every rank returns the whole result. The mesh lives on the
+            observation's device type (NCCL on CUDA, gloo on the CPU).
         refine: ``'fca'`` replaces the mask or beamformer extraction
             with a full-rank Wiener stage: the aligned masks warm-start
             an :class:`~pb_bss_tpu_torch.models.fca.FCA` fit, and the
@@ -156,7 +215,7 @@ def separate(observation, *, num_classes=3, iterations=80, stft_size=512,
         order is arbitrary).
     """
     assert observation.ndim == 2, observation.shape
-    _check_options(beamformer, model, mesh, refine)
+    _check_options(beamformer, model, mesh, refine, observation.device)
     if generator is None:
         generator = torch.Generator(observation.device).manual_seed(0)
     dtype = torch.float64 if observation.dtype == torch.float64 \
@@ -170,7 +229,8 @@ def separate(observation, *, num_classes=3, iterations=80, stft_size=512,
         stft_size=stft_size, stft_shift=stft_shift, beamformer=beamformer,
         reference_channel=reference_channel, eigh_sweeps=eigh_sweeps,
         model=model, refine=refine,
-        refine_iterations=refine_iterations)[0]
+        refine_iterations=refine_iterations, mesh=mesh,
+        batch_sharded=False)[0]
 
 
 def utterance_generators(generator, batch, device):
@@ -194,9 +254,26 @@ def separate_batch(observations, *, num_classes=3, iterations=80,
     every stage (the EM kernels, the beamformer's kernels and the FCA
     refinement, whose bins fold the batch, take the whole batch).
     Utterance i is initialized from the i-th of
-    :func:`utterance_generators` (default master: seeded 0)."""
+    :func:`utterance_generators` (default master: seeded 0).
+
+    With ``mesh`` the batch is split over the mesh's ``'b'`` axis (data
+    parallel: utterances are independent, so the ranks exchange nothing
+    until the result); an ``'f'`` axis additionally splits each
+    utterance's pipeline over frequency bins, as in :func:`separate`
+    (full 2D ('b', 'f') partitioning of stft -> EM -> PA -> beamform ->
+    istft). Every rank draws the initialization of the whole batch and
+    keeps its utterances and bins, so each utterance starts from what
+    the unsharded call draws for it; every rank returns the whole
+    (B, num_classes, num_samples) result.
+
+    Args:
+        observations: (B, D, num_samples) real multichannel signals.
+        mesh: optional ``DeviceMesh`` with ``'b'`` and / or ``'f'``
+            axes (:func:`pb_bss_tpu_torch.parallel.make_mesh`).
+        (other args as in :func:`separate`)
+    """
     assert observations.ndim == 3, observations.shape
-    _check_options(beamformer, model, mesh, refine)
+    _check_options(beamformer, model, mesh, refine, observations.device)
     device = observations.device
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
@@ -211,4 +288,5 @@ def separate_batch(observations, *, num_classes=3, iterations=80,
         observations, init, iterations=iterations, stft_size=stft_size,
         stft_shift=stft_shift, beamformer=beamformer,
         reference_channel=reference_channel, eigh_sweeps=eigh_sweeps,
-        model=model, refine=refine, refine_iterations=refine_iterations)
+        model=model, refine=refine, refine_iterations=refine_iterations,
+        mesh=mesh)

@@ -11,13 +11,22 @@ sources (amplitude-modulated, low-pass shaped noise with pauses).
 tail. Returned dict: ``observation`` (D, T), ``speech_source`` (K, T),
 ``speech_image`` (K, D, T), ``noise_image`` (D, T), plus
 ``sample_rate``.
+
+``real_audio_data`` reads the same schema from a local checkout of
+pb_test_data named by ``$PB_BSS_TPU_TEST_DATA`` (nothing is
+downloaded).
 """
 from __future__ import annotations
+
+import json
+import os
+from pathlib import Path
 
 import numpy as np
 import scipy.signal
 
-__all__ = ['low_reverberation_data', 'reverberation_data']
+__all__ = ['low_reverberation_data', 'reverberation_data',
+           'real_test_data_root', 'real_audio_data']
 
 SAMPLE_RATE = 8000
 NUM_SAMPLES = 38520
@@ -95,3 +104,74 @@ def reverberation_data(seed=1):
     """2-speaker 6-channel scenario with a longer diffuse tail (512-tap
     RIR)."""
     return _scenario(seed, rir_taps=512, decay=180.0, snr_db=15)
+
+
+# The reference fetches github.com/fgnt/pb_test_data at test time; this
+# package never touches the network. Point PB_BSS_TPU_TEST_DATA at a
+# local checkout (the repository root holding bss_data/, or bss_data/
+# itself) to read its recordings.
+_TEST_DATA_ENV = 'PB_BSS_TPU_TEST_DATA'
+
+
+def real_test_data_root():
+    """The bss_data directory of a locally cached pb_test_data
+    checkout (from ``$PB_BSS_TPU_TEST_DATA``), or None when absent."""
+    root = os.environ.get(_TEST_DATA_ENV)
+    if not root:
+        return None
+    root = Path(root)
+    for candidate in (root, root / 'bss_data',
+                      root / 'pb_test_data-master' / 'bss_data'):
+        if (candidate / 'bss_data.json').is_file():
+            return candidate
+    return None
+
+
+def _read_wav(path):
+    """(channels-first, float64 in [-1, 1]) like soundfile.read().T;
+    scipy's reader when soundfile is not installed."""
+    try:
+        import soundfile
+    except ImportError:
+        import scipy.io.wavfile
+        _, data = scipy.io.wavfile.read(path)
+        if data.dtype.kind == 'i':
+            data = data / float(np.iinfo(data.dtype).max + 1)
+        elif data.dtype.kind == 'u':  # 8-bit wav is unsigned
+            data = (data - 128.0) / 128.0
+        return np.asarray(data, np.float64).T
+    data, _ = soundfile.read(path)
+    return data.T
+
+
+def _read_audio_tree(obj):
+    if isinstance(obj, dict):
+        return {k: _read_audio_tree(v) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return np.array([_read_audio_tree(e) for e in obj])
+    return _read_wav(obj)
+
+
+def real_audio_data(example_id):
+    """One example ('low_reverberation' / 'reverberation') of the
+    locally cached pb_test_data, in the reference's schema: the json
+    entry plus 'audio_data' with observation (D, T), speech_source
+    (K, T), speech_image (K, D, T), noise_image (D, T), as NumPy arrays.
+
+    Raises FileNotFoundError when ``$PB_BSS_TPU_TEST_DATA`` does not
+    point at a pb_test_data checkout.
+    """
+    root = real_test_data_root()
+    if root is None:
+        raise FileNotFoundError(
+            f'set ${_TEST_DATA_ENV} to a local pb_test_data checkout '
+            f'(https://github.com/fgnt/pb_test_data) to enable '
+            f'real-audio tests')
+    text = (root / 'bss_data.json').read_text()
+    text = text.replace('${DB_DIR}', str(root))
+    data = json.loads(text)
+    example = data['datasets']['test'][example_id]
+    example = dict(example, example_id=example_id)
+    example['audio_data'] = _read_audio_tree(example['audio_path'])
+    example['sample_rate'] = SAMPLE_RATE
+    return example

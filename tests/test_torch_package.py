@@ -34,10 +34,12 @@ from pb_bss_tpu_torch.models import (
     complex_circular_symmetric_gaussian, complex_watson, cwmm, fca,
     gaussian, gcacgmm, gmm, mixture_model_utils, vmfcacgmm, vmfmm,
     von_mises_fisher)
-from pb_bss_tpu_torch import initializer, streaming, utils
-from pb_bss_tpu_torch.initializer import iid
-from pb_bss_tpu_torch.utils import checkpoint
-from pb_bss_tpu_torch.testing import streaming_quality
+from pb_bss_tpu_torch import initializer, parallel, streaming, utils
+from pb_bss_tpu_torch import _shard
+from pb_bss_tpu_torch.initializer import deflation, deterministic, iid
+from pb_bss_tpu_torch.utils import checkpoint, profiling
+from pb_bss_tpu_torch.testing import (
+    module_asserts, random_utils, streaming_quality)
 from pb_bss_tpu_torch.distribution.utils import stack_parameters
 from pb_bss_tpu_torch.ops import (
     _build, cwmm_loop, em_loop, gev, integration_em, integration_em_loop,
@@ -47,6 +49,7 @@ from pb_bss_tpu_torch.transform import (
     filters, gammatone, griffin_lim_module, stft_module)
 from pb_bss_tpu_torch import _device
 assert 'jax' not in sys.modules, 'jax was imported'
+assert 'torch.distributed.tensor' not in sys.modules, 'DTensor at import'
 assert 'pb_bss_tpu' not in sys.modules, 'pb_bss_tpu was imported'
 assert _build.load.cache_info().currsize == 0, 'a kernel was loaded'
 
@@ -169,6 +172,39 @@ def test_every_jax_model_name_has_a_counterpart():
                  'permutation_alignment', 'extraction', 'evaluation',
                  'transform', 'models', 'distribution'):
         assert hasattr(pb_bss_tpu_torch, name), name
+
+
+def test_every_public_name_of_every_jax_module_has_a_counterpart():
+    """A name-by-name diff of ``__all__``: every module of pb_bss_tpu
+    (the Pallas kernels, ``native`` and ``__main__`` aside) has a
+    counterpart in pb_bss_tpu_torch that exports each of its names; the
+    root exposes ``parallel`` as the JAX package's does."""
+    import importlib
+    import pkgutil
+    import pb_bss_tpu
+    import pb_bss_tpu_torch
+    missing = {}
+    for info in pkgutil.walk_packages(pb_bss_tpu.__path__, 'pb_bss_tpu.'):
+        name = info.name
+        if '.pallas_' in name or name.startswith('pb_bss_tpu.native') \
+                or name.endswith('__main__'):
+            continue
+        names = getattr(importlib.import_module(name), '__all__', ())
+        port = importlib.import_module(
+            name.replace('pb_bss_tpu', 'pb_bss_tpu_torch', 1))
+        gone = [n for n in names if not hasattr(port, n)]
+        if gone:
+            missing[name] = gone
+    assert not missing, missing
+    assert pb_bss_tpu_torch.parallel.__all__ == pb_bss_tpu.parallel.__all__
+    from pb_bss_tpu_torch.initializer.deflation import (  # noqa: F401
+        deflationSeed)
+    from pb_bss_tpu_torch.initializer.deterministic import flag  # noqa
+    from pb_bss_tpu_torch.models.base import (  # noqa: F401
+        _frequency_norm, _phase_norm, _unit_norm)
+    from pb_bss_tpu_torch.testing.dummy_data import (  # noqa: F401
+        real_audio_data, real_test_data_root)
+    from pb_bss_tpu_torch.utils.profiling import Timer, trace  # noqa
 
 
 def test_every_jax_evaluation_and_transform_name_has_a_counterpart():

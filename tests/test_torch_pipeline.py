@@ -187,11 +187,11 @@ def test_cpu_run_launches_no_kernel(scenario):
 
 
 def test_unported_options_raise(scenario):
-    """Only mesh= is left unported; an unknown beamformer or refine
-    stage raises ValueError and LCMV fails its assert, before any
-    work, as in the JAX package."""
+    """A mesh that is not a DeviceMesh raises TypeError; an unknown
+    beamformer or refine stage raises ValueError and LCMV fails its
+    assert, before any work, as in the JAX package."""
     observation = torch.as_tensor(scenario[0][:, :2000])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match='DeviceMesh'):
         separate(observation, iterations=1, mesh='f')
     for kwargs in (dict(beamformer='mvdr_soudem'), dict(refine='nmf'),
                    dict(refine='fca', beamformer='gev+ban')):
