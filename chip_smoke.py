@@ -42,9 +42,18 @@ each with the launch counters reset just before and read just after:
   device ms of both, ``fit_cacgmm_sharded`` with frequency-constant
   weights (the per-iteration EM kernels) and ``fit_integration_sharded``
   (the integration statistics kernel, the Jacobi kernel) against the
-  same fits without a mesh; ``deflationSeed`` (the Jacobi kernel) and
-  ``flag`` against the CPU, and ``utils.profiling.trace`` around one
-  ``separate``;
+  same fits without a mesh; the trainers' DTensor entry
+  (``CACGMMTrainer`` / ``CWMMTrainer`` / ``CBMMTrainer().fit`` of the
+  4.8 s utterances as a DTensor: the whole-fit EM, Watson and Bingham
+  kernels; ``VMFCACGMMTrainer().fit`` at config 3: the integration
+  statistics and Jacobi kernels) and ``fit_integration_sharded(
+  use_fused_em='loop')`` (the whole-fit integration kernel on every
+  bin), each bit for bit against its meshless fit; ``deflationSeed``
+  (the Jacobi kernel) and ``flag`` against the CPU,
+  ``utils.profiling.trace`` around one ``separate``, ``stft`` /
+  ``istft`` with each ``method=`` against the default call, and the four
+  examples of the port (``examples/*_torch.py``) through their
+  ``main``;
 * the long-recording path: ``separate_batch`` of 60 s recordings
   (streamed EM statistics kernel and batched Jacobi kernel, GEV
   kernel), ``separate`` at its defaults and the CLI on one of them, and
@@ -97,8 +106,9 @@ checks, the split of the last two alone, the split of the GEV and the
 E-step kernels alone, the extraction and FCA checks, the timing of
 ``separate_batch`` per extraction route, of ``stable_solve`` and of the
 FCA fit, the streaming checks with the stream's block timings, the model
-surface, the parallel module on a world of size 1 with the initializers
-and the profiler's trace, the evaluation stage), with ``pb_bss_tpu_torch`` imported from DIR
+surface, the parallel module on a world of size 1 with the DTensor fits,
+the initializers, the profiler's trace, the STFT's ``method=`` values
+and the four examples, the evaluation stage), with ``pb_bss_tpu_torch`` imported from DIR
 if given (another checkout, to time two versions in one call); it prints
 no kernels line.
 """
@@ -3231,6 +3241,207 @@ def mesh_gap(label, mesh_out, plain_out, rtol=1e-5):
              f'one by {diff} (> {rtol} of {scale})')
 
 
+def model_leaves(model, prefix=''):
+    """{path: tensor} of a model's tensors, its components' included."""
+    import torch
+    out = {}
+    for key in model.__dataclass_fields__:
+        value = getattr(model, key)
+        if hasattr(value, '__dataclass_fields__'):
+            out.update(model_leaves(value, f'{prefix}{key}.'))
+        elif isinstance(value, torch.Tensor):
+            out[prefix + key] = value
+    return out
+
+
+def same_model(label, got, want):
+    """Fail unless every tensor of model ``got`` has the shape of
+    ``want``'s and its bits."""
+    import torch
+    got, want = model_leaves(got), model_leaves(want)
+    if got.keys() != want.keys():
+        fail(f'{label}: fields {sorted(got)} against {sorted(want)}')
+    parted = {k: float((got[k] - want[k]).abs().max())
+              for k in want if got[k].shape != want[k].shape
+              or not torch.equal(got[k], want[k])}
+    shapes = {k: tuple(v.shape) for k, v in got.items()}
+    log(f'{label}: global shapes {shapes}; bit for bit against the '
+        f'meshless fit {not parted}')
+    if parted:
+        fail(f'{label}: parts from the meshless fit (max |diff| {parted})')
+
+
+def mesh_cost(label, sharded, meshless, reps=3):
+    """Log the device ms (profiler, all kernels) and host ms (3 runs
+    each, in turns) of a sharded call against its meshless twin."""
+    host = {'meshless': [], 'mesh': []}
+    calls = (('meshless', meshless), ('mesh', sharded))
+    for _ in range(reps):
+        for name, call in calls:
+            sync()
+            t0 = time.perf_counter()
+            call()
+            sync()
+            host[name].append(1e3 * (time.perf_counter() - t0))
+    device = {}
+    for name, call in calls:
+        prof, _ = profile_device(call)
+        device[name] = device_times(prof, '')['all kernels']
+    card = getattr(phase_device, 'card', '')
+    (plain_us, plain_n), (mesh_us, mesh_n) = device['meshless'], \
+        device['mesh']
+    log(f'timing {label} ({card}): device ms meshless '
+        f'{plain_us / 1e3:.4f} in {plain_n} kernels, mesh '
+        f'{mesh_us / 1e3:.4f} in {mesh_n} '
+        f'(+{(mesh_us - plain_us) / 1e3:.4f}); '
+        f'host ms meshless {[round(v, 2) for v in host["meshless"]]}, '
+        f'mesh {[round(v, 2) for v in host["mesh"]]}')
+
+
+def parallel_dtensor_fits(mesh, run, obs, obs3, emb):
+    """The trainers' DTensor entry and K12 under an 'f' axis on a world
+    of 1: ``fit_integration_sharded(use_fused_em='loop')`` at config 3
+    (K12 once, K10 never) and ``CACGMMTrainer`` / ``CWMMTrainer`` /
+    ``CBMMTrainer().fit`` of the slice cell's 8 utterances as a DTensor
+    (F=257, T=304, D=6, K=3, 20 it: K2 / K6 / K9 once) and
+    ``VMFCACGMMTrainer().fit`` of config 3 as DTensors ('auto': K10 19,
+    K1 20), each from the trainers' own random draw, against the
+    meshless fits bit for bit (the gathers of a world of 1 are copies),
+    with the global shapes; the device and host ms of each pair."""
+    import pb_bss_tpu_torch as P
+    from pb_bss_tpu_torch.models import (
+        CACGMMTrainer, CBMMTrainer, CWMMTrainer, VMFCACGMMTrainer)
+    from pb_bss_tpu_torch.parallel import (
+        fit_integration_sharded, shard_frequencies)
+    loop = dict(num_classes=3, iterations=20, use_fused_em='loop')
+    k12 = {'integration_em_full': 1, 'integration_e_stats': 0}
+    sharded = run("fit_integration_sharded(use_fused_em='loop') vMF F=513 "
+                  'T=300 E=20, 20 it', lambda: fit_integration_sharded(
+                      obs3, emb, mesh, **loop), k12, strict=False)
+    meshless = run("VMFCACGMMTrainer.fit(use_fused_em='loop') (no mesh)",
+                   lambda: VMFCACGMMTrainer().fit(obs3, emb, **loop), k12,
+                   strict=False)
+    same_model("fit_integration_sharded(use_fused_em='loop')", sharded,
+               meshless)
+    mesh_cost("fit_integration_sharded(use_fused_em='loop') config 3",
+              lambda: fit_integration_sharded(obs3, emb, mesh, **loop),
+              lambda: VMFCACGMMTrainer().fit(obs3, emb, **loop))
+
+    Y = P.transform.stft(obs, 512, 128).permute(0, 3, 2, 1).contiguous()
+    Yd = shard_frequencies(Y, mesh, frequency_axis=1)
+    options = dict(num_classes=3, iterations=20)
+    for Trainer, kernel in ((CACGMMTrainer, 'cacgmm_em_full'),
+                            (CWMMTrainer, 'cwmm_em_full'),
+                            (CBMMTrainer, 'cbmm_em_full')):
+        name = Trainer.__name__
+        sharded = run(f'{name}().fit(DTensor) 8 x F=257 T=304, 20 it',
+                      lambda: Trainer().fit(Yd, **options), {kernel: 1},
+                      strict=False)
+        meshless = run(f'{name}().fit (no mesh)',
+                       lambda: Trainer().fit(Y, **options), {kernel: 1},
+                       strict=False)
+        same_model(f'{name}().fit(DTensor)', sharded, meshless)
+        mesh_cost(f'{name}().fit(DTensor) 8 x 4.8 s',
+                  lambda: Trainer().fit(Yd, **options),
+                  lambda: Trainer().fit(Y, **options))
+
+    obs3d = shard_frequencies(obs3, mesh)
+    embd = shard_frequencies(emb, mesh)
+    k10 = {'integration_e_stats': 19, 'eigh_jacobi': 20,
+           'integration_em_full': 0}
+    sharded = run('VMFCACGMMTrainer().fit(DTensor) F=513 T=300 E=20, 20 it',
+                  lambda: VMFCACGMMTrainer().fit(obs3d, embd, **options),
+                  k10, strict=False)
+    meshless = run('VMFCACGMMTrainer().fit (no mesh)',
+                   lambda: VMFCACGMMTrainer().fit(obs3, emb, **options),
+                   k10, strict=False)
+    same_model('VMFCACGMMTrainer().fit(DTensor)', sharded, meshless)
+    mesh_cost('VMFCACGMMTrainer().fit(DTensor) config 3',
+              lambda: VMFCACGMMTrainer().fit(obs3d, embd, **options),
+              lambda: VMFCACGMMTrainer().fit(obs3, emb, **options))
+
+
+def check_stft_methods(obs):
+    """stft / istft with each ``method=`` the JAX package takes ('auto',
+    'fft', 'matmul') on the card at the slice cell (8 x 6 channels of
+    4.8 s): every value runs the one cuFFT path, so each equals the
+    default call bit for bit."""
+    import torch
+    from pb_bss_tpu_torch.transform import istft, stft
+    X = stft(obs, 512, 128)
+    n = obs.shape[-1]
+    x = istft(X, 512, 128, num_samples=n)
+    for method in ('auto', 'fft', 'matmul'):
+        same = (torch.equal(stft(obs, 512, 128, method=method), X)
+                and torch.equal(istft(X, 512, 128, num_samples=n,
+                                      method=method), x))
+        log(f"stft / istft(method={method!r}) on the card: "
+            f"{'bit for bit' if same else 'DIFFERS from'} the default call")
+        if not same:
+            fail(f'stft / istft(method={method!r}) parts from the default')
+
+
+def run_examples(run):
+    """The four examples of the port (examples/*_torch.py) through their
+    ``main`` on the card at the JAX example tests' sizes (the mixture
+    example at 3 iterations, the others at their defaults), each with
+    the kernels its code launches: the mixture example K2 once and K3
+    once a class (3); the integration example K10 39 and K1 40 a model
+    (40 iterations, two models); the evaluation example's
+    separate_batch K2 and K3 once; the streaming example K2 once (the
+    warm-up) and K1 twice (inner iterations) a streamed block (10
+    blocks of 4,096 samples, 8 of them the warm-up). Logs each
+    example's printed lines and host seconds, and holds the integration
+    accuracy above 0.8 and the streaming reconstruction below 1e-4."""
+    import contextlib
+    import importlib
+    import io
+    sys.path.insert(0, str(ROOT / 'examples'))
+    try:
+        modules = {name: importlib.import_module(f'{name}_example_torch')
+                   for name in ('mixture_model', 'integration_model',
+                                'evaluation', 'streaming')}
+    finally:
+        sys.path.remove(str(ROOT / 'examples'))
+    cases = (
+        ('mixture_model', dict(iterations=3),
+         {'cacgmm_em_full': 1, 'gev': 3}),
+        ('integration_model', {},
+         {'integration_e_stats': 78, 'eigh_jacobi': 80}),
+        ('evaluation', {}, {'cacgmm_em_full': 1, 'gev': 1}),
+        ('streaming', {}, {'cacgmm_em_full': 1, 'eigh_jacobi': 4}))
+    printed = {}
+    card = getattr(phase_device, 'card', '')
+    for name, kwargs, want in cases:
+        out = io.StringIO()
+
+        def call():
+            with contextlib.redirect_stdout(out):
+                modules[name].main(device='cuda', **kwargs)
+
+        t0 = time.perf_counter()
+        run(f'examples/{name}_example_torch.py main({kwargs})', call, want)
+        seconds = time.perf_counter() - t0
+        printed[name] = out.getvalue()
+        log(f'example {name}_example_torch ({card}): {seconds:.2f} s of '
+            'host; printed:')
+        for line in printed[name].strip().splitlines():
+            log(f'    {line}')
+    for line in printed['integration_model'].strip().splitlines():
+        if float(line.split('accuracy')[1].split('(')[0]) <= 0.8:
+            fail(f'integration example below 0.8: {line}')
+    error = float(printed['streaming'].split(
+        'reconstruction error:')[1].split()[0])
+    if not error < 1e-4:
+        fail(f'streaming example reconstruction error {error}')
+    for name, lines in (('mixture_model', ('mask-based extraction',
+                                           'GEV+BAN beamforming')),
+                        ('evaluation', ('SDR gain', 'STOI'))):
+        for line in lines:
+            if line not in printed[name]:
+                fail(f'{name} example did not print {line!r}')
+
+
 def phase_parallel_and_rest():
     """The last modules on the card. ``parallel`` on a world of size 1
     over NCCL (``initialize_distributed`` at a tcp address of this host,
@@ -3240,12 +3451,15 @@ def phase_parallel_and_rest():
     device ms of both; ``fit_cacgmm_sharded`` with frequency-constant
     weights at the bench shape (B=8, F=513, T=300: K5) and
     ``fit_integration_sharded`` at config 3 (F=513, T=300, E=20: K10)
-    against the same fits without a mesh. The collectives run at world
-    size 1, where they are no-ops, so the mesh results equal the
-    meshless ones. Then ``deflationSeed`` (K1 once a deflation step) and
-    ``flag`` on the first utterance against the CPU, and
-    ``utils.profiling.trace`` around one ``separate``. Returns the
-    launches of the kernels on these paths."""
+    against the same fits without a mesh; the trainers' DTensor entry and
+    K12 under the 'f' axis (:func:`parallel_dtensor_fits`). The
+    collectives run at world size 1, where they are no-ops, so the mesh
+    results equal the meshless ones. Then ``deflationSeed`` (K1 once a
+    deflation step) and ``flag`` on the first utterance against the CPU,
+    ``utils.profiling.trace`` around one ``separate``, the STFT's
+    ``method=`` values (:func:`check_stft_methods`) and the four
+    examples (:func:`run_examples`). Returns the launches of the kernels
+    on these paths."""
     import tempfile
     import warnings
     import torch
@@ -3260,7 +3474,8 @@ def phase_parallel_and_rest():
     from pb_bss_tpu_torch.utils import profiling
     path = dict.fromkeys(('cacgmm_em_full', 'gev', 'cacgmm_em_fc_init',
                           'cacgmm_em_fc_step', 'integration_e_stats',
-                          'eigh_jacobi'), 0)
+                          'eigh_jacobi', 'cwmm_em_full', 'cbmm_em_full',
+                          'integration_em_full'), 0)
     idle = dict.fromkeys(counters(), 0)
     card = getattr(phase_device, 'card', '')
 
@@ -3363,8 +3578,12 @@ def phase_parallel_and_rest():
         mesh_gap('fit_integration_sharded eigenvalues',
                  sharded.cacg.covariance_eigenvalues,
                  unsharded.cacg.covariance_eigenvalues)
+        parallel_dtensor_fits(mesh, run, obs, obs3, emb)
     finally:
         dist.destroy_process_group()
+
+    check_stft_methods(obs)
+    run_examples(run)
 
     Y = P.transform.stft(obs[0], 512, 128).permute(2, 1, 0).contiguous()
     seed = run('deflationSeed F=257 T=304 D=6, 3 sources',
@@ -4271,7 +4490,7 @@ def phase_timing(errors, launches, long_launches, fc_launches,
     streamed = {k: sum(m[k] for m in stream_launches_.values())
                 for k in ('cacgmm_em_full', 'eigh_jacobi', 'gev')}
     # and so do the parallel phase's (the mesh separate_batch, the
-    # sharded fits, deflationSeed)
+    # sharded fits, the DTensor fits, deflationSeed, the examples)
     for k in streamed:
         streamed[k] += parallel_launches[k]
     rows = [
@@ -4304,7 +4523,8 @@ def phase_timing(errors, launches, long_launches, fc_launches,
          fc_launches['cacgmm_em_scatter'], errors['scatter'],
          *estep_times['scatter'], None),
         ('cwmm_em_full', 'cwmm_loop.cu', 'pallas_cwmm_loop.py:296',
-         cwmm_launches['cwmm_em_full'], errors['cwmm_slice'],
+         cwmm_launches['cwmm_em_full'] + parallel_launches['cwmm_em_full'],
+         errors['cwmm_slice'],
          *cwmm_times['cwmm_em_full'], None),
         ('cwmm_em_long', 'mm_stream.cu', 'pallas_mm_stream.py:252',
          cwmm_launches['cwmm_em_long'], errors['watson_stream'],
@@ -4313,7 +4533,8 @@ def phase_timing(errors, launches, long_launches, fc_launches,
          cbmm_launches['bingham_chord_solve'], errors['bingham'],
          *cbmm_times['bingham_chord_solve'], None),
         ('cbmm_em_full', 'cbmm_loop.cu', 'pallas_cbmm_loop.py:338',
-         cbmm_launches['cbmm_em_full'], errors['cbmm_slice'],
+         cbmm_launches['cbmm_em_full'] + parallel_launches['cbmm_em_full'],
+         errors['cbmm_slice'],
          *cbmm_times['cbmm_em_full'], None),
         ('cbmm_em_long', 'mm_stream.cu', 'pallas_mm_stream.py:252',
          cbmm_launches['cbmm_em_long'], errors['bingham_stream'],
@@ -4326,7 +4547,8 @@ def phase_timing(errors, launches, long_launches, fc_launches,
          *integration_times['integration_e_stats'], None),
         ('integration_em_full', 'integration_em_loop.cu',
          'pallas_integration_em_loop.py:530',
-         integration_launches['integration_em_full'],
+         integration_launches['integration_em_full']
+         + parallel_launches['integration_em_full'],
          errors['integration_loop'],
          *integration_times['integration_em_full'], None),
     ]

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from .._dtypes import real_dtype as _real_dtype, tiny as _tiny
+from .._shard import dtensor_entry
 from ..ops import em_estep, em_loop, em_step, em_stream
 from .base import Model, force_hermitian, modelclass
 from .complex_angular_central_gaussian import (
@@ -63,6 +64,7 @@ from .mixture_model_utils import (
     apply_inline_permutation_alignment,
     estimate_mixture_weight,
     log_pdf_to_affiliation,
+    mixture_weight_axis,
 )
 from ._precision import full_fp32
 
@@ -557,6 +559,8 @@ def _fit_fused_stream(y, model, affiliation, quadratic_form, *,
 
 
 class CACGMMTrainer:
+    @dtensor_entry(mixture_weight_axis,
+                   {'saliency': -2, 'source_activity_mask': -3})
     def fit(self, y, initialization=None, num_classes=None, iterations=100,
             *, generator=None, saliency=None, source_activity_mask=None,
             weight_constant_axis=(-1,), hermitize=True,
@@ -567,7 +571,10 @@ class CACGMMTrainer:
         """Fit a cACGMM with EM.
 
         Args:
-            y: (..., N, D) complex observations.
+            y: (..., N, D) complex observations; a DTensor sharded over
+                a mesh's ``'f'`` axis on its frequency axis (-3) fits
+                each rank's bins and returns the global model on every
+                rank (``_shard.dtensor_entry``).
             initialization: affiliations (..., K, N), a CACGMM, or None
                 (then ``num_classes`` + ``generator`` drive a random
                 init).

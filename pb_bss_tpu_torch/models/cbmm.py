@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .._dtypes import real_dtype as _real_dtype
+from .._shard import dtensor_entry
 from ..ops import cbmm_loop, mm_stream
 from ._em import run_em
 from .base import Model, modelclass
@@ -45,6 +46,7 @@ from .complex_bingham import (
 from .mixture_model_utils import (
     estimate_mixture_weight,
     log_pdf_to_affiliation,
+    mixture_weight_axis,
 )
 
 __all__ = ['CBMM', 'CBMMTrainer']
@@ -88,6 +90,7 @@ class CBMMTrainer:
         self.max_concentration = max_concentration
         self.eigenvalue_eps = eigenvalue_eps
 
+    @dtensor_entry(mixture_weight_axis, {'saliency': -2})
     def fit(self, y, initialization=None, num_classes=None, iterations=100,
             *, generator=None, saliency=None, weight_constant_axis=(-1,),
             affiliation_eps=0, inline_permutation_aligner=None,
@@ -95,7 +98,10 @@ class CBMMTrainer:
         """EM for CBMMs with any number of independent dimensions.
 
         Args:
-            y: (..., N, D) complex observations.
+            y: (..., N, D) complex observations; a DTensor sharded over
+                a mesh's ``'f'`` axis on its frequency axis (-3) fits
+                each rank's bins and returns the global model on every
+                rank (``_shard.dtensor_entry``).
             initialization: affiliations (..., K, N), or None (then
                 ``num_classes`` and ``generator`` draw a random one).
             num_classes: K (exclusive with initialization).

@@ -61,6 +61,9 @@ class ComplexAngularCentralGaussian(Model):
 
     covariance_eigenvectors: torch.Tensor = None  # (..., D, D)
     covariance_eigenvalues: torch.Tensor = None  # (..., D)
+    # the frequency axis of each field as a mixture's component,
+    # (..., F, K, ...): what a sharded fit gathers (_shard.py)
+    bin_axes = {'covariance_eigenvectors': -4, 'covariance_eigenvalues': -3}
 
     @classmethod
     def from_covariance(cls, covariance, eigenvalue_floor=0.,

@@ -134,6 +134,9 @@ def _log_norm_dd(eigenvalues):
 class ComplexBingham(Model):
     covariance_eigenvectors: torch.Tensor = None  # (..., D, D)
     covariance_eigenvalues: torch.Tensor = None  # (..., D)
+    # the frequency axis of each field as a mixture's component,
+    # (..., F, K, ...): what a sharded fit gathers (_shard.py)
+    bin_axes = {'covariance_eigenvectors': -4, 'covariance_eigenvalues': -3}
 
     @property
     def covariance(self):

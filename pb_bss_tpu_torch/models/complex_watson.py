@@ -78,6 +78,9 @@ def _series_terms(dimension):
 class ComplexWatson(Model):
     mode: torch.Tensor = None  # (..., D)
     concentration: torch.Tensor = None  # (...,)
+    # the frequency axis of each field as a mixture's component,
+    # (..., F, K, ...): what a sharded fit gathers (_shard.py)
+    bin_axes = {'mode': -3, 'concentration': -2}
 
     def pdf(self, y):
         return torch.exp(self.log_pdf(y))

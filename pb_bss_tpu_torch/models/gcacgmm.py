@@ -26,6 +26,7 @@ package chooses them (see ``models/vmfcacgmm.py`` for the gates):
 """
 from __future__ import annotations
 
+import functools
 import math
 from operator import xor
 from typing import Any
@@ -34,7 +35,12 @@ import numpy as np
 import torch
 
 from .._dtypes import real_dtype as _real_dtype, tiny as _tiny
-from .._shard import frequency_sum, spans_frequency
+from .._shard import (
+    dtensor_entry,
+    frequency_sum,
+    on_every_bin,
+    spans_frequency,
+)
 from ..ops import integration_em, integration_em_loop
 from .base import Model, modelclass
 from .complex_angular_central_gaussian import (
@@ -169,6 +175,33 @@ def _integration_weight(masked_affiliation, weight_constant_axis):
     return weight
 
 
+def integration_weight_axis(weight_constant_axis, ndim):
+    """The frequency axis of an integration model's weight
+    (:func:`_integration_weight`, the constant axes squeezed) fitted on
+    ``ndim``-dim (..., F, K, T) affiliations, or None when it is
+    constant over the bins or the classes (global)."""
+    axes = {a % ndim for a in weight_constant_axis}
+    if axes & {ndim - 3, ndim - 2}:
+        return None
+    return -2 if ndim - 1 in axes else -3
+
+
+def fit_integration_em(fit_em, mode, observation, embedding,
+                       initialization, saliency, weight_constant_axis):
+    """Run an integration trainer's EM (``fit_em``). The whole-fit kernel
+    K12 (``mode == 'loop'``) sums the spectral statistics of every bin
+    in its one launch: under a frequency shard it fits every bin on
+    every rank and keeps the rank's rows (``_shard.on_every_bin``), as
+    GSPMD runs a custom call it cannot partition; the other routes fit
+    the rank's bins and all-reduce the spectral M-step over ``'f'``."""
+    if mode != 'loop':
+        return fit_em(observation, embedding, initialization, saliency)
+    return on_every_bin(
+        lambda o, e, a: fit_em(o, e, a, torch.ones_like(a[..., 0, :])),
+        (observation, embedding, initialization),
+        integration_weight_axis(weight_constant_axis, observation.ndim))
+
+
 def _initialization(observation, num_classes, generator):
     """A random (..., F, K, T) affiliation normalized over classes."""
     *batch, F, T, _ = observation.shape
@@ -247,6 +280,7 @@ def _check_kernel_knobs(use_fused_em, weight_constant_axis,
 
 
 class GCACGMMTrainer:
+    @dtensor_entry(integration_weight_axis, {'embedding': -3, 'saliency': -2})
     def fit(self, observation, embedding, initialization=None,
             num_classes=None, iterations=100, saliency=None, *,
             generator=None, hermitize=True, covariance_norm='eigenvalue',
@@ -256,7 +290,11 @@ class GCACGMMTrainer:
             inline_permutation_alignment=False,
             use_fused_em='auto') -> GCACGMM:
         """EM on (..., F, T, D) observations + (..., F, T, E) embeddings.
-        Leading batch axes fit independent models per utterance.
+        Leading batch axes fit independent models per utterance. An
+        observation that is a DTensor sharded over a mesh's ``'f'`` axis
+        on its frequency axis (-3) fits each rank's bins (the embedding
+        a DTensor too, or a tensor with the global value) and returns the
+        global model on every rank (``_shard.dtensor_entry``).
 
         ``weight_constant_axis`` semantics (the affiliation is (F, K, T)):
         (-3, -2, -1) scalar, (-3, -1) per class, (-1,) per (F, K), (-3,)
@@ -329,9 +367,9 @@ class GCACGMMTrainer:
         else:
             saliency = torch.as_tensor(saliency, device=observation.device)
 
-        return _gcacgmm_fit_em(
-            observation, embedding, initialization, saliency,
-            fixed_covariance, iterations=int(iterations),
+        fit_em = functools.partial(
+            _gcacgmm_fit_em, fixed_covariance=fixed_covariance,
+            iterations=int(iterations),
             hermitize=bool(hermitize), covariance_norm=covariance_norm,
             eigenvalue_floor=float(eigenvalue_floor),
             covariance_type=covariance_type,
@@ -341,6 +379,9 @@ class GCACGMMTrainer:
             spectral_weight=float(spectral_weight),
             inline_permutation_alignment=bool(inline_permutation_alignment),
             use_fused_em=mode, has_saliency=has_saliency)
+        return fit_integration_em(fit_em, mode, observation, embedding,
+                                  initialization, saliency,
+                                  weight_constant_axis)
 
     def fit_predict(self, observation, embedding, initialization=None,
                     num_classes=None, iterations=100, saliency=None,
@@ -376,8 +417,8 @@ def _gaussian_finish(r, n, m2, spherical):
     return mean, centered.mean(-1) if spherical else centered
 
 
-def _gcacgmm_fit_em(observation, embedding, affiliation, saliency,
-                    fixed_covariance, *, iterations, hermitize,
+def _gcacgmm_fit_em(observation, embedding, affiliation, saliency, *,
+                    fixed_covariance, iterations, hermitize,
                     covariance_norm, eigenvalue_floor, covariance_type,
                     affiliation_eps, weight_constant_axis, spatial_weight,
                     spectral_weight, inline_permutation_alignment,

@@ -88,6 +88,19 @@ def _axes(axis):
     return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
 
 
+def mixture_weight_axis(weight_constant_axis, ndim):
+    """The frequency axis of a mixture weight fitted with
+    ``weight_constant_axis`` on ``ndim``-dim (..., F, K, T) affiliations
+    (keepdims: -3), or None when it is global: constant over the bins,
+    or the integer class axis's (K, 1) of :func:`estimate_mixture_weight`
+    (a tuple with the class axis keeps the bins: (..., F, 1, T|1))."""
+    if isinstance(weight_constant_axis, int) \
+            and weight_constant_axis % ndim == ndim - 2:
+        return None
+    axes = {a % ndim for a in _axes(weight_constant_axis)}
+    return None if ndim - 3 in axes else -3
+
+
 def estimate_mixture_weight(affiliation, saliency=None,
                             weight_constant_axis=-1,
                             dirichlet_prior_concentration=1):

@@ -19,13 +19,14 @@ integration trainers, decision for decision
 """
 from __future__ import annotations
 
+import functools
 import math
 from operator import xor
 
 import torch
 
 from .._dtypes import real_dtype as _real_dtype, tiny as _tiny
-from .._shard import frequency_sum
+from .._shard import dtensor_entry, frequency_sum
 from ..ops import integration_em, integration_em_loop
 from .base import Model, modelclass
 from .complex_angular_central_gaussian import (
@@ -39,7 +40,9 @@ from .gcacgmm import (
     _initialization,
     _integration_weight,
     _pin_f32,
+    fit_integration_em,
     integration_predict,
+    integration_weight_axis,
     normalize_rows,
 )
 from .von_mises_fisher import VonMisesFisher, VonMisesFisherTrainer
@@ -141,6 +144,7 @@ def _resolve_fused_mode(use_fused_em, step_eligible, loop_eligible):
 
 
 class VMFCACGMMTrainer:
+    @dtensor_entry(integration_weight_axis, {'embedding': -3, 'saliency': -2})
     def fit(self, observation, embedding, initialization=None,
             num_classes=None, iterations=100, saliency=None, *,
             generator=None, min_concentration=1e-10, max_concentration=500,
@@ -151,7 +155,12 @@ class VMFCACGMMTrainer:
             use_fused_em='auto') -> VMFCACGMM:
         """EM on (..., F, T, D) observations + (..., F, T, E) embeddings.
         Leading batch axes (e.g. (B, F, T, D)) fit independent models per
-        utterance.
+        utterance. An observation that is a DTensor sharded over a mesh's
+        ``'f'`` axis on its frequency axis (-3) fits each rank's bins (the
+        embedding a DTensor too, or a tensor with the global value) and
+        returns the global model on every rank
+        (``_shard.dtensor_entry``); ``'loop'`` then fits every bin on
+        every rank (``gcacgmm.fit_integration_em``).
 
         Args:
             generator: ``torch.Generator`` of the random initialization
@@ -205,9 +214,8 @@ class VMFCACGMMTrainer:
         else:
             saliency = torch.as_tensor(saliency, device=observation.device)
 
-        return _vmfcacgmm_fit_em(
-            observation, embedding, initialization, saliency,
-            iterations=int(iterations),
+        fit_em = functools.partial(
+            _vmfcacgmm_fit_em, iterations=int(iterations),
             min_concentration=float(min_concentration),
             max_concentration=float(max_concentration),
             hermitize=bool(hermitize), covariance_norm=covariance_norm,
@@ -218,6 +226,9 @@ class VMFCACGMMTrainer:
             spectral_weight=float(spectral_weight),
             inline_permutation_alignment=bool(inline_permutation_alignment),
             use_fused_em=mode, has_saliency=has_saliency)
+        return fit_integration_em(fit_em, mode, observation, embedding,
+                                  initialization, saliency,
+                                  weight_constant_axis)
 
     def fit_predict(self, observation, embedding, initialization=None,
                     num_classes=None, iterations=100, saliency=None,

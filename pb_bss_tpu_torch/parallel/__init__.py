@@ -11,23 +11,24 @@ A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with those
 axis names, and a sharded array a ``DTensor`` with ``Shard`` placements
 (the counterpart of ``NamedSharding(mesh, P(...))``). One process drives
 one device. GSPMD inserts the JAX package's collectives; here they are
-explicit, and the trainers and the hand kernels never see a DTensor: the
-sharded entry points take each rank's bins (``to_local()``), run the
-trainers unchanged on them, and all-reduce over ``'f'`` only where the
-JAX program reduces over all frequencies (frequency-constant mixture
-weights, the integration models' spectral M-step; ``_shard.py``). Per-bin
-fits need no traffic. On one card a world of size 1 runs the same
-collectives, as no-ops.
+explicit. The five trainers take a DTensor sharded over ``'f'`` as it
+is (``_shard.dtensor_entry``; :func:`fit_cacgmm_sharded` and
+:func:`fit_integration_sharded` call them so): each rank fits its bins
+(``to_local()``; the hand kernels never see a DTensor), all-reduces over
+``'f'`` only where the JAX program reduces over all frequencies
+(frequency-constant mixture weights, the integration models' spectral
+M-step; ``_shard.py``), and all-gathers the per-bin parameters once at
+the end, so that every rank returns the global model. The whole-fit
+integration kernel, which cannot be partitioned, runs on every bin of
+every rank. ``separate(_batch)(mesh=)`` runs the trainers on each rank's
+bins inside the shard and gathers only what its pipeline needs. On one
+card a world of size 1 runs the same collectives, as no-ops.
 """
 from __future__ import annotations
 
-import contextlib
-
-import numpy as np
 import torch
 
-from .._dtypes import real_dtype as _real_dtype
-from .._shard import axis_shard, frequency_sharded
+from .._shard import is_dtensor
 
 __all__ = [
     'initialize_distributed',
@@ -183,60 +184,20 @@ def shard_batch_from_process_local(local_batch, mesh, *,
         mesh, _placements(mesh, b=batch_axis, f=frequency_axis))
 
 
-def _local_bins(x, mesh, frequency_axis):
-    """This rank's bins of ``x`` (a DTensor, or a tensor / array with
-    the global value, sharded here) and the global shape. A tensor must
-    live on the mesh's device type (an array is put there)."""
-    from torch.distributed.tensor import DTensor
-    if isinstance(x, DTensor):
-        frequency_axis %= x.ndim
-        x = x.redistribute(mesh, _placements(mesh, f=frequency_axis))
-        return x.to_local(), tuple(x.shape)
+def _frequency_sharded(x, mesh, frequency_axis):
+    """``x`` as a DTensor with its ``frequency_axis`` split over the
+    mesh's ``'f'`` axis (replicated over the others): a DTensor is
+    redistributed; a tensor or array holds the global value (a tensor
+    must live on the mesh's device type; an array is put there)."""
+    _check_axes(mesh, 'f')
+    if is_dtensor(x):
+        return x.redistribute(
+            mesh, _placements(mesh, f=frequency_axis % x.ndim))
     if isinstance(x, torch.Tensor) and x.device.type != mesh.device_type:
         raise ValueError(f'a {mesh.device_type} mesh cannot shard a tensor '
                          f'on {x.device}')
-    x = torch.as_tensor(x, device=mesh.device_type)
-    dtensor = shard_frequencies(x, mesh, frequency_axis=frequency_axis)
-    return dtensor.to_local(), tuple(x.shape)
-
-
-@contextlib.contextmanager
-def _sharded_fit(mesh, shape, frequency_axis):
-    """The frequency shard of a fit of (..., F, T, D) input of the global
-    ``shape`` (``frequency_axis`` among its leading axes); the trainers'
-    frequency reductions all-reduce over ``'f'`` inside the block."""
-    _check_axes(mesh, 'f')
-    axis = frequency_axis % len(shape) - len(shape)
-    with frequency_sharded(axis_shard(mesh, 'f', shape[axis],
-                                      axis=axis)) as shard:
-        yield shard
-
-
-def _local_initialization(initialization, shard, shape, num_classes,
-                          generator, dtype, device):
-    """This rank's bins of the initialization: the full random draw of
-    the unsharded trainer (so that the draws equal the unsharded call's)
-    when None, a DTensor's local part, or the rows of a global tensor or
-    array; a model (this rank's own, as the sharded fits return it) as
-    it is."""
-    from torch.distributed.tensor import DTensor
-    if initialization is None:
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
-        *independent, T, _ = shape
-        affiliation = torch.rand((*independent, num_classes, T),
-                                 generator=generator, dtype=dtype,
-                                 device=device)
-        affiliation = affiliation / affiliation.sum(-2, keepdim=True)
-        return shard.rows(affiliation, shard.axis)
-    if isinstance(initialization, DTensor):
-        return initialization.to_local()
-    if isinstance(initialization, (torch.Tensor, np.ndarray)):
-        initialization = torch.as_tensor(initialization, device=device)
-        if initialization.ndim >= -shard.axis \
-                and initialization.shape[shard.axis] == shard.total:
-            return shard.rows(initialization, shard.axis)
-    return initialization
+    return shard_frequencies(torch.as_tensor(x, device=mesh.device_type),
+                             mesh, frequency_axis=frequency_axis)
 
 
 def fit_cacgmm_sharded(
@@ -250,36 +211,30 @@ def fit_cacgmm_sharded(
         **fit_kwargs,
 ):
     """Run the cACGMM EM with the frequency axis sharded over ``mesh``'s
-    ``'f'`` axis.
+    ``'f'`` axis: :class:`~pb_bss_tpu_torch.models.CACGMMTrainer` on
+    ``y`` as a DTensor (its DTensor entry).
 
-    Each rank runs :class:`~pb_bss_tpu_torch.models.CACGMMTrainer`
-    unchanged on its bins (every route: the whole-fit kernel, the
-    frequency-constant one with its weight all-reduced between launches,
-    the streamed one, the scan). A random initialization is the
-    unsharded trainer's draw, of which each rank keeps its bins.
+    Each rank fits its bins on the usual route (the whole-fit kernel,
+    the frequency-constant one with its weight all-reduced between
+    launches, the streamed one, the scan). A random initialization is
+    the unsharded trainer's draw, of which each rank keeps its bins.
 
     Args:
         y: (..., F, T, D) complex observations, a tensor with the global
-            value or a DTensor; ``frequency_axis`` indexes F among the
-            leading (independent) dims.
+            value or a DTensor; ``frequency_axis`` indexes F, the third
+            axis from the end.
         initialization: None (``num_classes`` and ``generator`` draw
-            it), global or sharded affiliations, or this rank's model.
+            it), global or sharded affiliations, or a model: the global
+            one (the rank keeps its bins) or the rank's own.
     Returns:
-        on each rank, the model of that rank's own bins (the local shard
-        of the JAX package's sharded parameters).
+        on every rank, the model with the global value (the counterpart
+        of ``np.asarray`` of the JAX package's sharded parameters): its
+        per-bin fields are gathered over ``'f'`` once, at the end.
     """
-    from ..models.cacgmm import CACGMM, CACGMMTrainer
-    y_local, shape = _local_bins(y, mesh, frequency_axis)
-    with _sharded_fit(mesh, shape, frequency_axis) as shard:
-        if not isinstance(initialization, CACGMM):
-            initialization = _local_initialization(
-                initialization, shard, shape, num_classes,
-                fit_kwargs.pop('generator', None), _real_dtype(y_local),
-                y_local.device)
-            num_classes = None
-        return CACGMMTrainer().fit(
-            y_local, initialization=initialization,
-            num_classes=num_classes, iterations=iterations, **fit_kwargs)
+    from ..models.cacgmm import CACGMMTrainer
+    return CACGMMTrainer().fit(
+        _frequency_sharded(y, mesh, frequency_axis), num_classes=num_classes,
+        initialization=initialization, iterations=iterations, **fit_kwargs)
 
 
 def fit_integration_sharded(
@@ -295,23 +250,29 @@ def fit_integration_sharded(
         **fit_kwargs,
 ):
     """Run an integration-model EM (vMF x cACG or Gaussian x cACG)
-    with the frequency axis sharded over ``mesh``'s ``'f'`` axis.
+    with the frequency axis sharded over ``mesh``'s ``'f'`` axis: the
+    trainer on the observation and embedding as DTensors (their DTensor
+    entry).
 
     The spectral M-step reduces over ALL frequencies (global vMF
-    resultants / Gaussian moments): each iteration all-reduces them over
-    ``'f'`` (on the K10 route after each statistics launch); the
-    per-frequency cACG M-step stays on the rank. The whole-fit kernel
-    (``use_fused_em='loop'``, K12) sums every bin inside its one launch
-    and cannot all-reduce, so it raises under an ``'f'`` axis larger
-    than 1.
+    resultants / Gaussian moments): on ``'auto'`` / ``'step'`` (K10) and
+    the scan each rank fits its bins and all-reduces them over ``'f'``
+    every iteration, while the per-frequency cACG M-step stays on the
+    rank; that divides the work. The whole-fit kernel
+    (``use_fused_em='loop'``, K12) sums every bin inside its one launch:
+    as the JAX package's GSPMD does with a call it cannot partition,
+    every rank all-gathers the observation and embedding bins and does
+    the whole fit on every bin (the unsharded ``'loop'`` fit), then keeps
+    its rows.
 
     Args:
-        observation: (F, T, D) complex; embedding: (F, T, E) real
-            (tensors with the global value, or DTensors).
+        observation: (..., F, T, D) complex; embedding: (..., F, T, E)
+            real (tensors with the global value, or DTensors).
         model: 'vmfcacgmm' | 'gcacgmm'.
     Returns:
-        on each rank, the model of that rank's own bins (its spectral
-        parameters are global, equal on every rank).
+        on every rank, the model with the global value (the per-bin
+        weight and cACG gathered over ``'f'`` once, at the end; the
+        spectral parameters are global already).
     """
     if model == 'vmfcacgmm':
         from ..models.vmfcacgmm import VMFCACGMMTrainer as Trainer
@@ -319,21 +280,8 @@ def fit_integration_sharded(
         from ..models.gcacgmm import GCACGMMTrainer as Trainer
     else:
         raise ValueError(model)
-    _check_axes(mesh, 'f')
-    if fit_kwargs.get('use_fused_em') == 'loop' \
-            and mesh.size(mesh.mesh_dim_names.index('f')) > 1:
-        raise ValueError(
-            "use_fused_em='loop' fits every bin in one launch, which "
-            "cannot all-reduce over 'f'; under frequency sharding use "
-            "'step' (or 'auto')")
-    obs_local, shape = _local_bins(observation, mesh, frequency_axis)
-    emb_local, _ = _local_bins(embedding, mesh, frequency_axis)
-    with _sharded_fit(mesh, shape, frequency_axis) as shard:
-        initialization = _local_initialization(
-            initialization, shard, shape, num_classes,
-            fit_kwargs.pop('generator', None), _real_dtype(obs_local),
-            obs_local.device)
-        return Trainer().fit(
-            obs_local, emb_local, initialization=initialization,
-            num_classes=None, iterations=iterations, **fit_kwargs)
-
+    return Trainer().fit(
+        _frequency_sharded(observation, mesh, frequency_axis),
+        _frequency_sharded(embedding, mesh, frequency_axis),
+        num_classes=num_classes, initialization=initialization,
+        iterations=iterations, **fit_kwargs)

@@ -12,7 +12,8 @@ Same conventions as ``pb_bss_tpu.transform.stft_module``:
 
 Built from framing (``unfold``) plus ``torch.fft.rfft``/``irfft`` and a
 chunked overlap-add; ``torch.stft`` is not used because its centering
-and padding conventions differ.
+and padding conventions differ. ``method=`` is accepted as in the JAX
+package, and every value runs the one FFT path (:func:`_check_method`).
 """
 from __future__ import annotations
 
@@ -57,6 +58,17 @@ def _biorthogonal_window(analysis_window, shift):
     return analysis_window / denominator
 
 
+def _check_method(method):
+    """Validate ``method=`` ('auto', 'fft' or 'matmul', the JAX package's
+    values). Every value runs ``torch.fft``: the JAX package takes the
+    DFT as matrix products on the TPU, whose FFT is latency-bound there;
+    on the H100 cuFFT is faster than those products, so they have no
+    advantage and the port keeps one path."""
+    if method not in ('auto', 'fft', 'matmul'):
+        raise ValueError(f"method must be 'auto', 'fft' or 'matmul', got "
+                         f'{method!r}')
+
+
 def _real_float(dtype):
     return torch.float64 if dtype == torch.float64 else torch.float32
 
@@ -73,7 +85,8 @@ def stft_frames(num_samples, size=512, shift=128, *, fading=True,
 
 
 def stft(time_signal, size: int = 512, shift: int = 128, *,
-         window='blackman', fading: bool = True, pad: bool = True):
+         window='blackman', fading: bool = True, pad: bool = True,
+         method: str = 'auto'):
     """Short-time Fourier transform.
 
     Args:
@@ -83,9 +96,12 @@ def stft(time_signal, size: int = 512, shift: int = 128, *,
         window: window name or callable size -> array.
         fading: pad ``size - shift`` zeros on both ends.
         pad: zero-pad the end so the last partial frame is kept.
+        method: ``'auto'``, ``'fft'`` or ``'matmul'``, as in the JAX
+            package; each runs ``torch.fft.rfft`` (:func:`_check_method`).
     Returns:
         (..., T, F) complex with F = size // 2 + 1.
     """
+    _check_method(method)
     time_signal = torch.as_tensor(time_signal)
     rdtype = _real_float(time_signal.dtype)
     time_signal = time_signal.to(rdtype)
@@ -128,7 +144,8 @@ def _overlap_add(framed, size, shift):
 
 
 def istft(stft_signal, size: int = 512, shift: int = 128, *,
-          window='blackman', fading: bool = True, num_samples: int = None):
+          window='blackman', fading: bool = True, num_samples: int = None,
+          method: str = 'auto'):
     """Inverse STFT with bias-compensated overlap-add.
 
     Args:
@@ -137,9 +154,12 @@ def istft(stft_signal, size: int = 512, shift: int = 128, *,
             window; synthesis uses its biorthogonal window).
         num_samples: when given, the output is cut/padded to exactly
             that length (after fading removal).
+        method: ``'auto'``, ``'fft'`` or ``'matmul'``, as in the JAX
+            package; each runs ``torch.fft.irfft`` (:func:`_check_method`).
     Returns:
         (..., num_samples) real.
     """
+    _check_method(method)
     stft_signal = torch.as_tensor(stft_signal)
     rdtype = (torch.float64 if stft_signal.dtype == torch.complex128
               else torch.float32)

@@ -79,7 +79,8 @@ def _mesh(shape, names=None):
 
 def cacgmm_fit(y, init, mesh_shape, fit_kwargs):
     """fit_cacgmm_sharded of (F, T, D) ``y`` from ``init`` (None: the
-    random draw); the rank's weight and eigenvalues. ``_step_gate=False``
+    random draw); the weight and eigenvalues of the global model it
+    returns. ``_step_gate=False``
     in ``fit_kwargs`` closes K5's gate in this process;
     ``inline_permutation_aligner='dhtv'`` takes DHTV for a 512-point
     STFT."""
@@ -107,19 +108,65 @@ def cacgmm_fit(y, init, mesh_shape, fit_kwargs):
 
 
 def mixture_fit(trainer, y, init, mesh_shape, fit_kwargs):
-    """A CWMM / CBMM trainer's fit of this rank's bins of (F, T, D)
-    ``y`` inside the frequency shard of the mesh's 'f' axis (the
-    trainers' own seams; the JAX package shards them by GSPMD)."""
+    """A CWMM / CBMM trainer's fit of (F, T, D) ``y`` as a DTensor
+    sharded over the mesh's 'f' axis (the trainers' DTensor entry; the
+    JAX package shards them by GSPMD) from the global ``init``; the
+    leaves of the global model it returns."""
     from pb_bss_tpu_torch import models
-    from pb_bss_tpu_torch._shard import axis_shard, frequency_sharded
+    from pb_bss_tpu_torch.parallel import shard_frequencies
     mesh = _mesh(mesh_shape)
-    shard = axis_shard(mesh, 'f', y.shape[0])
-    with frequency_sharded(shard):
-        model = getattr(models, trainer)().fit(
-            shard.rows(torch.from_numpy(y), 0),
-            initialization=shard.rows(torch.from_numpy(init), 0),
-            **fit_kwargs)
+    model = getattr(models, trainer)().fit(
+        shard_frequencies(torch.from_numpy(y), mesh),
+        initialization=torch.from_numpy(init), **fit_kwargs)
     return {k: _numpy(v) for k, v in _leaves(model.to_dict()).items()}
+
+
+def trainer_fit(trainer, inputs, init, mesh_shape, shard_dim, fit_kwargs):
+    """``trainer``'s fit of ``inputs`` (the observation, and an
+    integration trainer's embedding): the observation a DTensor split on
+    its axis ``shard_dim`` over the mesh's 'f' axis, the embedding a
+    DTensor alike (``fit_kwargs['_embedding'] == 'dtensor'``) or the
+    global tensor; from the global ``init`` (None: ``num_classes`` in
+    ``fit_kwargs``). The leaves of the model it returns, or the
+    ValueError's message."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from pb_bss_tpu_torch import models
+    mesh = _mesh(mesh_shape)
+    kwargs = dict(fit_kwargs)
+    embedding = kwargs.pop('_embedding', None)
+    inputs = [torch.from_numpy(x) for x in inputs]
+    inputs[0] = distribute_tensor(inputs[0], mesh, [Shard(shard_dim)])
+    if embedding == 'dtensor':
+        inputs[1] = distribute_tensor(inputs[1], mesh, [Shard(shard_dim)])
+    if init is not None:
+        kwargs['initialization'] = torch.from_numpy(init)
+    try:
+        model = getattr(models, trainer)().fit(*inputs, **kwargs)
+    except ValueError as error:
+        return dict(error=str(error))
+    return {k: _numpy(v) for k, v in _leaves(model.to_dict()).items()}
+
+
+def cacgmm_resume(y, init, mesh_shape, fit_kwargs):
+    """fit_cacgmm_sharded for 2 iterations, then resumed for 3 from the
+    global model it returns and from this rank's own bins of it; the
+    weights and eigenvalues of the three global models."""
+    from pb_bss_tpu_torch._shard import axis_shard, model_rows
+    from pb_bss_tpu_torch.parallel import fit_cacgmm_sharded
+    mesh = _mesh(mesh_shape)
+    y = torch.from_numpy(y)
+    first = fit_cacgmm_sharded(y, mesh, initialization=torch.from_numpy(init),
+                               iterations=2, **fit_kwargs)
+    own = model_rows(first, axis_shard(mesh, 'f', y.shape[0]), -3)
+    out = {'own_bins': own.cacg.covariance_eigenvalues.shape[0]}
+    for name, model in (('first', first), ('global', first), ('own', own)):
+        if name != 'first':
+            model = fit_cacgmm_sharded(y, mesh, initialization=model,
+                                       iterations=3, **fit_kwargs)
+        out[f'{name}/weight'] = _numpy(model.weight)
+        out[f'{name}/eigenvalues'] = _numpy(
+            model.cacg.covariance_eigenvalues)
+    return out
 
 
 def _leaves(d, prefix=''):
@@ -133,17 +180,14 @@ def _leaves(d, prefix=''):
 
 
 def integration_fit(model_name, obs, emb, init, mesh_shape, fit_kwargs):
-    """fit_integration_sharded; the rank's model leaves (or the
-    exception's type and message)."""
+    """fit_integration_sharded; the leaves of the global model it
+    returns."""
     from pb_bss_tpu_torch.parallel import fit_integration_sharded
     mesh = _mesh(mesh_shape)
-    try:
-        model = fit_integration_sharded(
-            torch.from_numpy(obs), torch.from_numpy(emb), mesh,
-            model=model_name, initialization=torch.from_numpy(init),
-            **fit_kwargs)
-    except ValueError as error:
-        return dict(error=str(error))
+    model = fit_integration_sharded(
+        torch.from_numpy(obs), torch.from_numpy(emb), mesh,
+        model=model_name, initialization=torch.from_numpy(init),
+        **fit_kwargs)
     return {k: _numpy(v) for k, v in _leaves(model.to_dict()).items()}
 
 
@@ -249,6 +293,14 @@ def initialize(rank, world_size, port):
                     device=mesh1.device_type, total=float(total))
     finally:
         dist.destroy_process_group()
+
+
+def global_value(results, key):
+    """One key of every rank's result, which every rank holds alike (the
+    global value, bit for bit)."""
+    for r in results[1:]:
+        np.testing.assert_array_equal(r[key], results[0][key])
+    return results[0][key]
 
 
 def concatenate(results, key, axis=0):

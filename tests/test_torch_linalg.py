@@ -64,6 +64,50 @@ def test_stable_solve_singular_batch_float64_matches_lstsq():
     assert_allclose(out, ref, rtol=1e-7, atol=1e-7 * np.abs(ref).max())
 
 
+def _straddling_systems(seed=48, count=256, D=6):
+    """``count`` copies of one Hermitian system of condition 2e4 (the
+    condition of the noise PSDs of the low bins where the MVDR drift was
+    found), each entry of ``a`` moved by up to 6e-8 relative (an ulp of
+    float32), and one right-hand side (a rank-2 target PSD)."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(_cn(rng, D, D).astype(np.complex128))
+    a = (q * np.logspace(0, -4.3, D)) @ q.conj().T
+    v = _cn(rng, D, 2).astype(np.complex128)
+    noise = rng.uniform(-1, 1, (count, D, D)) * 6e-8
+    a = a[None] * (1 + noise)
+    a = (a + np.swapaxes(a.conj(), -1, -2)) / 2
+    b = np.broadcast_to(v @ v.conj().T, (count, D, D))
+    return a.astype(np.complex64), np.ascontiguousarray(b, np.complex64)
+
+
+def test_stable_solve_residual_gate_flips_on_last_bits():
+    """A fault of the reference (ROADMAP queue 3), kept by the port:
+    stable_solve takes the pseudo-inverse solution where the LU
+    solution's relative residual exceeds sqrt(eps), and for a system
+    of condition ~2e4 that residual is f32 rounding noise of the order
+    of the gate itself. Inputs one ulp apart then land on both sides of
+    the gate, in both packages, and the two solutions differ wholesale:
+    the amplifier of separate_batch(beamformer='mvdr_souden+ban')'s
+    drift on the CPU (the MVDR-Souden solve of a near-singular noise
+    PSD; measured 0.54-1.47 of the gate over one-ulp perturbations of
+    one such bin of the parallel pipeline test's speech)."""
+    a, b = _straddling_systems()
+    lu = torch.linalg.solve(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    for name, x, direct in (
+            ('port', tl.stable_solve(torch.from_numpy(a),
+                                     torch.from_numpy(b)).numpy(), lu),
+            ('jax', np.asarray(jl.stable_solve(jnp.asarray(a),
+                                               jnp.asarray(b))),
+             np.asarray(jnp.linalg.solve(jnp.asarray(a),
+                                         jnp.asarray(b))))):
+        pinv = np.abs(x - direct).max((-2, -1)) > 0
+        # both branches are taken on inputs one ulp apart ...
+        assert 0 < pinv.mean() < 1, (name, pinv.mean())
+        # ... and they part by the whole solution
+        jump = np.abs(x[pinv] - direct[pinv]).max() / np.abs(direct).max()
+        assert jump > 0.5, (name, jump)
+
+
 @pytest.mark.parametrize('hermitian', [False, True])
 def test_solve_pinv_matches_jax(hermitian):
     rng = np.random.default_rng(2)

@@ -208,9 +208,10 @@ def test_every_public_name_of_every_jax_module_has_a_counterpart():
 
 
 def test_every_jax_evaluation_and_transform_name_has_a_counterpart():
-    """Every public name of pb_bss_tpu.evaluation / .transform (the
-    STFT's TPU-only ``method=`` aside) exists in the port; the
-    functions of the device programs take ``device=``."""
+    """Every public name of pb_bss_tpu.evaluation / .transform exists in
+    the port, and the STFT takes the JAX package's ``method=`` (default
+    ``'auto'``); the functions of the device programs take
+    ``device=``."""
     import inspect
     import pb_bss_tpu.evaluation as jax_evaluation
     import pb_bss_tpu.transform as jax_transform
@@ -229,5 +230,8 @@ def test_every_jax_evaluation_and_transform_name_has_a_counterpart():
         default = inspect.signature(getattr(evaluation, name)).parameters[
             'device'].default
         assert default == 'cuda', name
-    assert 'method' not in inspect.signature(transform.stft).parameters
+    for name in ('stft', 'istft'):
+        parameter = inspect.signature(getattr(transform, name)).parameters[
+            'method']
+        assert parameter.default == 'auto', name
     assert {'si_sdr_allow_float32', 'si_sdr_stft'} <= set(dir(evaluation))

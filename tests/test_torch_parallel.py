@@ -4,9 +4,10 @@ unsharded port and against the JAX package's sharded fits.
 The counterparts of tests/test_parallel/test_mesh.py's fits, at its
 sizes and iterations: each test runs the port in a world of 2 gloo
 processes (the mesh's 'f' axis; 4 for the ('b', 'f') mesh) through
-``tests/_torch_gloo.py``, joins the ranks' bins and holds them against
-the unsharded port (the same routes from the same initialization: to
-f32 rounding of the all-reduced sums, rtol 1e-5) and against JAX's fit
+``tests/_torch_gloo.py``, checks that every rank returns the same global
+model (``gloo.global_value``) and holds it against the unsharded port
+(the same routes from the same initialization: to f32 rounding of the
+all-reduced sums, rtol 1e-5) and against JAX's fit
 of the same initialization on the 8-device CPU mesh at the JAX test's
 own tolerances (weights rtol 1e-4 atol 1e-5, eigenvalues rtol 1e-3
 atol 1e-4). JAX's kernel routes run as its scan (its interpret-mode
@@ -47,13 +48,6 @@ def _jax_mesh():
     return jax_make_mesh((8,), ('f',))
 
 
-def _weight(results):
-    """The ranks' frequency-constant weights, equal on every rank."""
-    for r in results[1:]:
-        np.testing.assert_array_equal(r['weight'], results[0]['weight'])
-    return results[0]['weight']
-
-
 def _cacgmm_case(tmp_path, y, init, **kwargs):
     F, K, _ = init.shape
     results = gloo.run_world(gloo.cacgmm_fit, 2, tmp_path, y, init, (2,),
@@ -67,12 +61,9 @@ def _cacgmm_case(tmp_path, y, init, **kwargs):
     return results, local, ref
 
 
-def _hold_cacgmm(results, local, ref, frequency_constant):
-    if frequency_constant:
-        weight = _weight(results)
-    else:
-        weight = gloo.concatenate(results, 'weight')
-    eigenvalues = gloo.concatenate(results, 'eigenvalues')
+def _hold_cacgmm(results, local, ref):
+    weight = gloo.global_value(results, 'weight')
+    eigenvalues = gloo.global_value(results, 'eigenvalues')
     np.testing.assert_allclose(weight, local.weight.numpy(), rtol=1e-5,
                                atol=1e-7)
     np.testing.assert_allclose(
@@ -86,14 +77,14 @@ def _hold_cacgmm(results, local, ref, frequency_constant):
 
 
 def test_frequency_sharded_fit_matches_replicated(tmp_path):
-    """Per-bin weights: no traffic; each rank's bins are the unsharded
-    fit's bit for bit."""
+    """Per-bin weights: no traffic but the final gather; every rank's
+    global model is the unsharded fit's bit for bit."""
     F, T, D, K = 16, 40, 3, 2
     y, init = _data((F, T, D), 0), _init((F, K, T), 10)
     results, local, ref = _cacgmm_case(tmp_path, y, init, iterations=5)
-    np.testing.assert_array_equal(gloo.concatenate(results, 'weight'),
+    np.testing.assert_array_equal(gloo.global_value(results, 'weight'),
                                   local.weight.numpy())
-    _hold_cacgmm(results, local, ref, frequency_constant=False)
+    _hold_cacgmm(results, local, ref)
 
 
 @pytest.mark.parametrize('route', [
@@ -110,7 +101,7 @@ def test_frequency_constant_weight_all_reduce_matches(tmp_path, route):
     results, local, ref = _cacgmm_case(
         tmp_path, y, init, iterations=3, weight_constant_axis=(-3, -1),
         **route)
-    _hold_cacgmm(results, local, ref, frequency_constant=True)
+    _hold_cacgmm(results, local, ref)
 
 
 def test_fc_fused_em_under_frequency_sharding(tmp_path):
@@ -120,7 +111,7 @@ def test_fc_fused_em_under_frequency_sharding(tmp_path):
     results, local, ref = _cacgmm_case(
         tmp_path, y, init, iterations=3, weight_constant_axis=(-3, -1),
         use_fused_em=True)
-    _hold_cacgmm(results, local, ref, frequency_constant=True)
+    _hold_cacgmm(results, local, ref)
 
 
 def test_fc_streamed_em_under_frequency_sharding(tmp_path):
@@ -144,7 +135,7 @@ def test_fc_streamed_em_under_frequency_sharding(tmp_path):
     ref = jax_fit_sharded(jnp.asarray(y), _jax_mesh(),
                           initialization=jnp.asarray(init), iterations=3,
                           weight_constant_axis=(-3, -1))
-    _hold_cacgmm(results, local, ref, frequency_constant=True)
+    _hold_cacgmm(results, local, ref)
 
 
 @pytest.mark.parametrize('route', [
@@ -169,10 +160,10 @@ def test_inline_aligner_under_frequency_sharding(tmp_path, route):
         torch.from_numpy(y), initialization=torch.from_numpy(init),
         inline_permutation_aligner=DHTVPermutationAlignment.from_stft_size(
             512), **kwargs)
-    np.testing.assert_allclose(_weight(results), local.weight.numpy(),
-                               rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(gloo.global_value(results, 'weight'),
+                               local.weight.numpy(), rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(
-        gloo.concatenate(results, 'eigenvalues'),
+        gloo.global_value(results, 'eigenvalues'),
         local.cacg.covariance_eigenvalues.numpy(), rtol=1e-5, atol=1e-7)
 
 
@@ -186,8 +177,51 @@ def test_sharded_fit_draws_the_unsharded_initialization(tmp_path):
                              timeout=TIMEOUT)
     local = CACGMMTrainer().fit(torch.from_numpy(y), num_classes=K,
                                 iterations=2)
-    np.testing.assert_array_equal(gloo.concatenate(results, 'eigenvalues'),
+    np.testing.assert_array_equal(gloo.global_value(results, 'eigenvalues'),
                                   local.cacg.covariance_eigenvalues.numpy())
+
+
+def test_sharded_fit_resumes_from_a_global_or_a_rank_model(tmp_path):
+    """fit_cacgmm_sharded returns the global model on every rank; a fit
+    resumed from it (the rank keeps its bins) and one resumed from the
+    rank's own bins of it (what the sharded fits returned before) both
+    equal the unsharded fit resumed from the unsharded model (per-bin
+    weights: no reduction; rtol 1e-5, measured bit for bit), and JAX's
+    trainer on frequency-sharded input (a mesh of 5), resumed from its
+    own model, at the JAX mesh test's tolerances (rtol 1e-4 / atol 1e-5;
+    eigenvalues rtol 1e-3 / atol 1e-4). F=15: 8 + 7 bins."""
+    from pb_bss_tpu.models import CACGMMTrainer as JaxTrainer
+    from pb_bss_tpu.parallel import shard_frequencies as jax_shard
+    F, T, D, K = 15, 40, 3, 2
+    y, init = _data((F, T, D), 8), _init((F, K, T), 18)
+    results = gloo.run_world(gloo.cacgmm_resume, 2, tmp_path, y, init,
+                             (2,), {}, timeout=TIMEOUT)
+    assert [r['own_bins'] for r in results] == [8, 7]
+    first = CACGMMTrainer().fit(torch.from_numpy(y),
+                                initialization=torch.from_numpy(init),
+                                iterations=2)
+    resumed = CACGMMTrainer().fit(torch.from_numpy(y), initialization=first,
+                                  iterations=3)
+    y_j = jax_shard(jnp.asarray(y), jax_make_mesh((5,), ('f',)))
+    jax_first = JaxTrainer().fit(y_j, initialization=jnp.asarray(init),
+                                 iterations=2)
+    jax_resumed = JaxTrainer().fit(y_j, initialization=jax_first,
+                                   iterations=3)
+    for name, model, ref in (('first', first, jax_first),
+                             ('global', resumed, jax_resumed),
+                             ('own', resumed, jax_resumed)):
+        weight = gloo.global_value(results, f'{name}/weight')
+        eigenvalues = gloo.global_value(results, f'{name}/eigenvalues')
+        np.testing.assert_allclose(weight, model.weight.numpy(), rtol=1e-5,
+                                   atol=1e-7)
+        np.testing.assert_allclose(
+            eigenvalues, model.cacg.covariance_eigenvalues.numpy(),
+            rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(weight, np.asarray(ref.weight),
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(
+            eigenvalues, np.asarray(ref.cacg.covariance_eigenvalues),
+            rtol=1e-3, atol=1e-4)
 
 
 def test_uneven_frequency_split(tmp_path):
@@ -200,14 +234,15 @@ def test_uneven_frequency_split(tmp_path):
         gloo.cacgmm_fit, 2, tmp_path, y, init, (2,),
         dict(num_classes=K, iterations=3, weight_constant_axis=(-3, -1)),
         timeout=TIMEOUT)
-    assert [r['eigenvalues'].shape[0] for r in results] == [9, 8]
+    # every rank returns the global model (the fit ran on 9 + 8 bins)
+    assert [r['eigenvalues'].shape[0] for r in results] == [17, 17]
     local = CACGMMTrainer().fit(torch.from_numpy(y),
                                 initialization=torch.from_numpy(init),
                                 iterations=3, weight_constant_axis=(-3, -1))
-    np.testing.assert_allclose(_weight(results), local.weight.numpy(),
-                               rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(gloo.global_value(results, 'weight'),
+                               local.weight.numpy(), rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(
-        gloo.concatenate(results, 'eigenvalues'),
+        gloo.global_value(results, 'eigenvalues'),
         local.cacg.covariance_eigenvalues.numpy(), rtol=1e-5, atol=1e-7)
 
     shapes = gloo.run_world(gloo.local_shapes, 2, tmp_path, 17, (2,),

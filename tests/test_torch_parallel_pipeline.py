@@ -86,9 +86,10 @@ def test_full_pipeline_sharded_matches_replicated(
 @pytest.fixture(scope='module')
 def speech():
     """Three 6,000-sample cuts of the dummy two-speaker scenarios (D=6):
-    MVDR-Souden's reference channel is a clear choice on them (on white
-    noise the channels' SNRs tie, and the LAPACK solve's last bits,
-    which vary with its threads, pick among them)."""
+    MVDR-Souden's reference channel is a clear choice on them (the top
+    two channels' summed SNRs part by 4.7e-3 relative or more, and the
+    choice held at 1, 2, 3, 4, 6 and 8 threads; measured), where on
+    white noise the channels' SNRs tie."""
     from pb_bss_tpu_torch.testing import low_reverberation_data
     return np.stack([low_reverberation_data(seed)['observation'][:, :N]
                      for seed in range(3)]).astype(np.float32)
@@ -110,8 +111,14 @@ def test_separate_batch_mesh_equals_unsharded(tmp_path, observations,
     is held at 2e-2 of the peak, its own run-to-run spread on the CPU:
     the unsharded call's output on one of these utterances moved by
     1.0e-2 of the peak between two calls in one process with other work
-    between them (measured; which step amplifies the last bits is not
-    established, ROADMAP queue 3)."""
+    between them. The step that amplifies the last bits is
+    stable_solve's residual gate, a fault of the reference (ROADMAP
+    queue 3): the noise PSD of utterance 0, class 1, bin 7 has condition
+    2.1e4, its LU residual sits at 0.79 of the gate, one-ulp changes of
+    the PSD move it over 0.54-1.47 of it, and past the gate the bin's
+    beamformer is the pseudo-inverse solution, which parts from the LU
+    one wholesale (measured; test_torch_linalg.py::
+    test_stable_solve_residual_gate_flips_on_last_bits)."""
     mvdr = 'mvdr' in options.get('beamformer', '')
     data = speech if mvdr else observations[:batch]
     kwargs = dict(num_classes=K, iterations=ITERATIONS, **options)

@@ -97,3 +97,60 @@ def test_stft_class_matches_jax(fading):
         ref.inverse(jnp.asarray(X.numpy()), num_samples=2500)), atol=1e-10)
     if fading:
         assert_allclose(back.numpy(), x, atol=1e-10)
+
+
+@pytest.mark.parametrize('size,shift,window', [
+    (512, 128, 'blackman'), (256, 96, 'hann'), (512, 128, _ramp_window)])
+def test_matmul_stft_matches_jax_and_fft(size, shift, window):
+    """stft(method='matmul') (the port's one FFT path) equals the JAX
+    package's 'matmul' (the windowed DFT as two real products) at 1e-5
+    of the peak, and the port's 'fft' bit for bit."""
+    x = np.random.default_rng(4).standard_normal((2, 3000)).astype(
+        np.float32)
+    ref = np.asarray(jstft(jnp.asarray(x, jnp.float32), size, shift,
+                           window=window, method='matmul'))
+    out = stft(torch.as_tensor(x), size, shift, window=window,
+               method='matmul').numpy()
+    fft = stft(torch.as_tensor(x), size, shift, window=window,
+               method='fft').numpy()
+    peak = np.abs(ref).max()
+    assert out.shape == ref.shape == fft.shape
+    assert_allclose(out, ref, rtol=0, atol=1e-5 * peak)
+    np.testing.assert_array_equal(out, fft)
+
+
+@pytest.mark.parametrize('size,shift,window', [
+    (512, 128, 'blackman'), (256, 96, 'hann')])
+def test_matmul_istft_matches_jax_and_fft(size, shift, window):
+    """istft(method='matmul') (the port's one FFT path) equals the JAX
+    package's 'matmul' (the synthesis-windowed real iDFT as two real
+    products) at 1e-5 of the peak, and the port's 'fft' bit for bit."""
+    rng = np.random.default_rng(5)
+    X = (rng.standard_normal((3, 30, size // 2 + 1))
+         + 1j * rng.standard_normal((3, 30, size // 2 + 1))).astype(
+        np.complex64)
+    ref = np.asarray(jistft(jnp.asarray(X), size, shift, window=window,
+                            num_samples=3000, method='matmul'))
+    out = istft(torch.as_tensor(X), size, shift, window=window,
+                num_samples=3000, method='matmul').numpy()
+    fft = istft(torch.as_tensor(X), size, shift, window=window,
+                num_samples=3000, method='fft').numpy()
+    peak = np.abs(ref).max()
+    assert out.shape == ref.shape == (3, 3000)
+    assert_allclose(out, ref, rtol=0, atol=1e-5 * peak)
+    np.testing.assert_array_equal(out, fft)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_auto_method_is_the_fft_bit_for_bit(dtype):
+    """method='auto' (the default) is 'fft' on every device: the calls
+    without method= give the same bits, and an unknown method raises."""
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal((2, 3000)),
+                        dtype=dtype)
+    X = stft(x)
+    assert torch.equal(stft(x, method='auto'), X)
+    assert torch.equal(stft(x, method='fft'), X)
+    assert torch.equal(istft(X, method='auto'), istft(X))
+    assert torch.equal(istft(X, method='fft'), istft(X))
+    with pytest.raises(ValueError, match='method'):
+        stft(x, method='dft')
