@@ -3361,6 +3361,132 @@ def parallel_dtensor_fits(mesh, run, obs, obs3, emb):
               lambda: VMFCACGMMTrainer().fit(obs3, emb, **options))
 
 
+def same_prediction(label, got, want, observation):
+    """Fail unless ``got``, a model's prediction of the DTensor
+    ``observation``, is a DTensor placed as it (mesh, placements, global
+    shape) whose value is ``want``'s, the meshless prediction, bit for
+    bit."""
+    import torch
+    from pb_bss_tpu_torch._shard import is_dtensor
+    placed = (is_dtensor(got)
+              and got.device_mesh == observation.device_mesh
+              and tuple(got.placements) == tuple(observation.placements)
+              and tuple(got.shape) == tuple(want.shape))
+    same = placed and torch.equal(got.full_tensor(), want)
+    log(f'{label}: a DTensor placed as its input {placed}; bit for bit '
+        f'against the meshless predict {same}')
+    if not same:
+        fail(f'{label}: not the meshless prediction, placed as its input')
+
+
+def parallel_batch_fits(mesh, run, obs):
+    """The JAX package's multi-host layout on a world of 1: the slice
+    cell's 8 utterances (F=257, T=304, D=6, K=3, 20 it) as a DTensor split
+    over 'b' and 'f' of the (1, 1) mesh (``shard_batch_and_frequencies``)
+    through ``CACGMMTrainer`` (K2 once), its frequency-constant fit (K5
+    1 + 19), ``CWMMTrainer`` (K6 once) and ``CBMMTrainer`` (K9 once);
+    config 3 at B=8 (F=513, T=300, E=20) through
+    ``VMFCACGMMTrainer(use_fused_em='loop')`` (K12 once); the multi-host
+    dry run's sequence (``shard_batch_from_process_local``, the
+    frequency-constant fit with ``use_fused_em=False``: K1 in every
+    M-step, then ``predict``). Each fit and each fitted model's
+    ``predict`` of the DTensor (and ``CACGMM.log_likelihood``) against
+    the meshless call bit for bit, with the device and host ms of each
+    fit pair and of the cACGMM predict."""
+    import torch
+    import pb_bss_tpu_torch as P
+    from pb_bss_tpu_torch.models import (
+        CACGMMTrainer, CBMMTrainer, CWMMTrainer, VMFCACGMMTrainer)
+    from pb_bss_tpu_torch.parallel import (
+        shard_batch_and_frequencies, shard_batch_from_process_local)
+    Y = P.transform.stft(obs, 512, 128).permute(0, 3, 2, 1).contiguous()
+    Yb = shard_batch_and_frequencies(Y, mesh)
+    fc = {'cacgmm_em_fc_init': 1, 'cacgmm_em_fc_step': 19,
+          'cacgmm_em_full': 0}
+    for label, Trainer, extra, want in (
+            ('CACGMMTrainer', CACGMMTrainer, {}, {'cacgmm_em_full': 1}),
+            ('CACGMMTrainer fc', CACGMMTrainer,
+             {'weight_constant_axis': (-3, -1)}, fc),
+            ('CWMMTrainer', CWMMTrainer, {}, {'cwmm_em_full': 1}),
+            ('CBMMTrainer', CBMMTrainer, {}, {'cbmm_em_full': 1})):
+        options = dict(num_classes=3, iterations=20, **extra)
+        sharded = run(f"{label}.fit(('b', 'f') DTensor) 8 x F=257 T=304, "
+                      '20 it', lambda: Trainer().fit(Yb, **options), want,
+                      strict=False)
+        meshless = run(f'{label}.fit (no mesh)',
+                       lambda: Trainer().fit(Y, **options), want,
+                       strict=False)
+        same_model(f"{label}.fit(('b', 'f') DTensor)", sharded, meshless)
+        same_prediction(f"{label} predict(('b', 'f') DTensor)",
+                        sharded.predict(Yb), meshless.predict(Y), Yb)
+        mesh_cost(f"{label}.fit(('b', 'f') DTensor) 8 x 4.8 s",
+                  lambda: Trainer().fit(Yb, **options),
+                  lambda: Trainer().fit(Y, **options))
+        if label == 'CACGMMTrainer':
+            model = meshless
+            mesh_cost("CACGMM.predict(('b', 'f') DTensor) 8 x 4.8 s",
+                      lambda: model.predict(Yb), lambda: model.predict(Y))
+            total, plain = model.log_likelihood(Yb), model.log_likelihood(Y)
+            log(f'CACGMM.log_likelihood of the DTensor {float(total)!r}, '
+                f'meshless {float(plain)!r}')
+            if not torch.equal(total, plain):
+                fail('CACGMM.log_likelihood of the DTensor parts from the '
+                     'meshless call')
+
+    y, _, _ = em_inputs(8, 513, 6, 3, 300, seed=152)
+    obs3 = y.transpose(-1, -2).contiguous()
+    g = torch.Generator('cuda').manual_seed(153)
+    emb = torch.randn((8, 513, 300, 20), generator=g, device='cuda')
+    emb = emb / emb.norm(dim=-1, keepdim=True)
+    obs3d = shard_batch_and_frequencies(obs3, mesh)
+    embd = shard_batch_and_frequencies(emb, mesh)
+    loop = dict(num_classes=3, iterations=20, use_fused_em='loop')
+    k12 = {'integration_em_full': 1, 'integration_e_stats': 0}
+    sharded = run("VMFCACGMMTrainer.fit(('b', 'f') DTensor, 'loop') B=8 "
+                  'F=513 T=300 E=20, 20 it',
+                  lambda: VMFCACGMMTrainer().fit(obs3d, embd, **loop), k12,
+                  strict=False)
+    meshless = run("VMFCACGMMTrainer.fit('loop') B=8 (no mesh)",
+                   lambda: VMFCACGMMTrainer().fit(obs3, emb, **loop), k12,
+                   strict=False)
+    same_model("VMFCACGMMTrainer.fit(('b', 'f') DTensor, 'loop')", sharded,
+               meshless)
+    same_prediction("VMFCACGMM predict(('b', 'f') DTensor)",
+                    sharded.predict(obs3d, embd),
+                    meshless.predict(obs3, emb), obs3d)
+    mesh_cost("VMFCACGMMTrainer.fit(('b', 'f') DTensor, 'loop') config 3 "
+              'B=8', lambda: VMFCACGMMTrainer().fit(obs3d, embd, **loop),
+              lambda: VMFCACGMMTrainer().fit(obs3, emb, **loop))
+
+    # scripts/dcn_dryrun.py's sequence: each 'b' index passes its own
+    # utterances (here the one rank all 8)
+    local = shard_batch_from_process_local(Y, mesh)
+    dcn = dict(num_classes=3, iterations=20, weight_constant_axis=(-3, -1),
+               use_fused_em=False)
+    scan = {'eigh_jacobi': 20, 'cacgmm_em_full': 0, 'cacgmm_em_fc_init': 0,
+            'cacgmm_em_fc_step': 0, 'cacgmm_em_long': 0}
+    sharded = run('dcn_dryrun sequence: shard_batch_from_process_local, '
+                  'CACGMMTrainer.fit fc use_fused_em=False, 8 x F=257 '
+                  'T=304, 20 it', lambda: CACGMMTrainer().fit(local, **dcn),
+                  scan, strict=False)
+    meshless = run('CACGMMTrainer.fit fc use_fused_em=False (no mesh)',
+                   lambda: CACGMMTrainer().fit(Y, **dcn), scan, strict=False)
+    same_model('dcn_dryrun sequence fit', sharded, meshless)
+    if tuple(sharded.weight.shape) != (8, 1, 3, 1):
+        fail(f'dcn_dryrun sequence weight {tuple(sharded.weight.shape)}')
+    affiliation = sharded.predict(local)
+    same_prediction('dcn_dryrun sequence predict', affiliation,
+                    meshless.predict(Y), local)
+    error = float((affiliation.full_tensor().sum(-2) - 1).abs().max())
+    log(f'dcn_dryrun sequence: weight {tuple(sharded.weight.shape)}, '
+        f'affiliations sum to 1 within {error:.2e}')
+    if not error < 1e-3:
+        fail(f'dcn_dryrun sequence affiliations sum to 1 within {error}')
+    mesh_cost('dcn_dryrun sequence fit 8 x 4.8 s',
+              lambda: CACGMMTrainer().fit(local, **dcn),
+              lambda: CACGMMTrainer().fit(Y, **dcn))
+
+
 def check_stft_methods(obs):
     """stft / istft with each ``method=`` the JAX package takes ('auto',
     'fft', 'matmul') on the card at the slice cell (8 x 6 channels of
@@ -3579,6 +3705,7 @@ def phase_parallel_and_rest():
                  sharded.cacg.covariance_eigenvalues,
                  unsharded.cacg.covariance_eigenvalues)
         parallel_dtensor_fits(mesh, run, obs, obs3, emb)
+        parallel_batch_fits(mesh, run, obs)
     finally:
         dist.destroy_process_group()
 

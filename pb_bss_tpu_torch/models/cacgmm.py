@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from .._dtypes import real_dtype as _real_dtype, tiny as _tiny
-from .._shard import dtensor_entry
+from .._shard import dtensor_entry, dtensor_predict
 from ..ops import em_estep, em_loop, em_step, em_stream
 from .base import Model, force_hermitian, modelclass
 from .complex_angular_central_gaussian import (
@@ -123,10 +123,15 @@ class CACGMM(Model):
     weight: torch.Tensor = None  # (..., K, 1)
     cacg: ComplexAngularCentralGaussian = None
 
+    @dtensor_predict({'source_activity_mask': -3})
     def predict(self, y, return_quadratic_form=False,
                 source_activity_mask=None):
         """y: (..., N, D) complex observations -> affiliation
-        (..., K, N)."""
+        (..., K, N). A DTensor y (bins over ``'f'``, utterances over
+        ``'b'``) is predicted on each rank's block, with the global
+        model or the rank's own, and the affiliation (and quadratic
+        form) come back as DTensors placed as y
+        (``_shard.dtensor_predict``)."""
         assert y.is_complex(), y.dtype
         affiliation, quadratic_form, _ = self._predict(
             normalize_observation(y),
@@ -135,10 +140,13 @@ class CACGMM(Model):
             return affiliation, quadratic_form
         return affiliation
 
+    @dtensor_predict(total=True)
     def log_likelihood(self, y):
         """Sum over all leading dims and samples of the log-sum-exp of
         the class log-pdfs (the weights do not enter, as in the JAX
-        package). y: (..., N, D) complex."""
+        package). y: (..., N, D) complex; a DTensor y sums every rank's
+        block once (over its sharded mesh axes only) and every rank
+        returns the total."""
         assert y.is_complex(), y.dtype
         _, _, log_pdf = self._predict(normalize_observation(y))
         return torch.logsumexp(log_pdf, dim=-2).sum()
@@ -571,10 +579,14 @@ class CACGMMTrainer:
         """Fit a cACGMM with EM.
 
         Args:
-            y: (..., N, D) complex observations; a DTensor sharded over
-                a mesh's ``'f'`` axis on its frequency axis (-3) fits
-                each rank's bins and returns the global model on every
-                rank (``_shard.dtensor_entry``).
+            y: (..., N, D) complex observations; a DTensor with its
+                frequency axis (-3) split over a mesh's ``'f'`` axis and
+                / or an utterance axis left of it over ``'b'`` (from
+                ``parallel.shard_frequencies``,
+                ``shard_batch_and_frequencies`` or
+                ``shard_batch_from_process_local``) fits each rank's
+                block and returns the global model on every rank
+                (``_shard.dtensor_entry``).
             initialization: affiliations (..., K, N), a CACGMM, or None
                 (then ``num_classes`` + ``generator`` drive a random
                 init).

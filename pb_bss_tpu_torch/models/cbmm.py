@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .._dtypes import real_dtype as _real_dtype
-from .._shard import dtensor_entry
+from .._shard import dtensor_entry, dtensor_predict
 from ..ops import cbmm_loop, mm_stream
 from ._em import run_em
 from .base import Model, modelclass
@@ -57,8 +57,10 @@ class CBMM(Model):
     weight: torch.Tensor = None  # (..., K, 1)
     complex_bingham: ComplexBingham = None
 
+    @dtensor_predict()
     def predict(self, y, affiliation_eps=0):
-        """y: (..., N, D) complex -> affiliations (..., K, N)."""
+        """y: (..., N, D) complex -> affiliations (..., K, N); a DTensor
+        y is predicted block by block (``_shard.dtensor_predict``)."""
         assert y.is_complex(), y.dtype
         return self._predict(normalize_observation(y),
                              affiliation_eps=float(affiliation_eps))
@@ -98,10 +100,14 @@ class CBMMTrainer:
         """EM for CBMMs with any number of independent dimensions.
 
         Args:
-            y: (..., N, D) complex observations; a DTensor sharded over
-                a mesh's ``'f'`` axis on its frequency axis (-3) fits
-                each rank's bins and returns the global model on every
-                rank (``_shard.dtensor_entry``).
+            y: (..., N, D) complex observations; a DTensor with its
+                frequency axis (-3) split over a mesh's ``'f'`` axis and
+                / or an utterance axis left of it over ``'b'`` (from
+                ``parallel.shard_frequencies``,
+                ``shard_batch_and_frequencies`` or
+                ``shard_batch_from_process_local``) fits each rank's
+                block and returns the global model on every rank
+                (``_shard.dtensor_entry``).
             initialization: affiliations (..., K, N), or None (then
                 ``num_classes`` and ``generator`` draw a random one).
             num_classes: K (exclusive with initialization).

@@ -26,6 +26,10 @@ __all__ = [
 class Gaussian(Model):
     mean: torch.Tensor = None  # (..., D)
     covariance: torch.Tensor = None  # (..., D, D)
+    # the rank of each field right of an utterance's axes as an
+    # integration model's spectral component, (..., K, ...): what a
+    # batch-sharded fit gathers (_shard.py)
+    core_ranks = {'mean': 2, 'covariance': 3}
 
     @property
     def precision_cholesky(self):
@@ -65,6 +69,8 @@ class Gaussian(Model):
 class DiagonalGaussian(Model):
     mean: torch.Tensor = None  # (..., D)
     covariance: torch.Tensor = None  # (..., D)
+    # as Gaussian.core_ranks
+    core_ranks = {'mean': 2, 'covariance': 2}
 
     def log_pdf(self, y):
         d = self.mean.shape[-1]
@@ -81,6 +87,8 @@ class DiagonalGaussian(Model):
 class SphericalGaussian(Model):
     mean: torch.Tensor = None  # (..., D)
     covariance: torch.Tensor = None  # (...,)
+    # as Gaussian.core_ranks
+    core_ranks = {'mean': 2, 'covariance': 1}
 
     def log_pdf(self, y):
         d = self.mean.shape[-1]

@@ -37,9 +37,11 @@ import torch
 from .._dtypes import real_dtype as _real_dtype, tiny as _tiny
 from .._shard import (
     dtensor_entry,
+    dtensor_predict,
     frequency_sum,
     on_every_bin,
-    spans_frequency,
+    sharded_sum,
+    squeezed_weight_axis,
 )
 from ..ops import integration_em, integration_em_loop
 from .base import Model, modelclass
@@ -142,9 +144,13 @@ class GCACGMM(Model):
                 spectral_weight=float(model.spectral_weight))
         return model
 
+    @dtensor_predict({'embedding': -3})
     def predict(self, observation, embedding):
         """observation: (..., F, T, D) complex; embedding: (..., F, T, E)
-        real. Returns the affiliation (..., F, K, T)."""
+        real. Returns the affiliation (..., F, K, T). A DTensor
+        observation is predicted on each rank's block (the embedding a
+        DTensor too, or the global tensor) and the affiliation comes back
+        as a DTensor placed as it (``_shard.dtensor_predict``)."""
         assert observation.is_complex(), observation.dtype
         assert not embedding.is_complex(), embedding.dtype
         return self._predict(normalize_rows(observation), embedding)[0]
@@ -165,9 +171,10 @@ def _integration_weight(masked_affiliation, weight_constant_axis):
     if -2 in weight_constant_axis:
         return torch.tensor(1.0 / K, dtype=masked_affiliation.dtype,
                             device=masked_affiliation.device)
-    weight = masked_affiliation.sum(weight_constant_axis, keepdim=True)
-    if spans_frequency(weight_constant_axis, masked_affiliation.ndim):
-        weight = frequency_sum(weight)  # over every bin of a sharded fit
+    # over every bin (and utterance) of a sharded fit
+    weight = sharded_sum(
+        masked_affiliation.sum(weight_constant_axis, keepdim=True),
+        weight_constant_axis, masked_affiliation.ndim)
     weight = weight / weight.sum(-2, keepdim=True)
     for axis in sorted((a % weight.ndim for a in weight_constant_axis),
                        reverse=True):
@@ -175,31 +182,22 @@ def _integration_weight(masked_affiliation, weight_constant_axis):
     return weight
 
 
-def integration_weight_axis(weight_constant_axis, ndim):
-    """The frequency axis of an integration model's weight
-    (:func:`_integration_weight`, the constant axes squeezed) fitted on
-    ``ndim``-dim (..., F, K, T) affiliations, or None when it is
-    constant over the bins or the classes (global)."""
-    axes = {a % ndim for a in weight_constant_axis}
-    if axes & {ndim - 3, ndim - 2}:
-        return None
-    return -2 if ndim - 1 in axes else -3
-
-
 def fit_integration_em(fit_em, mode, observation, embedding,
                        initialization, saliency, weight_constant_axis):
     """Run an integration trainer's EM (``fit_em``). The whole-fit kernel
     K12 (``mode == 'loop'``) sums the spectral statistics of every bin
-    in its one launch: under a frequency shard it fits every bin on
-    every rank and keeps the rank's rows (``_shard.on_every_bin``), as
-    GSPMD runs a custom call it cannot partition; the other routes fit
-    the rank's bins and all-reduce the spectral M-step over ``'f'``."""
+    in its one launch: under a frequency shard it fits every bin of the
+    rank's utterances on every rank and keeps the rank's rows
+    (``_shard.on_every_bin``), as GSPMD runs a custom call it cannot
+    partition; the other routes fit the rank's bins and all-reduce the
+    spectral M-step over ``'f'``."""
     if mode != 'loop':
         return fit_em(observation, embedding, initialization, saliency)
     return on_every_bin(
         lambda o, e, a: fit_em(o, e, a, torch.ones_like(a[..., 0, :])),
         (observation, embedding, initialization),
-        integration_weight_axis(weight_constant_axis, observation.ndim))
+        functools.partial(squeezed_weight_axis, weight_constant_axis,
+                          observation.ndim))
 
 
 def _initialization(observation, num_classes, generator):
@@ -280,7 +278,7 @@ def _check_kernel_knobs(use_fused_em, weight_constant_axis,
 
 
 class GCACGMMTrainer:
-    @dtensor_entry(integration_weight_axis, {'embedding': -3, 'saliency': -2})
+    @dtensor_entry(squeezed_weight_axis, {'embedding': -3, 'saliency': -2})
     def fit(self, observation, embedding, initialization=None,
             num_classes=None, iterations=100, saliency=None, *,
             generator=None, hermitize=True, covariance_norm='eigenvalue',
@@ -291,10 +289,14 @@ class GCACGMMTrainer:
             use_fused_em='auto') -> GCACGMM:
         """EM on (..., F, T, D) observations + (..., F, T, E) embeddings.
         Leading batch axes fit independent models per utterance. An
-        observation that is a DTensor sharded over a mesh's ``'f'`` axis
-        on its frequency axis (-3) fits each rank's bins (the embedding
-        a DTensor too, or a tensor with the global value) and returns the
-        global model on every rank (``_shard.dtensor_entry``).
+        observation that is a DTensor with its frequency axis (-3) split
+        over a mesh's ``'f'`` axis and / or an utterance axis left of it
+        over ``'b'`` (from ``parallel.shard_frequencies``,
+        ``shard_batch_and_frequencies`` or
+        ``shard_batch_from_process_local``) fits each rank's block (the
+        embedding a DTensor too, or a tensor with the global value) and
+        returns the global model on every rank (``_shard.dtensor_entry``;
+        ``fixed_covariance`` is then the rank's block).
 
         ``weight_constant_axis`` semantics (the affiliation is (F, K, T)):
         (-3, -2, -1) scalar, (-3, -1) per class, (-1,) per (F, K), (-3,)

@@ -9,11 +9,12 @@ import torch
 
 from .._dtypes import tiny as _tiny
 from .._shard import (
-    frequency_bins,
+    FREQUENCY_AXIS,
     frequency_gather,
     frequency_rows,
-    frequency_sum,
-    spans_frequency,
+    sharded_count,
+    sharded_sum,
+    spans_shard,
 )
 
 __all__ = ['log_pdf_to_affiliation',
@@ -88,17 +89,19 @@ def _axes(axis):
     return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
 
 
-def mixture_weight_axis(weight_constant_axis, ndim):
-    """The frequency axis of a mixture weight fitted with
-    ``weight_constant_axis`` on ``ndim``-dim (..., F, K, T) affiliations
-    (keepdims: -3), or None when it is global: constant over the bins,
-    or the integer class axis's (K, 1) of :func:`estimate_mixture_weight`
-    (a tuple with the class axis keeps the bins: (..., F, 1, T|1))."""
+def mixture_weight_axis(weight_constant_axis, ndim, axis=FREQUENCY_AXIS):
+    """The axis of a mixture weight fitted with ``weight_constant_axis``
+    on ``ndim``-dim (..., F, K, T) affiliations that holds their
+    ``axis`` (keepdims: ``axis`` itself; -3 the bins, or an utterance
+    axis left of them), or None when the weight is constant over it, or
+    global: the integer class axis's (K, 1) of
+    :func:`estimate_mixture_weight` (a tuple with the class axis keeps
+    the bins: (..., F, 1, T|1))."""
     if isinstance(weight_constant_axis, int) \
             and weight_constant_axis % ndim == ndim - 2:
         return None
     axes = {a % ndim for a in _axes(weight_constant_axis)}
-    return None if ndim - 3 in axes else -3
+    return None if axis % ndim in axes else axis
 
 
 def estimate_mixture_weight(affiliation, saliency=None,
@@ -122,14 +125,12 @@ def estimate_mixture_weight(affiliation, saliency=None,
     axes = _axes(weight_constant_axis)
     if saliency is None:
         if dirichlet_prior_concentration == 1:
-            if not spans_frequency(axes, affiliation.ndim):
+            if not spans_shard(axes, affiliation.ndim):
                 return affiliation.mean(dim=axes, keepdim=True)
-            # over every bin of a sharded fit
-            count = math.prod(affiliation.shape[a] for a in axes) \
-                // affiliation.shape[-3] \
-                * frequency_bins(affiliation.shape[-3])
-            return frequency_sum(
-                affiliation.sum(dim=axes, keepdim=True)) / count
+            # over every bin (and utterance) of a sharded fit
+            return sharded_sum(
+                affiliation.sum(dim=axes, keepdim=True), axes,
+                affiliation.ndim) / sharded_count(affiliation.shape, axes)
         *independent, K, T = affiliation.shape
         if math.isinf(dirichlet_prior_concentration) \
                 and dirichlet_prior_concentration > 0:
@@ -144,8 +145,7 @@ def estimate_mixture_weight(affiliation, saliency=None,
             T + (dirichlet_prior_concentration - 1) * K)
     masked = (affiliation * saliency[..., None, :]).sum(
         dim=axes, keepdim=True)
-    if spans_frequency(axes, affiliation.ndim):
-        masked = frequency_sum(masked)
+    masked = sharded_sum(masked, axes, affiliation.ndim)
     norm = masked.abs().sum(-2, keepdim=True)
     norm = torch.where(norm == 0, torch.full_like(norm, 1e-10), norm)
     return masked / norm

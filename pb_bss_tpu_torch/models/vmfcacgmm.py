@@ -26,7 +26,12 @@ from operator import xor
 import torch
 
 from .._dtypes import real_dtype as _real_dtype, tiny as _tiny
-from .._shard import dtensor_entry, frequency_sum
+from .._shard import (
+    dtensor_entry,
+    dtensor_predict,
+    frequency_sum,
+    squeezed_weight_axis,
+)
 from ..ops import integration_em, integration_em_loop
 from .base import Model, modelclass
 from .complex_angular_central_gaussian import (
@@ -42,7 +47,6 @@ from .gcacgmm import (
     _pin_f32,
     fit_integration_em,
     integration_predict,
-    integration_weight_axis,
     normalize_rows,
 )
 from .von_mises_fisher import VonMisesFisher, VonMisesFisherTrainer
@@ -59,9 +63,13 @@ class VMFCACGMM(Model):
     spatial_weight: float = 1.
     spectral_weight: float = 1.
 
+    @dtensor_predict({'embedding': -3})
     def predict(self, observation, embedding):
         """observation: (..., F, T, D) complex; embedding: (..., F, T, E)
-        real. Returns the affiliation (..., F, K, T)."""
+        real. Returns the affiliation (..., F, K, T). A DTensor
+        observation is predicted on each rank's block (the embedding a
+        DTensor too, or the global tensor) and the affiliation comes back
+        as a DTensor placed as it (``_shard.dtensor_predict``)."""
         assert observation.is_complex(), observation.dtype
         assert not embedding.is_complex(), embedding.dtype
         return self._predict(normalize_rows(observation),
@@ -144,7 +152,7 @@ def _resolve_fused_mode(use_fused_em, step_eligible, loop_eligible):
 
 
 class VMFCACGMMTrainer:
-    @dtensor_entry(integration_weight_axis, {'embedding': -3, 'saliency': -2})
+    @dtensor_entry(squeezed_weight_axis, {'embedding': -3, 'saliency': -2})
     def fit(self, observation, embedding, initialization=None,
             num_classes=None, iterations=100, saliency=None, *,
             generator=None, min_concentration=1e-10, max_concentration=500,
@@ -155,12 +163,16 @@ class VMFCACGMMTrainer:
             use_fused_em='auto') -> VMFCACGMM:
         """EM on (..., F, T, D) observations + (..., F, T, E) embeddings.
         Leading batch axes (e.g. (B, F, T, D)) fit independent models per
-        utterance. An observation that is a DTensor sharded over a mesh's
-        ``'f'`` axis on its frequency axis (-3) fits each rank's bins (the
+        utterance. An observation that is a DTensor with its frequency
+        axis (-3) split over a mesh's ``'f'`` axis and / or an utterance
+        axis left of it over ``'b'`` (from ``parallel.shard_frequencies``,
+        ``shard_batch_and_frequencies`` or
+        ``shard_batch_from_process_local``) fits each rank's block (the
         embedding a DTensor too, or a tensor with the global value) and
         returns the global model on every rank
-        (``_shard.dtensor_entry``); ``'loop'`` then fits every bin on
-        every rank (``gcacgmm.fit_integration_em``).
+        (``_shard.dtensor_entry``); ``'loop'`` then fits every bin of
+        the rank's utterances on every rank of ``'f'``
+        (``gcacgmm.fit_integration_em``).
 
         Args:
             generator: ``torch.Generator`` of the random initialization

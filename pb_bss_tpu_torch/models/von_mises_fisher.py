@@ -61,6 +61,10 @@ def log_ive(nu, kappa):
 class VonMisesFisher(Model):
     mean: torch.Tensor = None  # (..., D)
     concentration: torch.Tensor = None  # (...,)
+    # the rank of each field right of an utterance's axes as an
+    # integration model's spectral component, (..., K, ...): what a
+    # batch-sharded fit gathers (_shard.py)
+    core_ranks = {'mean': 2, 'concentration': 1}
 
     def log_norm(self):
         """Stable for concentration > 1e-10."""

@@ -10,19 +10,28 @@ The axes of the JAX package's mesh keep their names:
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with those
 axis names, and a sharded array a ``DTensor`` with ``Shard`` placements
 (the counterpart of ``NamedSharding(mesh, P(...))``). One process drives
-one device. GSPMD inserts the JAX package's collectives; here they are
-explicit. The five trainers take a DTensor sharded over ``'f'`` as it
-is (``_shard.dtensor_entry``; :func:`fit_cacgmm_sharded` and
-:func:`fit_integration_sharded` call them so): each rank fits its bins
+one device: the JAX package's multi-host layout, ``'b'`` over hosts and
+``'f'`` over each host's devices, is here a world of one process a
+device. GSPMD inserts the JAX package's collectives; here they are
+explicit. The five trainers take a DTensor with its bins split over
+``'f'`` and / or its utterances over ``'b'`` as it is (what
+:func:`shard_frequencies`, :func:`shard_batch_and_frequencies` and
+:func:`shard_batch_from_process_local` return;
+``_shard.dtensor_entry``; :func:`fit_cacgmm_sharded` and
+:func:`fit_integration_sharded` call them so): each rank fits its block
 (``to_local()``; the hand kernels never see a DTensor), all-reduces over
 ``'f'`` only where the JAX program reduces over all frequencies
 (frequency-constant mixture weights, the integration models' spectral
-M-step; ``_shard.py``), and all-gathers the per-bin parameters once at
-the end, so that every rank returns the global model. The whole-fit
-integration kernel, which cannot be partitioned, runs on every bin of
-every rank. ``separate(_batch)(mesh=)`` runs the trainers on each rank's
-bins inside the shard and gathers only what its pipeline needs. On one
-card a world of size 1 runs the same collectives, as no-ops.
+M-step) and over ``'b'`` only where it reduces over the utterances (a
+weight constant over them; ``_shard.py``), and all-gathers the split
+parameters once a mesh axis at the end, so that every rank returns the
+global model. The models' ``predict`` take such a DTensor too and
+return one placed alike (``_shard.dtensor_predict``). The whole-fit
+integration kernel, which cannot be partitioned over the bins, runs on
+every bin of every rank (on the rank's utterances).
+``separate(_batch)(mesh=)`` runs the trainers on each rank's bins
+inside the shard and gathers only what its pipeline needs. On one card
+a world of size 1 runs the same collectives, as no-ops.
 """
 from __future__ import annotations
 
@@ -147,7 +156,8 @@ def _check_axes(mesh, *names):
 def shard_frequencies(y, mesh, *, frequency_axis=0):
     """A DTensor of ``y`` with its frequency axis split over the mesh's
     ``'f'`` axis, replicated over the others (rank 0's ``y`` is the
-    global value)."""
+    global value): what the trainers' ``fit`` and the models'
+    ``predict`` take, with the frequency axis third from the end."""
     from torch.distributed.tensor import distribute_tensor
     _check_axes(mesh, 'f')
     y = torch.as_tensor(y)
@@ -157,7 +167,9 @@ def shard_frequencies(y, mesh, *, frequency_axis=0):
 
 def shard_batch_and_frequencies(y, mesh, *, batch_axis=0, frequency_axis=1):
     """A DTensor of (batch, frequency, ...) ``y`` over a 2D ('b', 'f')
-    mesh."""
+    mesh (rank 0's ``y`` is the global value): what the trainers' ``fit``
+    and the models' ``predict`` take, (B, F, T, D) observations and
+    (B, F, T, E) embeddings."""
     from torch.distributed.tensor import distribute_tensor
     _check_axes(mesh, 'b', 'f')
     y = torch.as_tensor(y)
@@ -172,7 +184,9 @@ def shard_batch_from_process_local(local_batch, mesh, *,
     utterances: ``local_batch`` is this rank's slice of the batch (the
     ranks of one ``'b'`` index pass the same slice, of equal size on
     every ``'b'`` index); the ``'b'`` axis concatenates the slices in
-    rank order, then each rank keeps its bins over ``'f'``."""
+    rank order, then each rank keeps its bins over ``'f'``. The trainers'
+    ``fit`` and the models' ``predict`` take it, as
+    ``scripts/dcn_dryrun.py`` runs the JAX package's."""
     from torch.distributed.tensor import DTensor
     _check_axes(mesh, 'b', 'f')
     local_batch = torch.as_tensor(local_batch)

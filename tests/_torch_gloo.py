@@ -151,13 +151,18 @@ def cacgmm_resume(y, init, mesh_shape, fit_kwargs):
     """fit_cacgmm_sharded for 2 iterations, then resumed for 3 from the
     global model it returns and from this rank's own bins of it; the
     weights and eigenvalues of the three global models."""
-    from pb_bss_tpu_torch._shard import axis_shard, model_rows
+    from pb_bss_tpu_torch._shard import (
+        axis_shard,
+        model_rows,
+        model_weight_axis,
+    )
     from pb_bss_tpu_torch.parallel import fit_cacgmm_sharded
     mesh = _mesh(mesh_shape)
     y = torch.from_numpy(y)
     first = fit_cacgmm_sharded(y, mesh, initialization=torch.from_numpy(init),
                                iterations=2, **fit_kwargs)
-    own = model_rows(first, axis_shard(mesh, 'f', y.shape[0]), -3)
+    own = model_rows(first, (axis_shard(mesh, 'f', y.shape[0]),),
+                     model_weight_axis(first, y.ndim))
     out = {'own_bins': own.cacg.covariance_eigenvalues.shape[0]}
     for name, model in (('first', first), ('global', first), ('own', own)):
         if name != 'first':
@@ -306,3 +311,149 @@ def global_value(results, key):
 def concatenate(results, key, axis=0):
     """One key of every rank's result joined along ``axis`` (the bins)."""
     return np.concatenate([r[key] for r in results], axis)
+
+
+def _distribute(x, mesh, dims):
+    """``x`` as a DTensor split on its axis ``dims[name]`` over each mesh
+    axis named in ``dims`` (replicated over the others)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    return distribute_tensor(
+        torch.from_numpy(x), mesh,
+        [Shard(dims[name]) if name in dims else Replicate()
+         for name in mesh.mesh_dim_names])
+
+
+def _predictions(model, args, observation):
+    """``model.predict`` of the DTensor ``observation`` with the global
+    model and with this rank's own block of it: the full affiliations,
+    whether each came back placed as the observation, and the global
+    model's prediction of the full tensor (``predict/plain``)."""
+    from pb_bss_tpu_torch._shard import (
+        dtensor_shards,
+        model_rows,
+        model_weight_axis,
+    )
+    own = model_rows(model, dtensor_shards(observation),
+                     model_weight_axis(model, observation.ndim))
+    plain = model.predict(observation.full_tensor(),
+                          *[x.full_tensor() if hasattr(x, 'full_tensor')
+                            else x for x in args])
+    out = {'predict/plain': _numpy(plain)}
+    for name, m in (('global', model), ('own', own)):
+        affiliation = m.predict(observation, *args)
+        if isinstance(affiliation, tuple):
+            affiliation = affiliation[0]
+        out[f'predict/{name}'] = _numpy(affiliation.full_tensor())
+        out[f'placed/{name}'] = (
+            tuple(affiliation.placements) == tuple(observation.placements)
+            and tuple(affiliation.shape) == (*observation.shape[:-2],
+                                             *affiliation.shape[-2:]))
+    return out
+
+
+def batch_fits(cases, mesh_shape, names):
+    """Each case of ``cases`` on a mesh of ``mesh_shape`` and ``names``:
+    the trainer's fit of the observation as a DTensor split on its axis
+    ``dims[name]`` over each mesh axis ``name`` (an integration
+    trainer's embedding a DTensor alike, ``'dtensor'``, or the global
+    tensor), from the global ``init`` (None: ``num_classes`` in the
+    kwargs); the leaves of the model it returns and its prediction of
+    the DTensor with the global model and with the rank's own
+    (:func:`_predictions`). A ValueError's message instead."""
+    from pb_bss_tpu_torch import models
+    mesh = _mesh(mesh_shape, names)
+    results = []
+    for case in cases:
+        observation = _distribute(case['inputs'][0], mesh, case['dims'])
+        args = [torch.from_numpy(x) for x in case['inputs'][1:]]
+        if case.get('embedding') == 'dtensor':
+            args = [_distribute(x, mesh, case['dims'])
+                    for x in case['inputs'][1:]]
+        kwargs = dict(case['kwargs'])
+        if case['init'] is not None:
+            kwargs['initialization'] = torch.from_numpy(case['init'])
+        try:
+            model = getattr(models, case['trainer'])().fit(
+                observation, *args, **kwargs)
+        except ValueError as error:
+            results.append(dict(error=str(error)))
+            continue
+        out = {k: _numpy(v) for k, v in _leaves(model.to_dict()).items()}
+        out.update(_predictions(model, args, observation))
+        results.append(out)
+    return results
+
+
+def collective_log(y, init, mesh_shape, fits):
+    """cACGMM fits of the (B, F, T, D) ``y`` split over 'b' and 'f' from
+    the global ``init``, one a kwargs of ``fits``, with every all-reduce
+    and all-gather each makes recorded by the mesh axis whose group it
+    used ('b', 'f' or 'other'); each fit's log and global weight."""
+    from pb_bss_tpu_torch.models import CACGMMTrainer
+    mesh = _mesh(mesh_shape, ('b', 'f'))
+    observation = _distribute(y, mesh, {'b': 0, 'f': 1})
+    groups = {id(mesh.get_group(name)): name for name in ('b', 'f')}
+    log = []
+    originals = {name: getattr(dist, name)
+                 for name in ('all_reduce', 'all_gather')}
+
+    def recorder(name):
+        def call(*args, group=None, **kwargs):
+            log.append((name, groups.get(id(group), 'other')))
+            return originals[name](*args, group=group, **kwargs)
+        return call
+
+    out = []
+    for fit_kwargs in fits:
+        for name in originals:
+            setattr(dist, name, recorder(name))
+        try:
+            model = CACGMMTrainer().fit(
+                observation, initialization=torch.from_numpy(init),
+                **fit_kwargs)
+        finally:
+            for name, call in originals.items():
+                setattr(dist, name, call)
+        out.append(dict(log=list(log), weight=_numpy(model.weight)))
+        log.clear()
+    return out
+
+
+def process_local_fit(y, mesh_shape, fit_kwargs):
+    """The multi-host dry run's sequence on a ('b', 'f') mesh: each 'b'
+    index passes its own utterances of ``y`` to
+    shard_batch_from_process_local, the trainer fits the global DTensor,
+    and the model predicts it; the weight, the eigenvalues and the full
+    affiliation."""
+    from pb_bss_tpu_torch.models import CACGMMTrainer
+    from pb_bss_tpu_torch.parallel import shard_batch_from_process_local
+    mesh = _mesh(mesh_shape, ('b', 'f'))
+    b, per_rank = mesh.get_local_rank('b'), y.shape[0] // mesh.size(0)
+    observation = shard_batch_from_process_local(
+        torch.from_numpy(y[b * per_rank:(b + 1) * per_rank]), mesh)
+    model = CACGMMTrainer().fit(observation, **fit_kwargs)
+    affiliation = model.predict(observation)
+    return dict(weight=_numpy(model.weight),
+                eigenvalues=_numpy(model.cacg.covariance_eigenvalues),
+                affiliation=_numpy(affiliation.full_tensor()),
+                placed=tuple(affiliation.placements)
+                == tuple(observation.placements))
+
+
+def log_likelihoods(y, mesh_shape, names, layouts):
+    """CACGMM.log_likelihood of a DTensor of the (B, F, T, D) ``y`` in
+    each layout of ``layouts`` (mesh axis -> observation axis; an axis
+    left out replicates it), from the unsharded fit of ``y``."""
+    from pb_bss_tpu_torch.models import CACGMMTrainer
+    mesh = _mesh(mesh_shape, names)
+    model = CACGMMTrainer().fit(torch.from_numpy(y), num_classes=2,
+                                iterations=2)
+    return dict(plain=float(model.log_likelihood(torch.from_numpy(y))),
+                sharded=[float(model.log_likelihood(
+                    _distribute(y, mesh, dims))) for dims in layouts])
+
+
+def scenarios(calls):
+    """Each ``(scenario, args)`` of ``calls`` in turn on this rank (one
+    world for several scenarios); their results in order."""
+    return [scenario(*args) for scenario, args in calls]
