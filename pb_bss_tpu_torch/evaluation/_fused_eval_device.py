@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .module_bss_eval_device import _bss_eval_core, _check_shapes, _inputs
 from .module_stoi_device import _stoi
 
@@ -32,6 +33,7 @@ def _evaluate(refs, ests, sample_rate, compute_permutation):
     return torch.stack([sdr, sir, sar, sel.to(sdr.dtype), st], 1)
 
 
+@profiling.span('score')
 def bss_eval_stoi_fused_batch(reference, estimation, sample_rate,
                               compute_permutation=True, device='cuda'):
     """BSS-Eval + selection-aligned STOI of (..., K, N) references
@@ -48,7 +50,8 @@ def bss_eval_stoi_fused_batch(reference, estimation, sample_rate,
     lead = tuple(refs.shape[:-2])
     packed = _evaluate(refs.reshape(-1, K, n), ests.reshape(-1, M, n),
                        int(sample_rate), bool(compute_permutation))
-    packed = packed.cpu().numpy()
+    with profiling.span('score.read'):
+        packed = packed.cpu().numpy()
     out = {key: packed[:, i].reshape(lead + (K,))
            for i, key in enumerate(_KEYS)}
     out['selection'] = np.rint(out['selection']).astype(np.int64)

@@ -53,6 +53,7 @@ import torch
 from .._dtypes import real_dtype as _real_dtype, tiny as _tiny
 from .._shard import dtensor_entry, dtensor_predict
 from ..ops import em_estep, em_loop, em_step, em_stream
+from ..utils import profiling
 from .base import Model, force_hermitian, modelclass
 from .complex_angular_central_gaussian import (
     ComplexAngularCentralGaussian,
@@ -567,6 +568,7 @@ def _fit_fused_stream(y, model, affiliation, quadratic_form, *,
 
 
 class CACGMMTrainer:
+    @profiling.span('em')
     @dtensor_entry(mixture_weight_axis,
                    {'saliency': -2, 'source_activity_mask': -3})
     def fit(self, y, initialization=None, num_classes=None, iterations=100,
@@ -705,18 +707,21 @@ class CACGMMTrainer:
             if per_bin and em_loop.fits(D, num_classes, num_observations,
                                         **extras):
                 # short T: the whole fit in one kernel launch
+                profiling.count('em.route.whole')
                 return _fit_fused(y, model, affiliation, quadratic_form,
                                   **fused_kwargs)
             if (fc and fc_init_ok
                     and em_step.fits(D, num_classes, num_observations)):
                 # frequency-constant weights: one launch per iteration,
                 # the weight (and the inline aligner) between launches
+                profiling.count('em.route.fc')
                 return _fit_fused_fc(y, model, affiliation, quadratic_form,
                                      aligner=aligner, **fused_kwargs)
             assert (_stream_feasible(y, num_classes)
                     and (per_bin or fc_init_ok) and aligner is None), (
                 'no fused-kernel variant feasible for this shape', y.shape)
             # long T: one streamed statistics launch per iteration
+            profiling.count('em.route.stream')
             return _fit_fused_stream(
                 y, model, affiliation, quadratic_form,
                 weight_mode='per_bin' if per_bin else 'fc', **fused_kwargs)
@@ -733,6 +738,7 @@ class CACGMMTrainer:
                 't_block requires standard knobs (no saliency/mask/'
                 'aligner, weight_constant_axis=-1, hermitize, '
                 'eigenvalue covariance norm)')
+            profiling.count('em.route.t_blocked')
             fitted = _fit_em_t_blocked(
                 y, model, affiliation, quadratic_form,
                 iterations=int(iterations),
@@ -757,6 +763,7 @@ class CACGMMTrainer:
                 affiliation_eps)
             weight_constant_axis = (-1,)
 
+        profiling.count('em.route.scan')
         fitted = _fit_em(
             y, model, affiliation, quadratic_form, saliency,
             source_activity_mask, iterations=int(iterations),

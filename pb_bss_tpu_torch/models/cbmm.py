@@ -36,6 +36,7 @@ import torch
 from .._dtypes import real_dtype as _real_dtype
 from .._shard import dtensor_entry, dtensor_predict
 from ..ops import cbmm_loop, mm_stream
+from ..utils import profiling
 from ._em import run_em
 from .base import Model, modelclass
 from .complex_bingham import (
@@ -92,6 +93,7 @@ class CBMMTrainer:
         self.max_concentration = max_concentration
         self.eigenvalue_eps = eigenvalue_eps
 
+    @profiling.span('em')
     @dtensor_entry(mixture_weight_axis, {'saliency': -2})
     def fit(self, y, initialization=None, num_classes=None, iterations=100,
             *, generator=None, saliency=None, weight_constant_axis=(-1,),
@@ -122,6 +124,7 @@ class CBMMTrainer:
             use_fused_em: ``'auto'``, True or False — see the module
                 docstring.
         """
+        profiling.count('em.route.cbmm')
         assert xor(initialization is None, num_classes is None), (
             'Provide either `initialization` or `num_classes` — not both '
             f'and not neither. Got initialization is None: '

@@ -38,6 +38,7 @@ import torch
 from .._dtypes import real_dtype as _real_dtype
 from .._shard import dtensor_entry, dtensor_predict
 from ..ops import cwmm_loop, mm_stream
+from ..utils import profiling
 from ._em import run_em
 from .base import Model, modelclass
 from .complex_watson import (
@@ -101,6 +102,7 @@ class CWMMTrainer:
                 spline_markers=self.spline_markers)
         return self._watson_trainer
 
+    @profiling.span('em')
     @dtensor_entry(mixture_weight_axis, {'saliency': -2})
     def fit(self, y, initialization=None, num_classes=None, iterations=100,
             *, generator=None, saliency=None, weight_constant_axis=(-1,),
@@ -131,6 +133,7 @@ class CWMMTrainer:
             use_fused_em: ``'auto'``, True or False — see the module
                 docstring.
         """
+        profiling.count('em.route.cwmm')
         assert xor(initialization is None, num_classes is None), (
             'Provide either `initialization` or `num_classes` — not both '
             f'and not neither. Got initialization is None: '

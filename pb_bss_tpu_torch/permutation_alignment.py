@@ -28,6 +28,7 @@ import itertools
 import torch
 
 from .models._precision import full_fp32
+from .utils import profiling
 
 __all__ = [
     'DHTVPermutationAlignment',
@@ -279,8 +280,11 @@ class DHTVPermutationAlignment(_PermutationAlignment):
         mapping = identity.expand(B, K, W).clone()
         active = torch.ones(B, dtype=torch.bool, device=features.device)
         for _ in range(iterations):
-            if not bool(active.any()):  # nothing changed anywhere
+            with profiling.span('dhtv.read'):
+                done = not bool(active.any())
+            if done:  # nothing changed anywhere
                 break
+            profiling.count('dhtv.iterations')
             centroid = features.mean(dim=2)  # (B, K, T)
             if self.similarity_metric == 'cos':
                 centroid = _vector_norm(centroid)
@@ -301,6 +305,7 @@ class DHTVPermutationAlignment(_PermutationAlignment):
             active = active & changed
         return features, mapping
 
+    @profiling.span('dhtv')
     def calculate_mapping(self, mask):
         """Reverse mapping (*B, K, F) for a permuted mask (*B, K, F, T)."""
         *batch, K, F, T = mask.shape

@@ -37,6 +37,7 @@ from ._shard import (
 from .permutation_alignment import DHTVPermutationAlignment
 from .transform import istft, stft
 from .transform.stft_module import stft_frames
+from .utils import profiling
 
 __all__ = ['separate', 'separate_batch']
 
@@ -151,20 +152,22 @@ def _separate_bins(observations, initialization, *, iterations, stft_size,
         return masks.transpose(-1, -2) \
             * Observation[:, reference_channel, None]  # (B, K, T, F)
 
-    Y_fdt = Observation.permute(0, 3, 1, 2)  # (B, F, D, T)
-    psds = get_power_spectral_density_matrix(
-        Y_fdt, masks.transpose(1, 2))  # (B, F, K, D, D)
-    phi_nn = psds.sum(2, keepdim=True) - psds
-    # every class of every bin in one call (pencils are independent), as
-    # (B, K, F, D, D): the MVDR-Souden and wMWF beamformers pick their
-    # reference channel per utterance and class, over the bins
-    w = get_bf_vector(beamformer, psds.transpose(1, 2),
-                      phi_nn.transpose(1, 2))  # (B, K, F, D)
-    # eigenvector-based beamformers carry an arbitrary phase per bin;
-    # align phases across bins (a walk over every bin) before the
-    # synthesis
-    w = frequency_rows(phase_correction(frequency_gather(w, 2)), 2)
-    out = apply_beamforming_vector(w, Y_fdt[:, None])  # (B, K, F, T)
+    with profiling.span('beamformer'):
+        Y_fdt = Observation.permute(0, 3, 1, 2)  # (B, F, D, T)
+        psds = get_power_spectral_density_matrix(
+            Y_fdt, masks.transpose(1, 2))  # (B, F, K, D, D)
+        phi_nn = psds.sum(2, keepdim=True) - psds
+        # every class of every bin in one call (pencils are
+        # independent), as (B, K, F, D, D): the MVDR-Souden and wMWF
+        # beamformers pick their reference channel per utterance and
+        # class, over the bins
+        w = get_bf_vector(beamformer, psds.transpose(1, 2),
+                          phi_nn.transpose(1, 2))  # (B, K, F, D)
+        # eigenvector-based beamformers carry an arbitrary phase per
+        # bin; align phases across bins (a walk over every bin) before
+        # the synthesis
+        w = frequency_rows(phase_correction(frequency_gather(w, 2)), 2)
+        out = apply_beamforming_vector(w, Y_fdt[:, None])  # (B, K, F, T)
     return out.transpose(-1, -2)
 
 
@@ -174,6 +177,7 @@ def _init_shape(observation, num_classes, stft_size, stft_shift):
     return (stft_size // 2 + 1, num_classes, frames)
 
 
+@profiling.span('separate')
 def separate(observation, *, num_classes=3, iterations=80, stft_size=512,
              stft_shift=128, beamformer=None, reference_channel=0,
              generator=None, eigh_sweeps=None, model='cacgmm', mesh=None,
@@ -220,10 +224,11 @@ def separate(observation, *, num_classes=3, iterations=80, stft_size=512,
         generator = torch.Generator(observation.device).manual_seed(0)
     dtype = torch.float64 if observation.dtype == torch.float64 \
         else torch.float32
-    init = _random_affiliation(
-        generator,
-        _init_shape(observation, num_classes, stft_size, stft_shift),
-        dtype, observation.device)
+    with profiling.span('init'):
+        init = _random_affiliation(
+            generator,
+            _init_shape(observation, num_classes, stft_size, stft_shift),
+            dtype, observation.device)
     return _separate(
         observation[None], init[None], iterations=iterations,
         stft_size=stft_size, stft_shift=stft_shift, beamformer=beamformer,
@@ -244,6 +249,7 @@ def utterance_generators(generator, batch, device):
     return [torch.Generator(device).manual_seed(s) for s in seeds]
 
 
+@profiling.span('separate_batch')
 def separate_batch(observations, *, num_classes=3, iterations=80,
                    stft_size=512, stft_shift=128, beamformer=None,
                    reference_channel=0, generator=None, eigh_sweeps=None,
@@ -280,10 +286,11 @@ def separate_batch(observations, *, num_classes=3, iterations=80,
     dtype = torch.float64 if observations.dtype == torch.float64 \
         else torch.float32
     shape = _init_shape(observations[0], num_classes, stft_size, stft_shift)
-    init = torch.stack([
-        _random_affiliation(g, shape, dtype, device)
-        for g in utterance_generators(
-            generator, observations.shape[0], device)])
+    with profiling.span('init'):
+        init = torch.stack([
+            _random_affiliation(g, shape, dtype, device)
+            for g in utterance_generators(
+                generator, observations.shape[0], device)])
     return _separate(
         observations, init, iterations=iterations, stft_size=stft_size,
         stft_shift=stft_shift, beamformer=beamformer,

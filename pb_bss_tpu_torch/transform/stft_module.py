@@ -23,6 +23,8 @@ import numpy as np
 import scipy.signal
 import torch
 
+from ..utils import profiling
+
 __all__ = ['stft', 'istft', 'stft_frames', 'STFT']
 
 
@@ -84,6 +86,7 @@ def stft_frames(num_samples, size=512, shift=128, *, fading=True,
     return (samples - size + shift) // shift
 
 
+@profiling.span('stft')
 def stft(time_signal, size: int = 512, shift: int = 128, *,
          window='blackman', fading: bool = True, pad: bool = True,
          method: str = 'auto'):
@@ -143,6 +146,7 @@ def _overlap_add(framed, size, shift):
     return out.index_add_(-1, idx, framed.reshape(*lead, -1))
 
 
+@profiling.span('istft')
 def istft(stft_signal, size: int = 512, shift: int = 128, *,
           window='blackman', fading: bool = True, num_samples: int = None,
           method: str = 'auto'):

@@ -1,19 +1,63 @@
 """Profiling and tracing helpers (counterpart of
 ``pb_bss_tpu.utils.profiling``): a per-phase host wall-clock
-:class:`Timer`, and :func:`trace`, a ``torch.profiler`` capture written
+:class:`Timer`; :func:`trace`, a ``torch.profiler`` capture written
 as a Chrome trace (the JAX package's ``trace`` writes a JAX profiler
-trace)."""
+trace); and the program's own spans and counters.
+
+Spans and counters. The pipeline's layers run inside named
+:class:`span` s, always recorded on the host: each span keeps its name,
+its parent and its start and end on ``time.time_ns()``, the clock the
+profiler stamps its host events with, so a span can be laid over a
+``torch.profiler`` trace. The outermost span on a thread opens a
+*request*; every span and :func:`count` until it closes belongs to it,
+and so do the kernel launches made meanwhile (the change of the kernel
+wrappers' ``.launches`` attributes, as ``launches.<module>.<function>``).
+:func:`requests` returns the last 1,024 completed requests. Nothing is
+written to disk, and no setting turns the recording on or off: it
+costs a few microseconds a span.
+
+The spans of a call of :func:`pb_bss_tpu_torch.pipeline.separate_batch`
+(root ``separate_batch``; ``separate`` for one recording):
+
+* ``init``: the EM initialization's draws, one generator an utterance
+  (its host read of their seeds included);
+* ``stft`` and ``istft``: the transforms;
+* ``em``: the trainer's fit, with the counter ``em.route.<route>`` of
+  the route it took (``whole``, ``fc``, ``stream``, ``t_blocked`` or
+  ``scan`` for the cACGMM, ``cwmm`` or ``cbmm`` for the other models);
+* ``dhtv``: the permutation alignment, with a ``dhtv.read`` span around
+  each host read of its early exit (the first waits for the work queued
+  before it, mostly the EM) and the counter ``dhtv.iterations`` of the
+  iterations that ran;
+* ``beamformer``: the PSDs, beamforming vectors, phase correction and
+  beamforming.
+
+A call of :func:`pb_bss_tpu_torch.evaluation.bss_eval_stoi_fused_batch`
+is a request ``score``, with ``score.read`` around its copy to the host.
+
+Only inside :func:`trace` does a span also open a ``torch.profiler``
+range, named ``pb_bss_tpu_torch.<span>``, so the Chrome trace shows the
+spans over the device's timeline; a ``torch.profiler`` capture of one's
+own holds none of them.
+"""
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
+import itertools
 import os
+import sys
 import tempfile
+import threading
 import time
+import typing
 import warnings
 
 import torch
 
-__all__ = ['Timer', 'trace']
+__all__ = ['Timer', 'trace', 'span', 'count', 'requests', 'clear',
+           'Span', 'Request']
 
 
 class Timer:
@@ -51,6 +95,147 @@ class Timer:
         return f'Timer({inner})'
 
 
+RING = 1024
+PREFIX = 'pb_bss_tpu_torch.'
+# the kernel wrappers that count their launches in ``.launches``, by
+# (module, function) under pb_bss_tpu_torch.ops
+LAUNCH_COUNTERS = (
+    ('bingham', 'bingham_chord_solve'),
+    ('cbmm_loop', 'cbmm_em_full'),
+    ('cwmm_loop', 'cwmm_em_full'),
+    ('eigh', 'eigh_jacobi'),
+    ('em_estep', 'cacgmm_e_step'),
+    ('em_estep', 'cacgmm_em_scatter'),
+    ('em_loop', 'cacgmm_em_full'),
+    ('em_step', 'em_step'),
+    ('em_step', 'm_init'),
+    ('em_stream', 'e_stats'),
+    ('gev', 'gev'),
+    ('integration_em', 'e_stats'),
+    ('integration_em_loop', 'integration_em_full'),
+    ('mm_stream', 'mm_stats'),
+)
+
+
+class Span(typing.NamedTuple):
+    """One span of a request: ``parent`` is the index of the enclosing
+    span in the request's ``spans`` (None for the root); times are
+    ``time.time_ns()``."""
+    name: str
+    parent: typing.Optional[int]
+    start_ns: int
+    end_ns: int
+
+
+class Request(typing.NamedTuple):
+    """A completed request: its spans in the order they opened (the
+    root first) and its counters, launches included."""
+    id: int
+    root: str
+    spans: tuple
+    counters: dict
+
+
+class _Thread(threading.local):
+    """The open spans, as (index in ``spans``, profiler range or None);
+    the open request's ``spans`` ([name, parent, start_ns, end_ns]),
+    ``counters`` and ``launches`` (the counts at its start) are set by
+    its root."""
+
+    def __init__(self):
+        self.stack = []
+
+
+_thread = _Thread()
+_finished = collections.deque(maxlen=RING)
+_ids = itertools.count(1)
+_ranges = 0  # > 0 while trace() records
+
+
+def _launch_counts():
+    counts = []
+    for module, name in LAUNCH_COUNTERS:
+        module = sys.modules.get(f'{PREFIX}ops.{module}')
+        counts.append(getattr(getattr(module, name, None), 'launches', 0))
+    return counts
+
+
+class span:
+    """A named span of the program, as a context manager or a
+    decorator (``@span('stft')``; the function keeps its name). The
+    outermost span on a thread opens a request; see the module's
+    docstring."""
+
+    __slots__ = ('name',)
+
+    def __init__(self, name):
+        if name.startswith('sepbench.'):
+            raise ValueError(f'a span name may not start with sepbench.: '
+                             f'{name!r}')
+        self.name = name
+
+    def __enter__(self):
+        state = _thread
+        if state.stack:
+            parent = state.stack[-1][0]
+        else:
+            parent = None
+            state.spans, state.counters = [], {}
+            state.launches = _launch_counts()
+        start = time.time_ns()
+        scope = None
+        if _ranges:
+            scope = torch.profiler.record_function(PREFIX + self.name)
+            scope.__enter__()
+        state.stack.append((len(state.spans), scope))
+        state.spans.append([self.name, parent, start, 0])
+        return self
+
+    def __exit__(self, *exc):
+        state = _thread
+        index, scope = state.stack.pop()
+        if scope is not None:
+            scope.__exit__(None, None, None)
+        state.spans[index][3] = time.time_ns()
+        if not state.stack:
+            counters = state.counters
+            for (module, name), before, after in zip(
+                    LAUNCH_COUNTERS, state.launches, _launch_counts()):
+                if after != before:
+                    counters[f'launches.{module}.{name}'] = after - before
+            _finished.append(Request(
+                next(_ids), state.spans[0][0],
+                tuple(Span(*s) for s in state.spans), counters))
+        return False
+
+    def __call__(self, function):
+        @functools.wraps(function)
+        def spanned(*args, **kwargs):
+            with self:
+                return function(*args, **kwargs)
+        return spanned
+
+
+def count(name, n=1):
+    """Add ``n`` to the counter ``name`` of the open request (nothing
+    outside a span)."""
+    state = _thread
+    if state.stack:
+        state.counters[name] = state.counters.get(name, 0) + n
+
+
+def requests(last=None):
+    """The completed requests, oldest first (the ``last`` ones only
+    when given); at most :data:`RING` are kept."""
+    done = list(_finished)
+    return done if last is None else done[max(0, len(done) - last):]
+
+
+def clear():
+    """Forget the completed requests."""
+    _finished.clear()
+
+
 def _cuda_activity():
     """Record CUDA activity? (when a card is present)"""
     return torch.cuda.is_available()
@@ -60,7 +245,9 @@ def _cuda_activity():
 def trace(log_dir=None):
     """Profile the block with ``torch.profiler`` and write its Chrome
     trace (``chrome://tracing``, Perfetto, TensorBoard's profiler) to
-    ``<log_dir>/<pid>.<ns>.pt.trace.json``; yields ``log_dir``.
+    ``<log_dir>/<pid>.<ns>.pt.trace.json``; yields ``log_dir``. Inside
+    the block every :class:`span` is also a profiler range named
+    ``pb_bss_tpu_torch.<span>``.
 
     CUDA activity is recorded when a card is present. The card's
     profiler (CUPTI) can return a capture without device events; the
@@ -80,8 +267,13 @@ def trace(log_dir=None):
     activities = [ProfilerActivity.CPU]
     if cuda:
         activities.append(ProfilerActivity.CUDA)
+    global _ranges
     with profile(activities=activities) as prof:
-        yield log_dir
+        _ranges += 1
+        try:
+            yield log_dir
+        finally:
+            _ranges -= 1
     path = os.path.join(log_dir,
                         f'{os.getpid()}.{time.time_ns()}.pt.trace.json')
     prof.export_chrome_trace(path)
