@@ -4730,14 +4730,16 @@ def time_em_splits():
     :func:`time_cbmm_fc_splits`) and of K7's and K8's
     (:func:`time_stream_chord_splits`), with their own arguments only:
     K2 (B=8, F=257, D=6, K=3) at 20 iterations against 1, warm_sweeps 2
-    against 0, T=304 against 32, and at the bench.py shape (B=8, F=513,
+    against 0, T=304 against 32, T=303 against 304 (the scatter's frame
+    group, ``em_loop.scatter_frames``: 2 at D=6, so 303 frames leave one
+    to its one-by-one tail), and at the bench.py shape (B=8, F=513,
     T=300); K4 (B=4, F=257, T=3753) from_init mode (the sums alone)
     against model mode (E-step and sums). Returns {case: ms}."""
     from pb_bss_tpu_torch.ops.em_loop import cacgmm_em_full
     from pb_bss_tpu_torch.ops.em_stream import (
         cacgmm_em_long_reference, e_stats)
     out = {}
-    for F, T in ((257, 304), (257, 32), (513, 300)):
+    for F, T in ((257, 304), (257, 32), (257, 303), (513, 300)):
         inputs = [em_inputs(8, F, 6, 3, T, 3000 + i) for i in range(6)]
         for iterations, warm in ((20, 2), (1, 2), (20, 0)):
             if T != 304 and (iterations, warm) != (20, 2):

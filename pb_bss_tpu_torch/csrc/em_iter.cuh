@@ -12,7 +12,12 @@
 //                    frames, a group of kScatterGroup classes summed in
 //                    registers at once, then one cross-warp reduction,
 //                    warp by warp in a fixed order (runs repeat bit for
-//                    bit).
+//                    bit). The frequency-constant-weight and Watson
+//                    EMs', and the whole-fit EM's at D <= 3.
+//   scatter_sums_grouped  the same sums for the whole-fit EM, from groups
+//                    of G frames: a lane reads its group of its two rows
+//                    of y and each class's weights in 16-byte loads, forms
+//                    the G products once for a class group sized to K.
 //   covariance_from_sums  num sum / max(asum, tiny), Hermitian: a
 //                    division, never the sum times num / max(asum, tiny)
 //                    (at D >= 5 that factor overflows when a class's sum
@@ -40,8 +45,10 @@
 // kernel; the rotation algebra is theirs (_jacobi_rounds).
 //
 // Shared-memory layouts are the caller's: y is D rows of stride Tp (an odd
-// Tp puts the channels of a frame in distinct banks), the per-class
-// matrices K x D x D row-major, the (K, T) arrays class-major.
+// Tp puts the channels of a frame in distinct banks; scatter_sums_grouped
+// takes an even one), the per-class matrices K x D x D row-major, the
+// (K, T) arrays class-major (rows of stride Tw in scatter_sums_grouped and
+// e_step_pass).
 #pragma once
 
 #include <cfloat>
@@ -491,6 +498,204 @@ __device__ void scatter_sums(const float2* ys, int Tp, const float* aw,
   }
 }
 
+// G consecutive frames of one row at p (16-byte aligned for G >= 2) in
+// 16-byte loads.
+template <int G>
+__device__ __forceinline__ void load_frames(const float2* p,
+                                            float2 (&v)[G]) {
+#pragma unroll
+  for (int i = 0; i < G; i += 2) {
+    const float4 c = *reinterpret_cast<const float4*>(p + i);
+    v[i] = make_float2(c.x, c.y);
+    v[i + 1] = make_float2(c.z, c.w);
+  }
+}
+
+// G consecutive weights at p (aligned to 4 G bytes) in one load.
+template <int G>
+__device__ __forceinline__ void load_weights(const float* p, float (&w)[G]) {
+  if constexpr (G == 4) {
+    const float4 c = *reinterpret_cast<const float4*>(p);
+    w[0] = c.x;
+    w[1] = c.y;
+    w[2] = c.z;
+    w[3] = c.w;
+  } else {
+    const float2 c = *reinterpret_cast<const float2*>(p);
+    w[0] = c.x;
+    w[1] = c.y;
+  }
+}
+
+// The sums of scatter_sums_grouped for the KG classes g0 .. g0 + KG - 1.
+template <int D, int G, int KG>
+__device__ __forceinline__ void scatter_class_group(
+    const float2* ys, int Tp, const float2* ones, const float* aw,
+    const float* wq, int Tw, float2* Su, float* wsum, int g0, int T) {
+  constexpr int P = D * (D + 1) / 2;
+  constexpr int E = (P + 1 + 31) / 32;  // entries (and the sum) per lane
+  constexpr int JS = P / 32;            // the slot of the affiliation sum
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  // this lane's entries: rows d and e of y for r = lane + 32 j, or the
+  // run of ones at a stride of 0 for the affiliation sum (r == P); lanes
+  // past it read rows (0, 0), unused. Slot JS takes its weights from aw
+  // in the sum's lane, every other slot from wq.
+  int er[E], stride[E];
+  const float2 *rd[E], *re[E];
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    er[j] = lane + 32 * j;
+    int d, e;
+    upper_entry(er[j] < P ? er[j] : 0, D, &d, &e);
+    const bool is_sum = er[j] == P;
+    rd[j] = is_sum ? ones : ys + d * Tp;
+    re[j] = is_sum ? ones : ys + e * Tp;
+    stride[j] = is_sum ? 0 : 1;
+  }
+  const float* wsl = (er[JS] == P ? aw : wq) + size_t(g0) * Tw;
+  const float* wrest = wq + size_t(g0) * Tw;
+  float2 acc[E][KG];
+#pragma unroll
+  for (int j = 0; j < E; ++j)
+#pragma unroll
+    for (int c = 0; c < KG; ++c) acc[j][c] = make_float2(0.f, 0.f);
+
+  // whole groups of G frames, warps over groups
+  const int groups = T / G;
+  {
+    const float2 *pd[E], *pe[E];
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      pd[j] = rd[j] + stride[j] * warp * G;
+      pe[j] = re[j] + stride[j] * warp * G;
+    }
+    const float* ps = wsl + warp * G;
+    const float* pr = wrest + warp * G;
+    const int step = nwarps * G;
+    for (int g = warp; g < groups; g += nwarps) {
+      float2 prod[E][G];
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        float2 a[G], b[G];
+        load_frames<G>(pd[j], a);
+        load_frames<G>(pe[j], b);
+#pragma unroll
+        for (int f = 0; f < G; ++f) prod[j][f] = c_mul_conj(a[f], b[f]);
+        pd[j] += stride[j] * step;
+        pe[j] += stride[j] * step;
+      }
+#pragma unroll
+      for (int c = 0; c < KG; ++c) {
+        float ws[G], wr[G];
+        load_weights<G>(ps + c * Tw, ws);
+        if constexpr (E > 1) load_weights<G>(pr + c * Tw, wr);
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+#pragma unroll
+          for (int f = 0; f < G; ++f) {
+            const float w = j == JS ? ws[f] : wr[f];
+            acc[j][c].x = fmaf(w, prod[j][f].x, acc[j][c].x);
+            acc[j][c].y = fmaf(w, prod[j][f].y, acc[j][c].y);
+          }
+        }
+      }
+      ps += step;
+      pr += step;
+    }
+  }
+  // the frames of T mod G, one by one, by the warp next in turn
+  if (warp == groups % nwarps) {
+    for (int t = groups * G; t < T; ++t) {
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const float2 p =
+            c_mul_conj(rd[j][stride[j] * t], re[j][stride[j] * t]);
+#pragma unroll
+        for (int c = 0; c < KG; ++c) {
+          const float w = (j == JS ? wsl : wrest)[c * Tw + t];
+          acc[j][c].x = fmaf(w, p.x, acc[j][c].x);
+          acc[j][c].y = fmaf(w, p.y, acc[j][c].y);
+        }
+      }
+    }
+  }
+  // the cross-warp reduction, warp by warp in a fixed order
+  for (int w = 0; w < nwarps; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        if (er[j] > P) continue;
+#pragma unroll
+        for (int c = 0; c < KG; ++c) {
+          const int k = g0 + c;
+          if (er[j] == P) {
+            wsum[k] = (w == 0 ? 0.f : wsum[k]) + acc[j][c].x;
+          } else {
+            float2* su = Su + k * P + er[j];
+            *su = w == 0 ? acc[j][c] : c_add(*su, acc[j][c]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The M-step sums of scatter_sums (Su[k * P + r] = sum_t wq[k, t] y_d(t)
+// conj(y_e(t)) for the upper-triangle entries r = (d, e), wsum[k] = sum_t
+// aw[k, t]) for the whole-fit EM (em_loop.cu), from groups of G = 2 or 4
+// consecutive frames. scatter_sums issues ~30 instructions a lane and
+// frame of which ~10 are arithmetic: a scalar broadcast load of each of
+// four classes' weights (and of the affiliation), two loads of y, a select
+// for the sum lane, and the FMAs of a fixed group of four classes. Here a
+// lane reads its group's frames of its rows d and e in 16-byte loads and
+// each class's G weights in one broadcast load, forms the G products once,
+// and adds them into a class group sized to K (1-4 classes, picked by a
+// switch outside the frame loop, so K = 3 issues no FMAs on zeros): ~16
+// instructions a lane and frame at G = 2, ~13 at G = 4 (D = 6, K = 3).
+// The affiliation-sum lane reads aw for its weights and, for its rows, a
+// run of G complex ones at a stride of 0 (written here into `ones`,
+// 16-byte aligned, free during the scatter), so its product is exactly 1
+// with no per-frame select. Warps
+// over groups; the frames of T mod G one by one by the warp next in turn;
+// then one cross-warp reduction per class group, warp by warp in a fixed
+// order (runs repeat bit for bit; the order of the sums differs from
+// scatter_sums', so the results differ at f32 rounding). Layouts: y is D
+// rows of an even stride Tp (each row on a 16-byte boundary), aw and wq K
+// rows of a stride Tw that is a multiple of G (each group's weights on a
+// 4 G-byte boundary). Starts after the block's previous phase has
+// synchronized; ends with the block synchronized.
+template <int D, int G>
+__device__ __forceinline__ void scatter_sums_grouped(
+    const float2* ys, int Tp, float2* ones, const float* aw, const float* wq,
+    int Tw, float2* Su, float* wsum, int K, int T) {
+  static_assert(G == 2 || G == 4, "groups of 2 or 4 frames");
+  if (threadIdx.x < G) ones[threadIdx.x] = make_float2(1.f, 0.f);
+  __syncthreads();
+  for (int g0 = 0; g0 < K; g0 += 4) {
+    switch (min(4, K - g0)) {
+      case 1:
+        scatter_class_group<D, G, 1>(ys, Tp, ones, aw, wq, Tw, Su, wsum, g0,
+                                     T);
+        break;
+      case 2:
+        scatter_class_group<D, G, 2>(ys, Tp, ones, aw, wq, Tw, Su, wsum, g0,
+                                     T);
+        break;
+      case 3:
+        scatter_class_group<D, G, 3>(ys, Tp, ones, aw, wq, Tw, Su, wsum, g0,
+                                     T);
+        break;
+      default:
+        scatter_class_group<D, G, 4>(ys, Tp, ones, aw, wq, Tw, Su, wsum, g0,
+                                     T);
+        break;
+    }
+  }
+}
+
 // S_k = num Su_k / max(wsum_k, tiny), Hermitian from the upper-triangle
 // sums, by the whole block (num is D for the cACG covariance, 1 for the
 // Bingham scatter). The caller synchronizes the block afterwards.
@@ -519,17 +724,20 @@ __device__ __forceinline__ void covariance_from_sums(const float2* Su,
 // scaled eigenbases Wh (K x D x D, in projection_form's layout) and
 // the log-determinants: the posterior into aw and the quadratic form into
 // wq (then, with `update`, the saliency-weighted posterior a s into aw
-// and the scatter weight a s / max(q, 10 tiny) into wq). mask (at the
-// bin, rows of T; may be null) gates the numerators, eps clips; aff_out
-// (at the bin; may be null) receives the posterior before saliency; sal
-// (at the bin; may be null) is the frames' saliency. The caller
-// synchronizes the block afterwards.
+// and the scatter weight a s / max(q, 10 tiny) into wq). aw and wq are K
+// rows of stride Tw (T where not given). mask (at the bin, rows of T; may
+// be null) gates the numerators, eps clips; aff_out (at the bin, rows of
+// T; may be null) receives the posterior before saliency; sal (at the
+// bin; may be null) is the frames' saliency. The caller synchronizes the
+// block afterwards.
 template <int D>
 __device__ __forceinline__ void e_step_pass(
     const float2* ys, int Tp, const float2* Wh, const float* logdet,
     const float* wgt, const float* mask, const float* sal, float eps,
-    float* aw, float* wq, float* aff_out, bool update, int K, int T) {
+    float* aw, float* wq, float* aff_out, bool update, int K, int T,
+    int Tw = 0) {
   constexpr int DD = D * D;
+  if (Tw == 0) Tw = T;
   for (int t = threadIdx.x; t < T; t += blockDim.x) {
     float2 yf[D];
 #pragma unroll
@@ -537,14 +745,14 @@ __device__ __forceinline__ void e_step_pass(
     e_step_frame(
         [&](int k) { return projection_form<D>(yf, Wh + k * DD); }, logdet,
         wgt, mask != nullptr ? mask + t : nullptr, T, eps, aw + t, wq + t,
-        T, D, K);
+        Tw, D, K);
     const float s = sal != nullptr ? sal[t] : 1.f;
     for (int k = 0; k < K; ++k) {
-      const float a = aw[k * T + t];
+      const float a = aw[k * Tw + t];
       if (aff_out != nullptr) aff_out[size_t(k) * T + t] = a;
       if (update) {
-        aw[k * T + t] = a * s;
-        wq[k * T + t] = a * s / fmaxf(wq[k * T + t], 10.f * FLT_MIN);
+        aw[k * Tw + t] = a * s;
+        wq[k * Tw + t] = a * s / fmaxf(wq[k * Tw + t], 10.f * FLT_MIN);
       }
     }
   }

@@ -6,10 +6,13 @@
 // weights and the model of the bin in shared memory. Per iteration:
 //
 //   M-step  lanes over the upper-triangle entries (and one more lane for
-//           the affiliation sum), warps over frames: lane j adds
-//           w_k y_d conj(y_e) of its warp's frames into registers for a
-//           group of kScatterGroup classes; then one cross-warp reduction, warp
-//           by warp in a fixed order, and the covariance
+//           the affiliation sum), warps over groups of G frames
+//           (scatter_frames): lane j reads its group's frames of rows d
+//           and e of y and each class's weights in 16-byte loads and adds
+//           w_k y_d conj(y_e) into registers for a class group sized to K;
+//           then one cross-warp reduction, warp by warp in a fixed order
+//           (scatter_sums_grouped; at D <= 3, G = 1: scatter_sums), and
+//           the covariance
 //           D sum / max(asum, tiny) (a division, never the sum times
 //           D / max(asum, tiny): at D >= 5 that factor overflows when a
 //           class's sum is 0 in a real bin, and 0 * inf would poison the
@@ -38,28 +41,45 @@
 //           predict()); then saliency and w = a / max(q, 10 tiny).
 //
 // What bounds it on the H100: y is read from device memory once per
-// fit, so the kernel is bound by its instructions: the E-step's D^2
-// complex multiply-adds per class and frame, the scatter's pair products,
-// and the Jacobi's serial chain, which only one warp of the CTA runs.
-// The design cuts each: unrolled loops over a compile-time D, broadcast
-// reads of W, register accumulation with one reduction per iteration,
-// parallel rotations with one column a lane. The CTA has as many warps as
-// fill two or more rounds of frames nearly evenly (the host's choice,
-// ops/em_loop.py), and idle warps of a short T do not hold occupancy.
+// fit, so the kernel is bound by the instructions it issues: the E-step's
+// D^2 complex multiply-adds per class and frame, the scatter's pair
+// products, and the Jacobi's serial chain, which only one warp of the CTA
+// runs. At the slice shape (D=6, K=3, T=304, 4 warps, 8 CTAs an SM) the
+// one-frame scatter's loop was half of the kernel's time (compiled out,
+// 416.6 -> 213.8 ms at B=512 F=257, 80 iterations): ~30 instructions a
+// lane and frame, ~10 of them arithmetic (scalar broadcast loads of four
+// classes' weights, a select for the sum lane, FMAs on a fourth class of
+// zeros). The design cuts each: unrolled loops over a compile-time D,
+// broadcast reads of W, a scatter from 16-byte loads of G frames with the
+// G products formed once for a class group sized to K (~13-16 a lane and
+// frame; the kernel 284.3 ms at that shape), register accumulation with
+// one reduction per iteration, parallel rotations with one column a lane.
+// The CTA has as many warps as fill two or more rounds of frames nearly
+// evenly (the host's choice, ops/em_loop.py), and idle warps of a short T
+// do not hold occupancy.
 //
-// Shared memory: y (D x Tp complex, Tp = T rounded up to odd so that the
-// channels of a frame fall in distinct banks), the posterior times
-// saliency and the scatter weights (K x T each), the scatter, the
-// eigenvectors and the scaled eigenbasis (K x D x D complex each) and
-// the per-class scalars; never more than the gate's formula
-// (ops/em_loop.smem_bytes) allows.
+// Shared memory: y (D x Tp complex), the covariance, the eigenvectors and
+// the scaled eigenbasis (K x D x D complex each), the posterior times
+// saliency and the scatter weights (K x Tw each) and the per-class
+// scalars; never more than the gate's formula (ops/em_loop.smem_bytes)
+// allows. At G = 1 (D <= 3, where that formula leaves no room for pads)
+// Tp is T rounded up to odd, so that the channels of a frame fall in
+// distinct banks, and Tw = T. At G = 2 or 4 Tp is the least stride >= T
+// with Tp = 2 mod 4: each row starts on a 16-byte boundary and the
+// 16-byte chunks of D <= 8 rows at one frame fall in distinct banks for
+// the scatter, while the E-step's reads (a thread per frame) stay
+// contiguous; Tw is T rounded up to G and the (K, Tw) arrays start on a
+// 16-byte boundary (8 bytes of pad where needed). The scatter's run of
+// ones lives in the covariance's space, which is free while the scatter
+// runs.
 //
-// There is no padding of frames: loops run over the real T and the grid
-// has exactly one CTA per bin, so no padded lane can feed 0 * inf into a
-// reduction.
+// There is no padding of frames: loops run over the real T (the frames of
+// T mod G one by one), pads are never read, and the grid has exactly one
+// CTA per bin, so no padded lane can feed 0 * inf into a reduction.
 //
-// The scatter, the Jacobi and the E-step are em_iter.cuh's, shared with
-// the frequency-constant-weight EM (em_step.cu).
+// The Jacobi and the E-step are em_iter.cuh's, shared with the
+// frequency-constant-weight EM (em_step.cu); the grouped scatter is this
+// kernel's own (em_step.cu and cwmm_loop.cu keep scatter_sums).
 //
 // Layouts (all contiguous): y (N, D, T) complex64 as float2;
 // aff0/qf0/aff/mask (N, K, T) float; sal (N, T); weight (N, K); eig
@@ -74,14 +94,41 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
+// Frames a lane of the M-step scatter sums from one group of 16-byte
+// loads, a function of D alone (ops/em_loop.scatter_frames), the faster of
+// 2 and 4 on the H100 (B=512 F=257 T=304 K=3, 80 iterations: 2 took
+// 284.4 ms against 289.8 at D=6 and 1-3% less at D=7-10; 4 took 9% less
+// at D=12 and as long at D=16); 1 (scatter_sums) at D <= 3, where the
+// gate's budget leaves no room for the alignment pads.
+__host__ __device__ constexpr int scatter_frames(int D) {
+  return D <= 3 ? 1 : (D <= 10 ? 2 : 4);
+}
+
+// y's row stride: at G = 1 T rounded up to odd (T at D = 1); else the
+// least stride >= T with stride = 2 mod 4.
 __host__ __device__ constexpr int row_stride(int D, int T) {
-  return D == 1 ? T : (T | 1);
+  return scatter_frames(D) == 1 ? (D == 1 ? T : (T | 1))
+                                : T + (6 - T % 4) % 4;
+}
+
+// The (K, T) arrays' row stride: T rounded up to the frame group.
+__host__ __device__ constexpr int weight_stride(int D, int T) {
+  return (T + scatter_frames(D) - 1) / scatter_frames(D) *
+         scatter_frames(D);
+}
+
+// float2s of y and the three K x D x D arrays, rounded up to a 16-byte
+// boundary at G > 1 (where the (K, Tw) arrays that follow take 16-byte
+// loads).
+__host__ __device__ inline size_t em_matrix_float2s(int D, int K, int T) {
+  const size_t n = size_t(D) * row_stride(D, T) + 3 * size_t(K) * D * D;
+  return scatter_frames(D) == 1 ? n : (n + 1) / 2 * 2;
 }
 
 inline size_t em_smem_bytes(int D, int K, int T) {
-  const size_t DD = size_t(D) * D;
-  return sizeof(float2) * (size_t(D) * row_stride(D, T) + 3 * K * DD) +
-         sizeof(float) * (2 * size_t(K) * T + size_t(K) * D + 4 * K);
+  return sizeof(float2) * em_matrix_float2s(D, K, T) +
+         sizeof(float) * (2 * size_t(K) * weight_stride(D, T) +
+                          size_t(K) * D + 4 * K);
 }
 
 // Registers: up to 64 a thread for D <= 6, so that a 160-thread CTA of
@@ -100,15 +147,18 @@ cacgmm_em_full_kernel(const float2* __restrict__ y,
                       int iterations, int sweeps, int warm_sweeps,
                       float eigenvalue_floor, float affiliation_eps) {
   constexpr int DD = D * D;
+  constexpr int G = scatter_frames(D);
   extern __shared__ float4 smem_raw[];
   const int Tp = row_stride(D, T);
+  const int Tw = weight_stride(D, T);
   float2* ys = reinterpret_cast<float2*>(smem_raw);  // D * Tp
-  float2* S = ys + size_t(D) * Tp;                   // K * DD covariance
-  float2* V = S + K * DD;                            // K * DD eigvecs
+  float2* S = ys + size_t(D) * Tp;  // K * DD covariance; the scatter's ones
+  float2* V = S + K * DD;           // K * DD eigvecs
   float2* Wh = V + K * DD;  // K * DD scaled eigenbasis; the scatter sums
-  float* aw = reinterpret_cast<float*>(Wh + K * DD);  // K * T a * saliency
-  float* wq = aw + size_t(K) * T;  // K * T quadratic form, then weights
-  float* eig = wq + size_t(K) * T;  // K * D
+  // K * Tw a * saliency, on a 16-byte boundary at G > 1
+  float* aw = reinterpret_cast<float*>(ys + em_matrix_float2s(D, K, T));
+  float* wq = aw + size_t(K) * Tw;  // K * Tw quadratic form, then weights
+  float* eig = wq + size_t(K) * Tw;  // K * D
   float* wsum = eig + K * D;        // K
   float* wgt = wsum + K;            // K
   float* logdet = wgt + K;          // K
@@ -127,9 +177,11 @@ cacgmm_em_full_kernel(const float2* __restrict__ y,
     for (int t = tid; t < T; t += nthreads)
       ys[d * Tp + t] = y[(n * D + d) * T + t];
   for (size_t i = tid; i < KT; i += nthreads) {
-    const float a = aff0[n * KT + i] * (has_sal ? sal[i % T] : 1.f);
-    aw[i] = a;
-    wq[i] = a / fmaxf(qf0[n * KT + i], 10.f * tiny);
+    const int k = int(i / T);
+    const int t = int(i - size_t(k) * T);
+    const float a = aff0[n * KT + i] * (has_sal ? sal[t] : 1.f);
+    aw[k * Tw + t] = a;
+    wq[k * Tw + t] = a / fmaxf(qf0[n * KT + i], 10.f * tiny);
   }
   __syncthreads();
 
@@ -137,7 +189,10 @@ cacgmm_em_full_kernel(const float2* __restrict__ y,
     const bool warm = it > 0 && warm_sweeps >= 0;
 
     // ---- M-step sums, covariance D sum / max(asum, tiny), weight ------
-    scatter_sums<D>(ys, Tp, aw, wq, Su, wsum, K, T);
+    if constexpr (G == 1)
+      scatter_sums<D>(ys, Tp, aw, wq, Su, wsum, K, T);
+    else
+      scatter_sums_grouped<D, G>(ys, Tp, S, aw, wq, Tw, Su, wsum, K, T);
     covariance_from_sums<D>(Su, wsum, S, K, float(D));
     for (int k = tid; k < K; k += nthreads)
       wgt[k] = mixture_weight(wsum, k, K, has_sal, float(T));
@@ -170,7 +225,7 @@ cacgmm_em_full_kernel(const float2* __restrict__ y,
     const bool last = it == iterations - 1;
     e_step_pass<D>(ys, Tp, Wh, logdet, wgt, mask, sal,
                    last ? 0.f : affiliation_eps, aw, wq,
-                   last ? aff_out + n * KT : nullptr, !last, K, T);
+                   last ? aff_out + n * KT : nullptr, !last, K, T, Tw);
     __syncthreads();
   }
 
@@ -203,6 +258,11 @@ cudaError_t launch(int N, int threads, size_t bytes, cudaStream_t stream,
 }
 
 }  // namespace
+
+// Frames a lane of the M-step scatter sums at once at D.
+extern "C" int cacgmm_em_full_scatter_frames(int D) {
+  return scatter_frames(D);
+}
 
 // CTAs of the whole-fit EM resident on one SM at (D, K, T) with `threads`
 // threads (the occupancy query). Returns a negative cudaError_t on

@@ -708,6 +708,8 @@ class CACGMMTrainer:
                                         **extras):
                 # short T: the whole fit in one kernel launch
                 profiling.count('em.route.whole')
+                profiling.count('em.whole.scatter_frames.'
+                                f'{em_loop.scatter_frames(D)}')
                 return _fit_fused(y, model, affiliation, quadratic_form,
                                   **fused_kwargs)
             if (fc and fc_init_ok

@@ -46,6 +46,7 @@ KERNELS = {
         'cacgmm_em_full_launch': (
             [_P] * 9 + [_I] * 8 + [_F, _F, _P], _I),
         'cacgmm_em_full_occupancy': ([_I] * 4, _I),
+        'cacgmm_em_full_scatter_frames': ([_I], _I),
     },
     'gev': {
         'gev_launch': ([_P] * 3 + [_I] * 5 + [_F, _P], _I),

@@ -4,7 +4,8 @@ Replaces the JAX package's Pallas TPU kernel
 ``pb_bss_tpu/ops/pallas_em_loop.py:cacgmm_em_full``. One CTA owns one
 (utterance, frequency bin) and runs every EM iteration with the bin's
 observations resident in shared memory: Hermitian M-step scatter
-(lanes over entries, warps over frames, register sums), the parallel
+(lanes over entries, warps over groups of :func:`scatter_frames`
+frames, register sums for a class group sized to K), the parallel
 complex Jacobi with a lane per column (cold ``sweeps`` in iteration 0,
 then ``warm_sweeps`` from the previous eigenbasis), eigenvalue
 max-normalization and floor, the E-step with the quadratic form as the
@@ -16,10 +17,21 @@ instantiated for every D in 1..16 (:data:`DIMS`); the CTA's warps
 follow T (:func:`_threads`).
 
 What bounds it on the H100: the observations are read from device
-memory once per fit, so the kernel is bound by its instructions (the
-E-step's projections, the scatter's pair products, the Jacobi's serial
-chain), not by bytes; the design keeps the whole working set of a bin
-in shared memory and registers to get there.
+memory once per fit, so the kernel is bound by the instructions it
+issues (the E-step's projections, the scatter's pair products, the
+Jacobi's serial chain), not by bytes; the design keeps the whole working
+set of a bin in shared memory and registers to get there. The scatter
+was the largest share at the slice shape: a lane took one frame a step,
+with a scalar broadcast load of each class's weight and FMAs for a fixed
+group of four classes (~30 instructions a lane and frame, ~10 of them
+arithmetic), and half of the kernel's time. A lane now reads a group of
+:func:`scatter_frames` frames of its two rows of y in 16-byte loads and
+each class's weights in one broadcast load, forms the products once and
+adds them for a class group of 1-4 classes sized to K (~13-16). For
+that, y's rows start on 16-byte boundaries at a stride of 2
+mod 4 complex (the rows' 16-byte chunks in distinct banks) and the
+(K, T) rows are padded to the group; both pads stay inside the gate's
+budget (:func:`kernel_smem_bytes`).
 
 Gate (:func:`fits`): D <= 16 and the bin's working set,
 :func:`smem_bytes`, within the 227 KB of shared memory a block may opt
@@ -43,7 +55,8 @@ from ._build import SM_SMEM, SM_WARPS, SMEM_LIMIT
 from .linalg import sort_ascending
 
 __all__ = ['cacgmm_em_full', 'cacgmm_em_full_reference', 'smem_bytes',
-           'kernel_smem_bytes', 'max_frames', 'fits', 'cta_threads', 'DIMS']
+           'kernel_smem_bytes', 'max_frames', 'fits', 'cta_threads',
+           'scatter_frames', 'DIMS']
 
 DIMS = tuple(range(1, 17))  # the D the kernel is instantiated for
 _MAX_WARPS = 8  # kMaxThreads / 32 in csrc/em_loop.cu and csrc/em_step.cu
@@ -63,13 +76,33 @@ def max_frames(D, K, has_sal=False, has_mask=False):
         // (8 * D + 8 * K + 4 * has_sal + 4 * K * has_mask)
 
 
+def scatter_frames(D):
+    """Frames one lane of the kernel's M-step scatter sums from one
+    group of 16-byte loads (scatter_frames in csrc/em_loop.cu), a
+    function of D alone: the faster of 2 and 4 on the H100 (2 at
+    D = 4..10, 4 above), or 1 at D <= 3, where the gate's budget leaves no
+    room for the alignment pads (the kernel then keeps the one-frame
+    scatter)."""
+    return 1 if D <= 3 else 2 if D <= 10 else 4
+
+
 def kernel_smem_bytes(D, K, T):
     """Shared memory one bin's CTA takes (em_smem_bytes in
-    csrc/em_loop.cu): y with an odd row stride, the posterior times
-    saliency and the scatter weights, the scatter, eigenvectors and
-    scaled eigenbasis, and the per-class scalars."""
-    Tp = T if D == 1 else T | 1
-    return 8 * (D * Tp + 3 * K * D * D) + 4 * (2 * K * T + K * D + 4 * K)
+    csrc/em_loop.cu): y, the covariance, eigenvectors and scaled
+    eigenbasis, the posterior times saliency and the scatter weights, and
+    the per-class scalars. With one-frame groups y's row stride is odd (T
+    at D=1); with groups of G frames it is the least stride >= T that is
+    2 mod 4, the (K, T) rows are padded to a multiple of G and start on a
+    16-byte boundary."""
+    G = scatter_frames(D)
+    if G == 1:
+        Tp, Tw = (T if D == 1 else T | 1), T
+    else:
+        Tp, Tw = T + (2 - T) % 4, -(-T // G) * G
+    matrices = D * Tp + 3 * K * D * D
+    if G > 1:
+        matrices += matrices % 2
+    return 8 * matrices + 4 * (2 * K * Tw + K * D + 4 * K)
 
 
 def cta_threads(smem, D, K, T):

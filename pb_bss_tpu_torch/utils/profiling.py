@@ -24,7 +24,10 @@ The spans of a call of :func:`pb_bss_tpu_torch.pipeline.separate_batch`
 * ``stft`` and ``istft``: the transforms;
 * ``em``: the trainer's fit, with the counter ``em.route.<route>`` of
   the route it took (``whole``, ``fc``, ``stream``, ``t_blocked`` or
-  ``scan`` for the cACGMM, ``cwmm`` or ``cbmm`` for the other models);
+  ``scan`` for the cACGMM, ``cwmm`` or ``cbmm`` for the other models)
+  and, on the ``whole`` route, ``em.whole.scatter_frames.<G>``, the
+  frames a lane of the kernel's scatter sums at once
+  (``ops.em_loop.scatter_frames``);
 * ``dhtv``: the permutation alignment, with a ``dhtv.read`` span around
   each host read of its early exit (the first waits for the work queued
   before it, mostly the EM) and the counter ``dhtv.iterations`` of the

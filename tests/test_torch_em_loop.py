@@ -351,3 +351,44 @@ def test_threads_fill_the_rounds_of_frames():
     assert em_loop._threads(6, 3, 300) == 128
     # the longest T: one CTA an SM, eight warps
     assert em_loop._threads(6, 3, 3178) == 256
+
+
+# the gate's longest T at K=3 for D = 1..16, without and with saliency and
+# a source-activity mask, as the first design's budget gives it
+_MAX_FRAMES_K3 = (7259, 5800, 4823, 4121, 3593, 3178, 2845, 2570, 2338,
+                  2141, 1970, 1820, 1687, 1569, 1462, 1366)
+_MAX_FRAMES_K3_EXTRAS = (4839, 4142, 3617, 3205, 2874, 2600, 2371, 2174,
+                         2004, 1855, 1723, 1606, 1500, 1404, 1316, 1235)
+
+
+@pytest.mark.parametrize('D', em_loop.DIMS)
+def test_grouped_scatter_layout_stays_within_the_gate(D):
+    """The scatter's frame group is a function of D alone, and its
+    layout's pads (y's rows on 16-byte boundaries at a stride of 2 mod 4,
+    the (K, T) rows padded to the group) keep the kernel's shared memory
+    within the gate's budget at every T the gate admits, which admits
+    exactly the shapes of the first design's budget."""
+    import inspect
+    G = em_loop.scatter_frames(D)
+    assert list(inspect.signature(em_loop.scatter_frames).parameters) == [
+        'D']
+    assert G in (1, 2, 4) and (G == 1) == (D <= 3)
+    assert em_loop.max_frames(D, 3) == _MAX_FRAMES_K3[D - 1]
+    assert em_loop.max_frames(D, 3, True, True) \
+        == _MAX_FRAMES_K3_EXTRAS[D - 1]
+    for K in (1, 2, 3, 4, 5, 7, 8, 19):
+        for extras in itertools.product((False, True), repeat=2):
+            longest = em_loop.max_frames(D, K, *extras)
+            assert not em_loop.fits(D, K, longest + 1, *extras)
+            for T in range(1, longest + 1):
+                assert em_loop.fits(D, K, T, *extras)
+                assert em_loop.kernel_smem_bytes(D, K, T) \
+                    <= em_loop.smem_bytes(D, K, T, *extras), (K, T, extras)
+    # the pads over the one-frame layout: at most 3 complex a row of y,
+    # G - 1 floats a (K, T) row and 8 bytes of alignment
+    for K, T in itertools.product((1, 3, 7), (1, 3, 31, 303, 304, 305)):
+        one_frame = 8 * (D * (T if D == 1 else T | 1) + 3 * K * D * D) \
+            + 4 * (2 * K * T + K * D + 4 * K)
+        pads = em_loop.kernel_smem_bytes(D, K, T) - one_frame
+        assert (pads == 0) if G == 1 else \
+            (-8 * D <= pads <= 8 * 3 * D + 8 * (G - 1) * K + 8)

@@ -1036,45 +1036,96 @@ def _extras(N, K, T, device, seed):
     sal = 0.2 + 0.8 * torch.rand((N, T), device=device, generator=g)
     mask = (torch.rand((N, K, T), device=device, generator=g) > 0.2).float()
     mask[:, 0] = torch.maximum(mask[:, 0], 1 - mask.amax(1))
-    mask[:2, 1] = 0
+    if K > 1:
+        mask[:2, 1] = 0
     return sal, mask
 
 
 @pytest.mark.parametrize('extras', [False, True], ids=['plain', 'sal+mask'])
-@pytest.mark.parametrize('K', [2, 3])
-@pytest.mark.parametrize('D', [2, 6, 8, 16])
+@pytest.mark.parametrize('K', [1, 2, 3, 4, 5, 7])
+@pytest.mark.parametrize('D', list(range(1, 17)))
 def test_em_kernel_instantiations_match_plain(cuda, D, K, extras):
-    """K2, one iteration, at each D the paths reach (every template
-    instantiation they run), with and without saliency and a mask."""
-    N, T = 17, 157
-    y, aff = _unit_norm_mixture(N, D, K, T, cuda)
-    qf = torch.ones_like(aff)
-    kwargs = {}
-    if extras:
-        sal, mask = _extras(N, K, T, cuda, seed=D)
-        kwargs = dict(saliency=sal, source_activity_mask=mask,
-                      affiliation_eps=0.)
+    """K2, one iteration, at every D (every template instantiation and
+    frame group of the scatter) and K (every class group: 1-4, then 4 + 1
+    and 4 + 3), with and without saliency and a mask, at T that cover
+    every tail of a group of four frames and the gate's longest T at D=6,
+    K=3 where the gate admits them."""
+    from pb_bss_tpu_torch.ops.em_loop import fits, max_frames
+    N = 17
     sweeps = 6 if D <= 8 else 8
-    before = cacgmm_em_full.launches
-    out = cacgmm_em_full(y, aff, qf, iterations=1, sweeps=sweeps,
-                         warm_sweeps=2, **kwargs)
-    torch.cuda.synchronize()
-    assert cacgmm_em_full.launches == before + 1
-    ref = cacgmm_em_full_reference(y, aff, qf, iterations=1, sweeps=sweeps,
-                                   **kwargs)
-    assert all(bool(torch.isfinite(x).all()) for x in out)
-    # one cold iteration: f32 rounding of two Jacobi orders and E-steps
-    torch.testing.assert_close(out[0], ref[0], atol=1e-5, rtol=0)
-    torch.testing.assert_close(out[1], ref[1], atol=1e-4, rtol=0)
-    torch.testing.assert_close(out[3], ref[3], atol=2e-3, rtol=0)
-    if extras:
-        assert bool((out[3][:2, 1] == 0).all())
+    for T in (1, 3, 31, 303, 304, 305, max_frames(6, 3)):
+        if not fits(D, K, T, extras, extras):
+            continue
+        y, aff = _unit_norm_mixture(N, D, K, T, cuda)
+        qf = torch.ones_like(aff)
+        kwargs = {}
+        if extras:
+            sal, mask = _extras(N, K, T, cuda, seed=D)
+            kwargs = dict(saliency=sal, source_activity_mask=mask,
+                          affiliation_eps=0.)
+        before = cacgmm_em_full.launches
+        out = cacgmm_em_full(y, aff, qf, iterations=1, sweeps=sweeps,
+                             warm_sweeps=2, **kwargs)
+        torch.cuda.synchronize()
+        assert cacgmm_em_full.launches == before + 1
+        ref = cacgmm_em_full_reference(y, aff, qf, iterations=1,
+                                       sweeps=sweeps, **kwargs)
+        assert all(bool(torch.isfinite(x).all()) for x in out), T
+        # one cold iteration: f32 rounding of two Jacobi orders, E-steps
+        # and orders of the scatter's sums
+        torch.testing.assert_close(out[0], ref[0], atol=1e-5, rtol=0,
+                                   msg=lambda m: f'T={T}: {m}')
+        torch.testing.assert_close(out[1], ref[1], atol=1e-4, rtol=0,
+                                   msg=lambda m: f'T={T}: {m}')
+        if T < D:
+            # fewer frames than channels: every class's covariance has
+            # rank T < D, its other eigenvalues sit at the floor (1e-10),
+            # and the E-step's quadratic form is the Jacobi's rounding off
+            # the frames' span times 1e10, so the posterior is rounding in
+            # both (the kernel before the grouped scatter parts from the
+            # twin there by up to 0.9 too); the M-step above is
+            # well-posed and held, and of the posterior its sum over the
+            # classes (1, or 0 where the mask silences every class)
+            torch.testing.assert_close(out[3].sum(-2), ref[3].sum(-2),
+                                       atol=2e-3, rtol=0)
+        else:
+            torch.testing.assert_close(out[3], ref[3], atol=2e-3, rtol=0,
+                                       msg=lambda m: f'T={T}: {m}')
+        if extras and K > 1:
+            assert bool((out[3][:2, 1] == 0).all())
     # a warm fit stays finite and its weights sum to one
     out = cacgmm_em_full(y, aff, qf, iterations=5, sweeps=sweeps,
                          warm_sweeps=2, **kwargs)
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(x).all()) for x in out)
     torch.testing.assert_close(out[0].sum(-1), torch.ones(N, device=cuda))
+
+
+@pytest.mark.parametrize('T', [303, 304])
+@pytest.mark.parametrize('D', [2, 4, 6, 8, 16])
+def test_em_kernel_repeats_bit_for_bit(cuda, D, T):
+    """Two launches of K2 on one input agree bit for bit: the scatter's
+    cross-warp reduction runs in a fixed order, with no atomics."""
+    N, K = 65, 3
+    y, aff = _unit_norm_mixture(N, D, K, T, cuda)
+    qf = torch.ones_like(aff)
+    sal, mask = _extras(N, K, T, cuda, seed=D)
+    kwargs = dict(iterations=20, sweeps=6 if D <= 8 else 8, warm_sweeps=2,
+                  saliency=sal, source_activity_mask=mask)
+    first = cacgmm_em_full(y, aff, qf, **kwargs)
+    second = cacgmm_em_full(y, aff, qf, **kwargs)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_em_kernel_scatter_frames_as_the_host_has_them(cuda):
+    """The frame group the kernel is compiled with at each D is the one
+    ops.em_loop exposes (and lays out shared memory for)."""
+    from pb_bss_tpu_torch.ops import _build, em_loop
+    lib = _build.load('em_loop')
+    assert [lib.cacgmm_em_full_scatter_frames(D) for D in em_loop.DIMS] \
+        == [em_loop.scatter_frames(D) for D in em_loop.DIMS]
 
 
 @pytest.mark.parametrize('extras', [False, True], ids=['plain', 'sal+mask'])
