@@ -28,6 +28,7 @@ import torch
 
 from .._dtypes import real_dtype as _real_dtype
 from ..ops.linalg import stable_solve
+from ..utils import profiling
 from ._precision import full_fp32
 from .base import Model, modelclass
 
@@ -80,6 +81,7 @@ class FCA(Model):
         unused, for the mixture models' signature)."""
         return self._gains().mean(-2)
 
+    @profiling.span('fca.separate')
     def separate(self, y):
         """Wiener source images.
 
@@ -138,6 +140,8 @@ def _ip_update(q, y, sigma2):
 
 
 def _fca_fit(y, q, lam, v, *, iterations, q_iterations, eigenvalue_floor):
+    profiling.count('fca.iterations', iterations)
+    profiling.count('fca.ip_rows', y.shape[-2] * q_iterations * iterations)
     for _ in range(iterations):
         p, _ = _transformed_power(q, y)
 
@@ -184,6 +188,7 @@ class FCATrainer:
         self.q_iterations = q_iterations
         self.eigenvalue_floor = eigenvalue_floor
 
+    @profiling.span('fca.fit')
     def fit(self, y, initialization=None, num_classes=None, iterations=50,
             *, generator=None) -> FCA:
         """Fit the model to one utterance (or to a batch folded into the

@@ -138,15 +138,16 @@ def _separate_bins(observations, initialization, *, iterations, stft_size,
         2)  # (B, K, F, T)
 
     if refine is not None:
-        # every bin is independent: the batch folds into the bin axis
-        B, F, T, D = Y.shape
-        fca = FCATrainer().fit(
-            Y.reshape(B * F, T, D),
-            initialization=masks.transpose(1, 2).reshape(B * F, -1, T),
-            iterations=refine_iterations)
-        images = fca.separate(Y.reshape(B * F, T, D))  # (B F, K, T, D)
-        estimate = images[..., reference_channel].reshape(B, F, -1, T)
-        return estimate.permute(0, 2, 3, 1)
+        with profiling.span('fca'):
+            # every bin is independent: the batch folds into the bin axis
+            B, F, T, D = Y.shape
+            fca = FCATrainer().fit(
+                Y.reshape(B * F, T, D),
+                initialization=masks.transpose(1, 2).reshape(B * F, -1, T),
+                iterations=refine_iterations)
+            images = fca.separate(Y.reshape(B * F, T, D))  # (B F, K, T, D)
+            estimate = images[..., reference_channel].reshape(B, F, -1, T)
+            return estimate.permute(0, 2, 3, 1)
 
     if beamformer is None:
         return masks.transpose(-1, -2) \

@@ -33,7 +33,12 @@ The spans of a call of :func:`pb_bss_tpu_torch.pipeline.separate_batch`
   before it, mostly the EM) and the counter ``dhtv.iterations`` of the
   iterations that ran;
 * ``beamformer``: the PSDs, beamforming vectors, phase correction and
-  beamforming.
+  beamforming;
+* ``fca`` in its place with ``refine='fca'``: the FCA refinement, its
+  ``fca.fit`` (the counters ``fca.iterations``, the MU / IP iterations,
+  and ``fca.ip_rows``, the diagonalizer rows solved: D x IP sweeps x
+  iterations) and ``fca.separate`` (the Wiener back-transform). A fit
+  or a separation called on its own is a request of its own.
 
 A call of :func:`pb_bss_tpu_torch.evaluation.bss_eval_stoi_fused_batch`
 is a request ``score``, with ``score.read`` around its copy to the host.
