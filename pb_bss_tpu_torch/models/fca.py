@@ -12,7 +12,9 @@ of ``v`` and ``lambda`` with iterative-projection (IP) updates of the
 rows of ``Q``, each row a :func:`~pb_bss_tpu_torch.ops.linalg.
 stable_solve` over every bin (on CUDA one launch of the batched Jacobi
 kernel K1 for its pseudo-inverse fallback, computed for every bin and
-selected branchlessly).
+selected branchlessly). The variances are fixed through a sweep, so the
+D rows' weighted covariances come from one batched real GEMM over the
+Hermitian frame products ``y y^H``, which are built once a fit.
 
 Every bin is independent, so a batch of utterances folds into the bin
 axis: (B, F, T, D) observations as (B F, T, D).
@@ -118,16 +120,64 @@ class FCA(Model):
         return ll / (F * T)
 
 
-def _ip_update(q, y, sigma2):
+class _FrameProducts:
+    """The fit's Hermitian frame products, built once a fit: ``y_a
+    conj(y_b)`` for ``a <= b`` of each (bin, frame), the D (D + 1) / 2
+    complex entries of the upper triangle row by row, stored as
+    (real, imaginary) pairs: ``values`` (F, T, D (D + 1)) real.
+
+    They weigh D (D + 1) / 2 complex entries a (bin, frame), 3.5 times
+    y at D = 6, and grow quadratically in D.
+    """
+
+    def __init__(self, y):
+        """``y``: (F, D, T) complex observations."""
+        F, D, T = y.shape
+        frames = y.transpose(-2, -1)  # (F, T, D)
+        products = torch.empty((F, T, D * (D + 1) // 2), dtype=y.dtype,
+                               device=y.device)
+        start = 0
+        # a multiply a row a, written into the buffer: the build holds
+        # no transient of the products' size
+        for a in range(D):
+            stop = start + D - a
+            torch.mul(frames[..., a, None], frames[..., a:].conj(),
+                      out=products[..., start:stop])
+            start = stop
+        self.values = torch.view_as_real(products).flatten(-2)
+        # (a, b) -> the packed entry of (min, max), conjugated below
+        # the diagonal; made on the device, so nothing waits for it
+        row = torch.arange(D, device=y.device)
+        low, high = (torch.minimum(row[:, None], row),
+                     torch.maximum(row[:, None], row))
+        self.index = low * (2 * D + 1 - low) // 2 + high - low  # (D, D)
+        below = (row[:, None] > row).to(self.values.dtype)
+        self.sign = torch.stack([torch.ones_like(below), 1 - 2 * below],
+                                -1)  # (D, D, 2)
+
+    def covariances(self, sigma2):
+        """Every row's ``V_d = mean_t y y^H / sigma2_d`` of an IP sweep
+        in one batched GEMM over the frame products: (F, D, T) variances
+        -> (F, D, D, D) complex, ``[:, d]`` the Hermitian ``V_d``."""
+        F, D, T = sigma2.shape
+        with full_fp32():
+            sums = torch.bmm((T * sigma2).reciprocal(), self.values)
+        pairs = sums.view(F, D, -1, 2)[:, :, self.index] * self.sign
+        return torch.view_as_complex(pairs)
+
+
+def _ip_update(q, products, sigma2):
     """One iterative-projection sweep over the diagonalizer's rows: for
     row d, ``h = (Q V_d)^{-1} e_d`` with ``V_d = mean_t y y^H /
-    sigma2_d``, scaled to ``h^H V_d h == 1``; the row becomes ``h^H``."""
-    F, D, T = y.shape
-    y_conj = y.conj()
+    sigma2_d``, scaled to ``h^H V_d h == 1``; the row becomes ``h^H``.
+    The sweep's D covariances come from ``products``
+    (:class:`_FrameProducts`) at once, before the first row."""
+    F, D, _ = sigma2.shape
+    profiling.count('fca.ip_sweeps')
+    covariances = products.covariances(sigma2)
     for d in range(D):
-        weighted = y / sigma2[:, d, None, :]
+        v_d = covariances[:, d]
         with full_fp32():
-            v_d = torch.einsum('fat,fbt->fab', weighted, y_conj) / T
             qv = q @ v_d
         rhs = torch.zeros((F, D, 1), dtype=q.dtype, device=q.device)
         rhs[:, d] = 1
@@ -142,6 +192,7 @@ def _ip_update(q, y, sigma2):
 def _fca_fit(y, q, lam, v, *, iterations, q_iterations, eigenvalue_floor):
     profiling.count('fca.iterations', iterations)
     profiling.count('fca.ip_rows', y.shape[-2] * q_iterations * iterations)
+    products = _FrameProducts(y)
     for _ in range(iterations):
         p, _ = _transformed_power(q, y)
 
@@ -170,7 +221,7 @@ def _fca_fit(y, q, lam, v, *, iterations, q_iterations, eigenvalue_floor):
         # IP sweeps for the shared diagonalizer.
         sigma2 = _sigma2(v, lam)
         for _ in range(q_iterations):
-            q = _ip_update(q, y, sigma2)
+            q = _ip_update(q, products, sigma2)
     return q, lam, v
 
 

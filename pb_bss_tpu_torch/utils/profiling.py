@@ -36,8 +36,9 @@ The spans of a call of :func:`pb_bss_tpu_torch.pipeline.separate_batch`
   beamforming;
 * ``fca`` in its place with ``refine='fca'``: the FCA refinement, its
   ``fca.fit`` (the counters ``fca.iterations``, the MU / IP iterations,
-  and ``fca.ip_rows``, the diagonalizer rows solved: D x IP sweeps x
-  iterations) and ``fca.separate`` (the Wiener back-transform). A fit
+  ``fca.ip_rows``, the diagonalizer rows solved: D x IP sweeps x
+  iterations, and ``fca.ip_sweeps``, the IP sweeps, each with its D
+  rows' covariances in one pass) and ``fca.separate`` (the Wiener back-transform). A fit
   or a separation called on its own is a request of its own.
 
 A call of :func:`pb_bss_tpu_torch.evaluation.bss_eval_stoi_fused_batch`

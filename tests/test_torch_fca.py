@@ -1,7 +1,9 @@
 """The port's FCA (``models.fca``) against the JAX package's on the same
 seeded inputs (complex64): a fit from the same masks, a model carried
 over by ``from_dict``, the monotone likelihood, the blind fit's warning
-and the input checks. Small sizes (F=8, T=160, D=3, K=2)."""
+and the input checks. Small sizes (F=8, T=160, D=3, K=2). The IP sweep's
+covariances from the frame products against the per-row formula, and a
+sweep against the per-row sweep, both kept here as references."""
 import warnings
 
 import jax
@@ -13,6 +15,8 @@ from numpy.testing import assert_allclose
 
 from pb_bss_tpu.models import FCATrainer as JaxFCATrainer
 from pb_bss_tpu_torch.models import FCA, FCATrainer
+from pb_bss_tpu_torch.models.fca import _FrameProducts, _ip_update
+from pb_bss_tpu_torch.ops.linalg import stable_solve
 
 torch.set_num_threads(2)
 
@@ -176,3 +180,61 @@ def test_folded_batch_equals_per_utterance_fits():
                                  iterations=3)
         torch.testing.assert_close(folded.predict()[4 * i:4 * i + 4],
                                    alone.predict(), atol=1e-5, rtol=1e-4)
+
+
+def _sweep_inputs(D, dtype, F=16, T=64, seed=0):
+    """Observations (F, D, T), variances (F, D, T) and a diagonalizer
+    near the identity (F, D, D)."""
+    g = torch.Generator().manual_seed(seed)
+    rdtype = dtype.to_real()
+    y = torch.complex(torch.randn(F, D, T, generator=g, dtype=rdtype),
+                      torch.randn(F, D, T, generator=g, dtype=rdtype))
+    sigma2 = 0.1 + torch.rand(F, D, T, generator=g, dtype=rdtype)
+    q = torch.eye(D, dtype=dtype) + 0.1 * torch.complex(
+        torch.randn(F, D, D, generator=g, dtype=rdtype),
+        torch.randn(F, D, D, generator=g, dtype=rdtype))
+    return y, sigma2, q
+
+
+@pytest.mark.parametrize('dtype', [torch.complex64, torch.complex128])
+@pytest.mark.parametrize('D', [2, 3, 6, 7])
+def test_one_gemm_covariances_equal_the_per_row_formula(D, dtype):
+    y, sigma2, _ = _sweep_inputs(D, dtype)
+    T = y.shape[-1]
+    got = _FrameProducts(y).covariances(sigma2)
+    assert got.dtype == dtype and got.shape == (16, D, D, D)
+    eps = torch.finfo(sigma2.dtype).eps
+    for d in range(D):
+        want = torch.einsum('fat,fbt->fab', y / sigma2[:, d, None],
+                            y.conj()) / T
+        torch.testing.assert_close(got[:, d], want, rtol=0,
+                                   atol=64 * eps * want.abs().max())
+        # the lower triangle the conjugate of the upper, bit for bit
+        assert torch.equal(got[:, d].tril(-1), got[:, d].mH.tril(-1))
+
+
+def _per_row_sweep(q, y, sigma2):
+    """The IP sweep with each row's covariance from its own weighted
+    copy of y and a complex GEMM."""
+    F, D, T = y.shape
+    for d in range(D):
+        v_d = torch.einsum('fat,fbt->fab', y / sigma2[:, d, None, :],
+                           y.conj()) / T
+        rhs = torch.zeros((F, D, 1), dtype=q.dtype)
+        rhs[:, d] = 1
+        h = stable_solve(q @ v_d, rhs)[..., 0]
+        norm2 = torch.einsum('fa,fab,fb->f', h.conj(), v_d, h).real
+        h = h / torch.sqrt(torch.clamp(norm2, min=1e-10))[:, None]
+        q = torch.cat([q[:, :d], h.conj()[:, None], q[:, d + 1:]], dim=1)
+    return q
+
+
+@pytest.mark.parametrize('dtype, rtol', [(torch.complex64, 1e-5),
+                                         (torch.complex128, 1e-12)])
+def test_one_ip_sweep_equals_the_per_row_sweep(dtype, rtol):
+    y, sigma2, q = _sweep_inputs(6, dtype, seed=1)
+    got = _ip_update(q, _FrameProducts(y), sigma2)
+    want = _per_row_sweep(q, y, sigma2)
+    assert not torch.equal(got, q)
+    scale = want.abs().amax((-1, -2), keepdim=True)
+    assert ((got - want).abs() / scale).max() < rtol

@@ -59,14 +59,16 @@ def test_the_control_reads_not_correct(small):
 
 
 def _skip_a_row(original):
-    def update(q, y, sigma2):
-        return torch.cat([q[:, :1], original(q, y, sigma2)[:, 1:]], 1)
+    def update(q, products, sigma2):
+        return torch.cat([q[:, :1], original(q, products, sigma2)[:, 1:]],
+                         1)
     return update
 
 
 def _fit_without_the_spectra_mu(y, q, lam, v, *, iterations, q_iterations,
                                 eigenvalue_floor):
     """The refinement's fit with the MU of lambda left out."""
+    products = fca._FrameProducts(y)
     for _ in range(iterations):
         p, _ = fca._transformed_power(q, y)
         sigma2 = fca._sigma2(v, lam)
@@ -78,7 +80,7 @@ def _fit_without_the_spectra_mu(y, q, lam, v, *, iterations, q_iterations,
         v = v * scale
         sigma2 = fca._sigma2(v, lam)
         for _ in range(q_iterations):
-            q = fca._ip_update(q, y, sigma2)
+            q = fca._ip_update(q, products, sigma2)
     return q, lam, v
 
 

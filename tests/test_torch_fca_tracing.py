@@ -1,7 +1,8 @@
 """The FCA refinement's spans and counters and the benchmark's readers
 of them: ``separate_batch(refine='fca')`` records an ``fca`` span in
 the beamformer's place with ``fca.fit`` and ``fca.separate`` inside it
-and the counters ``fca.iterations`` and ``fca.ip_rows``;
+and the counters ``fca.iterations``, ``fca.ip_rows`` and
+``fca.ip_sweeps`` (D rows a sweep: the sweep's covariances batched);
 ``sepbench/metrics/fca_host_ms.py`` reads the span as a hand count does,
 and nothing where the program keeps no requests; the device-trace
 readers (``fca_device_ms``, ``fca_kernels``, ``fca_roofline``) read the
@@ -72,6 +73,7 @@ def test_the_counters(calls):
     for request in calls:
         assert request.counters['fca.iterations'] == ITERATIONS
         assert request.counters['fca.ip_rows'] == 6 * 1 * ITERATIONS
+        assert request.counters['fca.ip_sweeps'] == 1 * ITERATIONS
 
 
 def test_a_fit_alone_is_a_request_of_its_own():
@@ -80,7 +82,8 @@ def test_a_fit_alone_is_a_request_of_its_own():
     FCATrainer(q_iterations=2).fit(y, initialization=masks, iterations=3)
     [request] = profiling.requests(last=1)
     assert request.root == 'fca.fit'
-    assert request.counters == {'fca.iterations': 3, 'fca.ip_rows': 18}
+    assert request.counters == {'fca.iterations': 3, 'fca.ip_rows': 18,
+                                'fca.ip_sweeps': 6}
 
 
 def _ctx(calls=0, trace=None, traced_calls=0, batch=256):
