@@ -125,6 +125,8 @@ import sys
 import time
 import traceback
 
+from sepbench.harness.counts import bound, em_flops, jacobi_flops, nbytes
+
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT = ROOT / 'chiprun_out' / 'smoke'
 
@@ -207,12 +209,6 @@ EXTRACTION_FLOORS_DB = {
 FCA_MEAN_FLOOR_DB = -0.5
 FCA_SINGLE_FLOOR_DB = -13.0
 FCA_BSS_MARGIN_DB = 0.5
-
-# published peaks of the H100 SXM (the least time of a kernel is the
-# larger of its bytes over the memory rate and its operations over the
-# float32 rate outside the tensor cores)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOP_PER_S = 67e12
 
 
 def log(*args):
@@ -2174,14 +2170,14 @@ def phase_main_path():
     out = P.separate_batch(obs, num_classes=3, iterations=20,
                            beamformer='gev+ban')
     sync()
-    launches = {'cacgmm_em_full': cacgmm_em_full.launches,
-                'gev': gev.launches}
+    launches = {'em_loop.cacgmm_em_full': cacgmm_em_full.launches,
+                'gev.gev': gev.launches}
     log(f'main path separate_batch(8 x {tuple(obs.shape[1:])}, '
         f"'gev+ban', 20 it) -> {tuple(out.shape)}; launches {launches}")
     if any(n == 0 for n in launches.values()):
         fail(f'a kernel of the main path was not launched: {launches}')
-    if launches['gev'] != 1:
-        fail(f'separate_batch launched K3 {launches["gev"]} times, not '
+    if launches['gev.gev'] != 1:
+        fail(f'separate_batch launched K3 {launches["gev.gev"]} times, not '
              'once (the loading retry runs in the same launch)')
     if not bool(torch.isfinite(out).all()):
         fail('separate_batch output is not finite')
@@ -2332,12 +2328,12 @@ def phase_evaluation():
     out = P.separate_batch(obs, num_classes=3, iterations=20,
                            beamformer='gev+ban')
     sync()
-    launches = {'cacgmm_em_full': cacgmm_em_full.launches,
-                'gev': gev.launches}
+    launches = {'em_loop.cacgmm_em_full': cacgmm_em_full.launches,
+                'gev.gev': gev.launches}
     log(f'evaluation: separate_batch(8 x {tuple(obs.shape[1:])}, '
         f"'gev+ban', 20 it) -> {tuple(out.shape)} on {out.device}; "
         f'launches {launches}')
-    if launches['cacgmm_em_full'] < 1 or launches['gev'] != 1:
+    if launches['em_loop.cacgmm_em_full'] < 1 or launches['gev.gev'] != 1:
         fail(f'separate_batch before the metrics launched {launches}: '
              'K2 at least once and K3 exactly once expected')
 
@@ -2692,7 +2688,8 @@ def phase_extraction():
         launches = read_counters()
         routes[route] = launches
         want = dict.fromkeys(launches, 0)
-        want.update(cacgmm_em_full=1, gev=k3, eigh_jacobi=k1)
+        want.update({'em_loop.cacgmm_em_full': 1, 'gev.gev': k3,
+                     'eigh.eigh_jacobi': k1})
         expect_launches(f'separate_batch(8 x 4.8 s, {route!r}, 20 it)',
                         launches, want)
         if not bool(torch.isfinite(out).all()):
@@ -2730,7 +2727,8 @@ def phase_fca():
     sync()
     launches = read_counters()
     want = dict.fromkeys(launches, 0)
-    want.update(cacgmm_em_full=1, eigh_jacobi=FCA_LAUNCHES)
+    want.update({'em_loop.cacgmm_em_full': 1,
+                 'eigh.eigh_jacobi': FCA_LAUNCHES})
     expect_launches("separate_batch(8 x 4.8 s, refine='fca', 20 + 20 it)",
                     launches, want)
     if not bool(torch.isfinite(out).all()):
@@ -2823,7 +2821,8 @@ def stream_separator(beamformer, **kwargs):
 
 
 def stream_launches(got):
-    return {k: got[k] for k in ('cacgmm_em_full', 'eigh_jacobi', 'gev')}
+    return {k: got[k] for k in ('em_loop.cacgmm_em_full', 'eigh.eigh_jacobi',
+                                'gev.gev')}
 
 
 def stream_expected(sep, samples, beamformer):
@@ -2837,9 +2836,10 @@ def stream_expected(sep, samples, beamformer):
     total = -(-samples // block)
     warm = sep.init_frames // sep.block_frames
     want = dict.fromkeys(read_counters(), 0)
-    want.update(cacgmm_em_full=1,
-                eigh_jacobi=(total - warm) * sep.stream.inner_iterations,
-                gev=total if beamformer else 0)
+    want.update({'em_loop.cacgmm_em_full': 1,
+                 'eigh.eigh_jacobi':
+                     (total - warm) * sep.stream.inner_iterations,
+                 'gev.gev': total if beamformer else 0})
     return want, total - warm
 
 
@@ -3185,10 +3185,10 @@ def phase_surface():
     card, cpu = both(lambda y: M.ComplexCircularSymmetricGaussianTrainer()
                      .fit(y).log_pdf(y), y)
     compare('cCSG log_pdf (c64)', card, cpu, 1e-3)
-    before = read_counters()['eigh_jacobi']
+    before = read_counters()['eigh.eigh_jacobi']
     card, cpu = both(lambda y: M.ComplexAngularCentralGaussianTrainer().fit(
         y, iterations=5).covariance, y)
-    if read_counters()['eigh_jacobi'] - before != 5:
+    if read_counters()['eigh.eigh_jacobi'] - before != 5:
         fail('the cACG fit on 257 bins did not launch K1 once per '
              'iteration')
     compare('cACG fit covariance (c64, 5 it)', card, cpu, 1e-4)
@@ -3314,7 +3314,8 @@ def parallel_dtensor_fits(mesh, run, obs, obs3, emb):
     from pb_bss_tpu_torch.parallel import (
         fit_integration_sharded, shard_frequencies)
     loop = dict(num_classes=3, iterations=20, use_fused_em='loop')
-    k12 = {'integration_em_full': 1, 'integration_e_stats': 0}
+    k12 = {'integration_em_loop.integration_em_full': 1,
+           'integration_em.e_stats': 0}
     sharded = run("fit_integration_sharded(use_fused_em='loop') vMF F=513 "
                   'T=300 E=20, 20 it', lambda: fit_integration_sharded(
                       obs3, emb, mesh, **loop), k12, strict=False)
@@ -3330,9 +3331,9 @@ def parallel_dtensor_fits(mesh, run, obs, obs3, emb):
     Y = P.transform.stft(obs, 512, 128).permute(0, 3, 2, 1).contiguous()
     Yd = shard_frequencies(Y, mesh, frequency_axis=1)
     options = dict(num_classes=3, iterations=20)
-    for Trainer, kernel in ((CACGMMTrainer, 'cacgmm_em_full'),
-                            (CWMMTrainer, 'cwmm_em_full'),
-                            (CBMMTrainer, 'cbmm_em_full')):
+    for Trainer, kernel in ((CACGMMTrainer, 'em_loop.cacgmm_em_full'),
+                            (CWMMTrainer, 'cwmm_loop.cwmm_em_full'),
+                            (CBMMTrainer, 'cbmm_loop.cbmm_em_full')):
         name = Trainer.__name__
         sharded = run(f'{name}().fit(DTensor) 8 x F=257 T=304, 20 it',
                       lambda: Trainer().fit(Yd, **options), {kernel: 1},
@@ -3347,8 +3348,8 @@ def parallel_dtensor_fits(mesh, run, obs, obs3, emb):
 
     obs3d = shard_frequencies(obs3, mesh)
     embd = shard_frequencies(emb, mesh)
-    k10 = {'integration_e_stats': 19, 'eigh_jacobi': 20,
-           'integration_em_full': 0}
+    k10 = {'integration_em.e_stats': 19, 'eigh.eigh_jacobi': 20,
+           'integration_em_loop.integration_em_full': 0}
     sharded = run('VMFCACGMMTrainer().fit(DTensor) F=513 T=300 E=20, 20 it',
                   lambda: VMFCACGMMTrainer().fit(obs3d, embd, **options),
                   k10, strict=False)
@@ -3401,14 +3402,15 @@ def parallel_batch_fits(mesh, run, obs):
         shard_batch_and_frequencies, shard_batch_from_process_local)
     Y = P.transform.stft(obs, 512, 128).permute(0, 3, 2, 1).contiguous()
     Yb = shard_batch_and_frequencies(Y, mesh)
-    fc = {'cacgmm_em_fc_init': 1, 'cacgmm_em_fc_step': 19,
-          'cacgmm_em_full': 0}
+    fc = {'em_step.m_init': 1, 'em_step.em_step': 19,
+          'em_loop.cacgmm_em_full': 0}
     for label, Trainer, extra, want in (
-            ('CACGMMTrainer', CACGMMTrainer, {}, {'cacgmm_em_full': 1}),
+            ('CACGMMTrainer', CACGMMTrainer, {},
+             {'em_loop.cacgmm_em_full': 1}),
             ('CACGMMTrainer fc', CACGMMTrainer,
              {'weight_constant_axis': (-3, -1)}, fc),
-            ('CWMMTrainer', CWMMTrainer, {}, {'cwmm_em_full': 1}),
-            ('CBMMTrainer', CBMMTrainer, {}, {'cbmm_em_full': 1})):
+            ('CWMMTrainer', CWMMTrainer, {}, {'cwmm_loop.cwmm_em_full': 1}),
+            ('CBMMTrainer', CBMMTrainer, {}, {'cbmm_loop.cbmm_em_full': 1})):
         options = dict(num_classes=3, iterations=20, **extra)
         sharded = run(f"{label}.fit(('b', 'f') DTensor) 8 x F=257 T=304, "
                       '20 it', lambda: Trainer().fit(Yb, **options), want,
@@ -3441,7 +3443,8 @@ def parallel_batch_fits(mesh, run, obs):
     obs3d = shard_batch_and_frequencies(obs3, mesh)
     embd = shard_batch_and_frequencies(emb, mesh)
     loop = dict(num_classes=3, iterations=20, use_fused_em='loop')
-    k12 = {'integration_em_full': 1, 'integration_e_stats': 0}
+    k12 = {'integration_em_loop.integration_em_full': 1,
+           'integration_em.e_stats': 0}
     sharded = run("VMFCACGMMTrainer.fit(('b', 'f') DTensor, 'loop') B=8 "
                   'F=513 T=300 E=20, 20 it',
                   lambda: VMFCACGMMTrainer().fit(obs3d, embd, **loop), k12,
@@ -3463,8 +3466,9 @@ def parallel_batch_fits(mesh, run, obs):
     local = shard_batch_from_process_local(Y, mesh)
     dcn = dict(num_classes=3, iterations=20, weight_constant_axis=(-3, -1),
                use_fused_em=False)
-    scan = {'eigh_jacobi': 20, 'cacgmm_em_full': 0, 'cacgmm_em_fc_init': 0,
-            'cacgmm_em_fc_step': 0, 'cacgmm_em_long': 0}
+    scan = {'eigh.eigh_jacobi': 20, 'em_loop.cacgmm_em_full': 0,
+            'em_step.m_init': 0, 'em_step.em_step': 0,
+            'em_stream.e_stats': 0}
     sharded = run('dcn_dryrun sequence: shard_batch_from_process_local, '
                   'CACGMMTrainer.fit fc use_fused_em=False, 8 x F=257 '
                   'T=304, 20 it', lambda: CACGMMTrainer().fit(local, **dcn),
@@ -3531,11 +3535,12 @@ def run_examples(run):
         sys.path.remove(str(ROOT / 'examples'))
     cases = (
         ('mixture_model', dict(iterations=3),
-         {'cacgmm_em_full': 1, 'gev': 3}),
+         {'em_loop.cacgmm_em_full': 1, 'gev.gev': 3}),
         ('integration_model', {},
-         {'integration_e_stats': 78, 'eigh_jacobi': 80}),
-        ('evaluation', {}, {'cacgmm_em_full': 1, 'gev': 1}),
-        ('streaming', {}, {'cacgmm_em_full': 1, 'eigh_jacobi': 4}))
+         {'integration_em.e_stats': 78, 'eigh.eigh_jacobi': 80}),
+        ('evaluation', {}, {'em_loop.cacgmm_em_full': 1, 'gev.gev': 1}),
+        ('streaming', {},
+         {'em_loop.cacgmm_em_full': 1, 'eigh.eigh_jacobi': 4}))
     printed = {}
     card = getattr(phase_device, 'card', '')
     for name, kwargs, want in cases:
@@ -3598,10 +3603,11 @@ def phase_parallel_and_rest():
         fit_cacgmm_sharded, fit_integration_sharded, initialize_distributed,
         make_mesh)
     from pb_bss_tpu_torch.utils import profiling
-    path = dict.fromkeys(('cacgmm_em_full', 'gev', 'cacgmm_em_fc_init',
-                          'cacgmm_em_fc_step', 'integration_e_stats',
-                          'eigh_jacobi', 'cwmm_em_full', 'cbmm_em_full',
-                          'integration_em_full'), 0)
+    path = dict.fromkeys(('em_loop.cacgmm_em_full', 'gev.gev',
+                          'em_step.m_init', 'em_step.em_step',
+                          'integration_em.e_stats', 'eigh.eigh_jacobi',
+                          'cwmm_loop.cwmm_em_full', 'cbmm_loop.cbmm_em_full',
+                          'integration_em_loop.integration_em_full'), 0)
     idle = dict.fromkeys(counters(), 0)
     card = getattr(phase_device, 'card', '')
 
@@ -3630,7 +3636,7 @@ def phase_parallel_and_rest():
         obs = obs.cuda()
         options = dict(num_classes=3, iterations=20, beamformer='gev+ban')
         plain = P.separate_batch(obs, **options)
-        slice_launches = {'cacgmm_em_full': 1, 'gev': 1}
+        slice_launches = {'em_loop.cacgmm_em_full': 1, 'gev.gev': 1}
         meshed = run("separate_batch(mesh=(1, 1) ('b', 'f')) 8 x 4.8 s, "
                      "'gev+ban', 20 it",
                      lambda: P.separate_batch(obs, mesh=mesh, **options),
@@ -3669,8 +3675,8 @@ def phase_parallel_and_rest():
         y, aff, _ = em_inputs(8, 513, 6, 3, 300, seed=140)
         Y = y.transpose(-1, -2).contiguous()
         fc = dict(iterations=20, weight_constant_axis=(-3, -1))
-        k5 = {'cacgmm_em_fc_init': 1, 'cacgmm_em_fc_step': 19,
-              'cacgmm_em_full': 0, 'cacgmm_em_long': 0}
+        k5 = {'em_step.m_init': 1, 'em_step.em_step': 19,
+              'em_loop.cacgmm_em_full': 0, 'em_stream.e_stats': 0}
         sharded = run('fit_cacgmm_sharded fc B=8 F=513 T=300, 20 it',
                       lambda: fit_cacgmm_sharded(
                           Y, mesh, initialization=aff, frequency_axis=1,
@@ -3689,7 +3695,7 @@ def phase_parallel_and_rest():
         g = torch.Generator('cuda').manual_seed(151)
         emb = torch.randn((513, 300, 20), generator=g, device='cuda')
         emb = emb / emb.norm(dim=-1, keepdim=True)
-        k10 = {'integration_e_stats': 19, 'eigh_jacobi': 20}
+        k10 = {'integration_em.e_stats': 19, 'eigh.eigh_jacobi': 20}
         sharded = run('fit_integration_sharded vMF F=513 T=300 E=20, 20 it',
                       lambda: fit_integration_sharded(
                           obs3, emb, mesh, num_classes=3, iterations=20),
@@ -3714,7 +3720,7 @@ def phase_parallel_and_rest():
 
     Y = P.transform.stft(obs[0], 512, 128).permute(2, 1, 0).contiguous()
     seed = run('deflationSeed F=257 T=304 D=6, 3 sources',
-               lambda: deflationSeed(Y, 3), {'eigh_jacobi': 2})
+               lambda: deflationSeed(Y, 3), {'eigh.eigh_jacobi': 2})
     cpu = deflationSeed(Y.cpu(), 3)
     err = float((seed.cpu() - cpu).abs().max())
     log(f'deflationSeed card against CPU: {err:.2e} (atol 1e-3)')
@@ -3861,25 +3867,14 @@ def long_recordings(first_seed, count):
 
 
 def counters():
-    """{name: wrapper} of every kernel's launch counter; ``mm_stats`` is
-    K7's, the streamed pass of both the Watson and the Bingham fits."""
-    from pb_bss_tpu_torch.ops import (
-        bingham, cbmm_loop, cwmm_loop, eigh, em_estep, em_loop, em_step,
-        em_stream, gev, integration_em, integration_em_loop, mm_stream)
-    return {'integration_e_stats': integration_em.e_stats,
-            'integration_em_full': integration_em_loop.integration_em_full,
-            'cacgmm_em_full': em_loop.cacgmm_em_full,
-            'cwmm_em_full': cwmm_loop.cwmm_em_full,
-            'mm_stats': mm_stream.mm_stats,
-            'cbmm_em_full': cbmm_loop.cbmm_em_full,
-            'bingham_chord_solve': bingham.bingham_chord_solve,
-            'gev': gev.gev,
-            'eigh_jacobi': eigh.eigh_jacobi,
-            'cacgmm_em_long': em_stream.e_stats,
-            'cacgmm_em_fc_init': em_step.m_init,
-            'cacgmm_em_fc_step': em_step.em_step,
-            'cacgmm_e_step': em_estep.cacgmm_e_step,
-            'cacgmm_em_scatter': em_estep.cacgmm_em_scatter}
+    """{'<module>.<function>': wrapper} of every kernel's launch counter,
+    as the wrappers register them (``ops._build.counted``) when the
+    package imports their modules; ``mm_stream.mm_stats`` is K7's, the
+    streamed pass of both the Watson and the Bingham fits."""
+    import pb_bss_tpu_torch  # noqa: F401  (imports every wrapper)
+    from pb_bss_tpu_torch.utils import profiling
+    return {name.removeprefix('launches.'): fn
+            for name, fn in profiling._launch_counters.items()}
 
 
 def reset_counters():
@@ -3911,9 +3906,10 @@ def phase_long():
     launches = read_counters()
     log(f'long path separate_batch(4 x {tuple(obs.shape[1:])}, '
         f"'gev+ban', 20 it) -> {tuple(out.shape)}; launches {launches}")
-    if not (launches['cacgmm_em_full'] == 0
-            and launches['cacgmm_em_long'] >= 1
-            and launches['eigh_jacobi'] >= 1 and launches['gev'] == 1):
+    if not (launches['em_loop.cacgmm_em_full'] == 0
+            and launches['em_stream.e_stats'] >= 1
+            and launches['eigh.eigh_jacobi'] >= 1
+            and launches['gev.gev'] == 1):
         fail(f'long path launches {launches}, expected K2 = 0, K4 >= 1, '
              'K1 >= 1, K3 = 1')
     if not bool(torch.isfinite(out).all()):
@@ -3944,7 +3940,7 @@ def phase_long():
     log('separate() defaults (mask, 80 it) on 60 s: SI-SDR per speaker',
         [round(v, 2) for v in mask_scores.tolist()], '| launches',
         single_launches)
-    if single_launches['cacgmm_em_long'] < 1:
+    if single_launches['em_stream.e_stats'] < 1:
         fail(f'separate() on 60 s did not launch K4: {single_launches}')
 
     phase_cli(obs[0].cpu().numpy(), name='long_mixture')
@@ -3958,8 +3954,8 @@ def phase_long():
     scan_launches = read_counters()
     log(f'fit(use_fused_em=False) on CUDA (F=257, T=304): launches '
         f'{scan_launches}')
-    if scan_launches['eigh_jacobi'] < 1 or \
-            scan_launches['cacgmm_em_full'] != 0:
+    if scan_launches['eigh.eigh_jacobi'] < 1 or \
+            scan_launches['em_loop.cacgmm_em_full'] != 0:
         fail(f'the scan path on CUDA did not run through K1: '
              f'{scan_launches}')
     if not bool(torch.isfinite(model.cacg.covariance_eigenvalues).all()):
@@ -3987,7 +3983,7 @@ def phase_cwmm():
     import torch
     import pb_bss_tpu_torch as P
     from pb_bss_tpu_torch.evaluation import si_sdr_stft
-    none = {'cacgmm_em_full': 0, 'cacgmm_em_long': 0}
+    none = {'em_loop.cacgmm_em_full': 0, 'em_stream.e_stats': 0}
 
     obs, images = load_utterances(range(8))
     obs = obs.cuda()
@@ -3999,8 +3995,9 @@ def phase_cwmm():
     launches = read_counters()
     expect_launches(f"separate_batch(8 x {tuple(obs.shape[1:])}, 'gev+ban', "
                     "20 it, model='cwmm')", launches,
-                    {'cwmm_em_full': 1, 'mm_stats': 0, 'gev': 1, **none})
-    path = {'cwmm_em_full': launches['cwmm_em_full']}
+                    {'cwmm_loop.cwmm_em_full': 1, 'mm_stream.mm_stats': 0,
+                     'gev.gev': 1, **none})
+    path = {'cwmm_loop.cwmm_em_full': launches['cwmm_loop.cwmm_em_full']}
     if not bool(torch.isfinite(out).all()):
         fail("separate_batch(model='cwmm') output is not finite")
     scores = si_sdr_stft(images[:, :, None],
@@ -4024,13 +4021,14 @@ def phase_cwmm():
     sync()
     seconds = time.perf_counter() - t0
     launches = read_counters()
-    route = ('whole fit (K6)' if launches['cwmm_em_full']
+    route = ('whole fit (K6)' if launches['cwmm_loop.cwmm_em_full']
              else 'streamed (K7)')
     log(f"cwmm long path separate_batch(4 x {tuple(obs.shape[1:])}, "
         f"'gev+ban', 20 it): route {route}; {1e3 * seconds:.1f} ms host "
         'clock (the first call of this shape)')
     expect_launches('cwmm long path', launches,
-                    {'cwmm_em_full': 1, 'mm_stats': 0, 'gev': 1, **none})
+                    {'cwmm_loop.cwmm_em_full': 1, 'mm_stream.mm_stats': 0,
+                     'gev.gev': 1, **none})
     if not bool(torch.isfinite(out).all()):
         fail("separate_batch(model='cwmm') on 60 s is not finite")
     scores = si_sdr_stft(images[:, :, None],
@@ -4054,11 +4052,11 @@ def phase_cwmm():
         sync()
         launches = read_counters()
         expect_launches(f'CWMMTrainer.fit {label}, {iterations} it',
-                        launches, {'mm_stats': iterations,
-                                   'eigh_jacobi': iterations,
-                                   'cwmm_em_full': 0, **none})
+                        launches, {'mm_stream.mm_stats': iterations,
+                                   'eigh.eigh_jacobi': iterations,
+                                   'cwmm_loop.cwmm_em_full': 0, **none})
         path['cwmm_em_long'] = path.get('cwmm_em_long', 0) \
-            + launches['mm_stats']
+            + launches['mm_stream.mm_stats']
         wsum = (model.weight.sum(-2) - 1).abs().max().item()
         finite = bool(torch.isfinite(model.complex_watson.concentration)
                       .all() and torch.isfinite(model.weight).all())
@@ -4094,13 +4092,15 @@ def phase_cbmm():
         SINGLE_FLOOR_DB as CBMM_SINGLE_FLOOR_DB,
         WARM_MEAN_FLOOR_DB as CBMM_WARM_MEAN_FLOOR_DB,
         WARM_SINGLE_FLOOR_DB as CBMM_WARM_SINGLE_FLOOR_DB, cbmm_quality)
-    none = {'cacgmm_em_full': 0, 'cacgmm_em_long': 0, 'cwmm_em_full': 0}
-    path = dict.fromkeys(('cbmm_em_full', 'cbmm_em_long',
-                          'bingham_chord_solve'), 0)
+    none = {'em_loop.cacgmm_em_full': 0, 'em_stream.e_stats': 0,
+            'cwmm_loop.cwmm_em_full': 0}
+    path = dict.fromkeys(('cbmm_loop.cbmm_em_full', 'cbmm_em_long',
+                          'bingham.bingham_chord_solve'), 0)
 
     def add(launches):
         for k in path:
-            path[k] += launches['mm_stats' if k == 'cbmm_em_long' else k]
+            path[k] += launches['mm_stream.mm_stats' if k == 'cbmm_em_long'
+                                else k]
 
     obs, images = load_utterances(range(8))
     obs = obs.cuda()
@@ -4113,8 +4113,8 @@ def phase_cbmm():
     add(launches)
     expect_launches(f"separate_batch(8 x {tuple(obs.shape[1:])}, 'gev+ban', "
                     "20 it, model='cbmm')", launches,
-                    {'cbmm_em_full': 1, 'mm_stats': 0,
-                     'bingham_chord_solve': 0, 'gev': 1, **none})
+                    {'cbmm_loop.cbmm_em_full': 1, 'mm_stream.mm_stats': 0,
+                     'bingham.bingham_chord_solve': 0, 'gev.gev': 1, **none})
     # a bin where one class takes every frame leaves the other classes'
     # noise PSD exactly 0, and the GEV beamformer of such a bin is
     # non-finite in both packages (ROADMAP queue 3): the random start
@@ -4137,8 +4137,8 @@ def phase_cbmm():
         fail(f'cbmm separation quality below the floor ({CBMM_MEAN_FLOOR_DB}'
              f' dB mean, {CBMM_SINGLE_FLOOR_DB} dB single)')
 
-    for recipe, want in (('warm', {'cacgmm_em_full': 1}),
-                         ('random', {'cacgmm_em_full': 0})):
+    for recipe, want in (('warm', {'em_loop.cacgmm_em_full': 1}),
+                         ('random', {'em_loop.cacgmm_em_full': 0})):
         sync()
         reset_counters()
         scores = cbmm_quality(obs, images, recipe)
@@ -4146,7 +4146,7 @@ def phase_cbmm():
         launches = read_counters()
         add(launches)
         expect_launches(f'cbmm {recipe} recipe, 8 x 4.8 s, 20 it', launches,
-                        {'cbmm_em_full': 1, 'gev': 1, **want})
+                        {'cbmm_loop.cbmm_em_full': 1, 'gev.gev': 1, **want})
         means = scores.mean(0)
         log(f'  cbmm {recipe} recipe SI-SDR per speaker (dB): '
             f'{[[round(v, 2) for v in row] for row in scores.tolist()]}; '
@@ -4178,10 +4178,11 @@ def phase_cbmm():
         launches = read_counters()
         add(launches)
         expect_launches(f'CBMMTrainer.fit {label}, {iterations} it',
-                        launches, {'mm_stats': iterations,
-                                   'eigh_jacobi': iterations,
-                                   'bingham_chord_solve': 3 + iterations - 1,
-                                   'cbmm_em_full': 0, **none})
+                        launches, {'mm_stream.mm_stats': iterations,
+                                   'eigh.eigh_jacobi': iterations,
+                                   'bingham.bingham_chord_solve':
+                                       3 + iterations - 1,
+                                   'cbmm_loop.cbmm_em_full': 0, **none})
         ev = model.complex_bingham.covariance_eigenvalues
         wsum = (model.weight.sum(-2) - 1).abs().max().item()
         finite = bool(torch.isfinite(ev).all()
@@ -4206,8 +4207,9 @@ def phase_cbmm():
     add(launches)
     expect_launches('CBMMTrainer.fit fc + inline DHTV (scan path), F=257 '
                     'T=304, 5 it', launches,
-                    {'bingham_chord_solve': 3 + 4, 'eigh_jacobi': 5,
-                     'cbmm_em_full': 0, 'mm_stats': 0, **none})
+                    {'bingham.bingham_chord_solve': 3 + 4,
+                     'eigh.eigh_jacobi': 5, 'cbmm_loop.cbmm_em_full': 0,
+                     'mm_stream.mm_stats': 0, **none})
     if not (bool(torch.isfinite(posterior).all()) and bool(torch.isfinite(
             model.complex_bingham.covariance_eigenvalues).all())):
         fail('the CBMM scan path on the card is not finite')
@@ -4229,10 +4231,11 @@ def phase_integration():
     import torch
     from pb_bss_tpu_torch.models import GCACGMMTrainer, VMFCACGMMTrainer
     from pb_bss_tpu_torch.testing import integration_quality as iq
-    path = dict.fromkeys(('integration_e_stats', 'integration_em_full',
-                          'eigh_jacobi'), 0)
+    path = dict.fromkeys(('integration_em.e_stats',
+                          'integration_em_loop.integration_em_full',
+                          'eigh.eigh_jacobi'), 0)
     idle = dict.fromkeys(counters(), 0)
-    step = {'integration_e_stats': 19, 'eigh_jacobi': 20}
+    step = {'integration_em.e_stats': 19, 'eigh.eigh_jacobi': 20}
 
     def add(launches):
         for k in path:
@@ -4252,8 +4255,9 @@ def phase_integration():
         if B == 1:
             obs, emb = obs[0], emb[0]
         for route, want in (('auto', step),
-                            ('loop', {'integration_em_full': 1,
-                                      'eigh_jacobi': 1})):
+                            ('loop',
+                             {'integration_em_loop.integration_em_full': 1,
+                              'eigh.eigh_jacobi': 1})):
             sync()
             reset_counters()
             model = trainer().fit(obs, emb, num_classes=3, iterations=20,
@@ -4316,10 +4320,10 @@ def phase_fc_path():
     from pb_bss_tpu_torch.testing.inline_quality import (
         ALIGNERS, CONTROL, inline_aligner_quality, utterance)
     fc = dict(weight_constant_axis=(-3, -1))
-    none = {'cacgmm_em_full': 0, 'cacgmm_em_long': 0}
-    path = dict.fromkeys(('cacgmm_em_fc_init', 'cacgmm_em_fc_step',
-                          'cacgmm_em_scatter', 'cacgmm_e_step',
-                          'eigh_jacobi'), 0)
+    none = {'em_loop.cacgmm_em_full': 0, 'em_stream.e_stats': 0}
+    path = dict.fromkeys(('em_step.m_init', 'em_step.em_step',
+                          'em_estep.cacgmm_em_scatter',
+                          'em_estep.cacgmm_e_step', 'eigh.eigh_jacobi'), 0)
 
     def add(launches):
         for k in path:
@@ -4335,7 +4339,7 @@ def phase_fc_path():
     launches = read_counters()
     add(launches)
     expect_launches('fc fit B=8 F=513 T=300, 20 it', launches, {
-        'cacgmm_em_fc_init': 1, 'cacgmm_em_fc_step': 19, **none})
+        'em_step.m_init': 1, 'em_step.em_step': 19, **none})
     finite = bool(torch.isfinite(model.cacg.covariance_eigenvalues).all())
     wsum = (model.weight.sum(-2) - 1).abs().max().item()
     log(f'  weight {tuple(model.weight.shape)}, |sum w - 1| {wsum:.2e}, '
@@ -4350,7 +4354,7 @@ def phase_fc_path():
     launches = read_counters()
     add(launches)
     expect_launches('fc fit resumed from its model, 5 it', launches, {
-        'cacgmm_em_fc_init': 0, 'cacgmm_em_fc_step': 5, **none})
+        'em_step.m_init': 0, 'em_step.em_step': 5, **none})
     if not bool(torch.isfinite(resumed.cacg.covariance_eigenvalues).all()):
         fail('resumed fc fit is not finite')
 
@@ -4364,8 +4368,8 @@ def phase_fc_path():
         launches = read_counters()
         add(launches)
         expect_launches(f'fit_predict fc + inline {name}, 4.8 s, 20 it',
-                        launches, {'cacgmm_em_fc_init': 1,
-                                   'cacgmm_em_fc_step': 19, **none})
+                        launches, {'em_step.m_init': 1,
+                                   'em_step.em_step': 19, **none})
         scores = [round(float(v), 2) for v in scores]
         log(f'  SI-SDR per speaker (dB), masks at the reference channel, '
             f'no alignment afterwards: {scores}')
@@ -4400,8 +4404,9 @@ def phase_fc_path():
         add(launches)
         expect_launches(f'fit(use_pallas_em=True) F={F} T={T}, 20 it, then '
                         'cacgmm_e_step', launches, {
-                            'cacgmm_em_scatter': 19, 'eigh_jacobi': 20,
-                            'cacgmm_e_step': 1, 'cacgmm_em_fc_step': 0,
+                            'em_estep.cacgmm_em_scatter': 19,
+                            'eigh.eigh_jacobi': 20,
+                            'em_estep.cacgmm_e_step': 1, 'em_step.em_step': 0,
                             **none})
         agree = (posterior.argmax(-2)
                  == model.predict(Y).argmax(-2)).float().mean().item()
@@ -4414,43 +4419,12 @@ def phase_fc_path():
     return path
 
 
-def bound(bytes_moved, flops):
-    """(bound_ms, bound_by): the least time the card could take, the
-    larger of the bytes over the memory rate and the float32 operations
-    over the float32 rate."""
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_FP32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
-                                       else 'operations')
-
-
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors
-               if t is not None)
-
-
-# float32 operations of the EM pieces, as the function needs them (a
-# complex multiply-add is 8): a frame's products y_d conj(y_e) over the
-# upper triangle once per frame, shared by the classes, the E-step and
-# the scatter (3 per diagonal entry, 6 per pair); per (frame, class) the
-# quadratic form as the projection on the scaled eigenbasis (8 per complex
-# multiply-add, D^2 of them, and 3 per |z_i|^2), or for the Bingham
-# kernels through the assembled form (4 per upper-triangle entry, on the
-# shared products), plus ~10 for the log-pdf and softmax, and 4 per entry
-# for the scatter; a Jacobi rotation updates two rows and two columns of
-# A and two columns of V (10 per entry) after ~30 for its parameters; the
-# warm rotation V^H A V is 16 D^3 per class, the scaled eigenbasis
-# V diag(lambda^-1/2) 2 D^2 and an assembled form V diag(lambda) V^H 8 D^3.
-def em_flops(frames, K, D, e_step=True, scatter=True, form='projection'):
-    P = D * (D + 1) // 2
-    quadratic = 8 * D * D + 3 * D if form == 'projection' else 4 * P
-    per_class = (quadratic + 10 if e_step else 0) \
-        + (4 * P if scatter else 0)
-    return frames * (3 * D + 6 * (P - D) + K * per_class)
-
-
-def jacobi_flops(matrices, D, sweeps):
-    return matrices * sweeps * D * (D - 1) // 2 * (60 * D + 30)
+# float32 operations beside sepbench.harness.counts' em_flops and
+# jacobi_flops (whose form='assembled' is the Bingham kernels' quadratic
+# form through the assembled V diag(lambda) V^H, 4 per upper-triangle
+# entry on the shared products): the warm rotation V^H A V is 16 D^3 per
+# class, the scaled eigenbasis V diag(lambda^-1/2) 2 D^2 and an assembled
+# form V diag(lambda) V^H 8 D^3.
 
 
 # float32 operations of the Watson EM pieces, counted as em_flops counts:
@@ -4615,52 +4589,56 @@ def phase_timing(errors, launches, long_launches, fc_launches,
     # kernels it runs: K2 (the warm-up fits), K1 (each block's M-step)
     # and K3 (each beamformed block)
     streamed = {k: sum(m[k] for m in stream_launches_.values())
-                for k in ('cacgmm_em_full', 'eigh_jacobi', 'gev')}
+                for k in ('em_loop.cacgmm_em_full', 'eigh.eigh_jacobi',
+                          'gev.gev')}
     # and so do the parallel phase's (the mesh separate_batch, the
     # sharded fits, the DTensor fits, deflationSeed, the examples)
     for k in streamed:
         streamed[k] += parallel_launches[k]
     rows = [
         ('cacgmm_em_full', 'em_loop.cu', 'pallas_em_loop.py:386',
-         launches['cacgmm_em_full'] + streamed['cacgmm_em_full'],
+         launches['em_loop.cacgmm_em_full']
+         + streamed['em_loop.cacgmm_em_full'],
          errors['em_slice'], slice_ms, slice_plain,
          bound(k2_bytes, k2_flops), None),
         ('gev', 'gev.cu', 'pallas_gev.py:176',
-         launches['gev'] + streamed['gev'], errors['gev_slice'], gslice_ms,
-         gslice_plain, bound(k3_bytes, k3_flops), None),
+         launches['gev.gev'] + streamed['gev.gev'], errors['gev_slice'],
+         gslice_ms, gslice_plain, bound(k3_bytes, k3_flops), None),
         ('eigh_jacobi', 'eigh.cu', 'pallas_eigh.py:124',
-         long_launches['eigh_jacobi'] + streamed['eigh_jacobi'],
+         long_launches['eigh.eigh_jacobi'] + streamed['eigh.eigh_jacobi'],
          errors['eigh'], eigh_ms, eigh_plain,
          bound(k1_bytes, jacobi_flops(n1, D, 6)), eigh_library),
         ('cacgmm_em_long', 'em_stream.cu', 'pallas_em_stream.py:248',
-         long_launches['cacgmm_em_long'], errors['stream'], stats_ms,
+         long_launches['em_stream.e_stats'], errors['stream'], stats_ms,
          stats_plain, bound(k4_bytes, k4_flops), None),
         ('cacgmm_em_fc_init', 'em_step.cu', 'pallas_em_step.py:288',
-         fc_launches['cacgmm_em_fc_init']
-         + parallel_launches['cacgmm_em_fc_init'], errors['fc']['init'],
+         fc_launches['em_step.m_init']
+         + parallel_launches['em_step.m_init'], errors['fc']['init'],
          *fc_times['init'], None),
         ('cacgmm_em_fc_step', 'em_step.cu', 'pallas_em_step.py:288',
-         fc_launches['cacgmm_em_fc_step']
-         + parallel_launches['cacgmm_em_fc_step'], errors['fc']['step'],
+         fc_launches['em_step.em_step']
+         + parallel_launches['em_step.em_step'], errors['fc']['step'],
          *fc_times['step'], None),
         ('cacgmm_e_step', 'em_estep.cu', 'pallas_em.py:83',
-         fc_launches['cacgmm_e_step'], errors['e_step'],
+         fc_launches['em_estep.cacgmm_e_step'], errors['e_step'],
          *estep_times['e_step'], None),
         ('cacgmm_em_scatter', 'em_estep.cu', 'pallas_em.py:193',
-         fc_launches['cacgmm_em_scatter'], errors['scatter'],
+         fc_launches['em_estep.cacgmm_em_scatter'], errors['scatter'],
          *estep_times['scatter'], None),
         ('cwmm_em_full', 'cwmm_loop.cu', 'pallas_cwmm_loop.py:296',
-         cwmm_launches['cwmm_em_full'] + parallel_launches['cwmm_em_full'],
+         cwmm_launches['cwmm_loop.cwmm_em_full']
+         + parallel_launches['cwmm_loop.cwmm_em_full'],
          errors['cwmm_slice'],
          *cwmm_times['cwmm_em_full'], None),
         ('cwmm_em_long', 'mm_stream.cu', 'pallas_mm_stream.py:252',
          cwmm_launches['cwmm_em_long'], errors['watson_stream'],
          *cwmm_times['cwmm_em_long'], None),
         ('bingham_chord_solve', 'bingham.cu', 'pallas_bingham.py:293',
-         cbmm_launches['bingham_chord_solve'], errors['bingham'],
+         cbmm_launches['bingham.bingham_chord_solve'], errors['bingham'],
          *cbmm_times['bingham_chord_solve'], None),
         ('cbmm_em_full', 'cbmm_loop.cu', 'pallas_cbmm_loop.py:338',
-         cbmm_launches['cbmm_em_full'] + parallel_launches['cbmm_em_full'],
+         cbmm_launches['cbmm_loop.cbmm_em_full']
+         + parallel_launches['cbmm_loop.cbmm_em_full'],
          errors['cbmm_slice'],
          *cbmm_times['cbmm_em_full'], None),
         ('cbmm_em_long', 'mm_stream.cu', 'pallas_mm_stream.py:252',
@@ -4668,14 +4646,14 @@ def phase_timing(errors, launches, long_launches, fc_launches,
          *cbmm_times['cbmm_em_long'], None),
         ('integration_e_stats', 'integration_em.cu',
          'pallas_integration_em.py:282',
-         integration_launches['integration_e_stats']
-         + parallel_launches['integration_e_stats'],
+         integration_launches['integration_em.e_stats']
+         + parallel_launches['integration_em.e_stats'],
          errors['integration_stats'],
          *integration_times['integration_e_stats'], None),
         ('integration_em_full', 'integration_em_loop.cu',
          'pallas_integration_em_loop.py:530',
-         integration_launches['integration_em_full']
-         + parallel_launches['integration_em_full'],
+         integration_launches['integration_em_loop.integration_em_full']
+         + parallel_launches['integration_em_loop.integration_em_full'],
          errors['integration_loop'],
          *integration_times['integration_em_full'], None),
     ]

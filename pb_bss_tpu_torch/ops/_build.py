@@ -7,6 +7,11 @@ module is imported: :func:`load` builds on first use. The library name
 carries a hash of the sources, so an edited kernel is rebuilt and a
 stale one never loaded. The build directory, ``_kernels/`` inside this
 package, is listed in ``.gitignore``.
+
+Every kernel wrapper launches through :func:`launch` and is decorated
+with :func:`counted`: its launches are counted in ``<wrapper>.launches``,
+and every request of :mod:`pb_bss_tpu_torch.utils.profiling` carries
+them as ``launches.<module>.<wrapper>``.
 """
 from __future__ import annotations
 
@@ -21,8 +26,11 @@ import subprocess
 import tempfile
 import time
 
+from ..utils import profiling
+
 __all__ = ['CSRC', 'BUILD_DIR', 'KERNELS', 'SMEM_LIMIT', 'SM_SMEM',
-           'SM_WARPS', 'nvcc_command', 'load', 'build_all']
+           'SM_WARPS', 'nvcc_command', 'load', 'build_all', 'counted',
+           'launch']
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = CSRC.parent / '_kernels'
@@ -181,6 +189,26 @@ def load(name):
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return lib
+
+
+def counted(wrapper):
+    """Decorator of a kernel wrapper: its launches through :func:`launch`
+    are counted in ``wrapper.launches`` (from 0), and the program's
+    requests carry them (``utils.profiling``)."""
+    wrapper.launches = 0
+    profiling._register_launches(wrapper)
+    return wrapper
+
+
+def launch(wrapper, library, entry, *args):
+    """Launch C entry point ``entry`` of kernel library ``library`` with
+    ``args`` for the :func:`counted` ``wrapper``: raise on a non-zero
+    CUDA error, else count one launch in ``wrapper.launches``."""
+    err = getattr(load(library), entry)(*args)
+    if err:
+        raise RuntimeError(
+            f'{wrapper.__name__} kernel launch failed: CUDA error {err}')
+    wrapper.launches += 1
 
 
 def build_log(name):

@@ -36,6 +36,8 @@ from __future__ import annotations
 
 import torch
 
+from ._build import counted, launch
+
 __all__ = ['bingham_chord_solve', 'bingham_chord_solve_reference',
            'grad_cascade', 'lam_of_u', 'chord_round', 'cascade_flops',
            'solve_cascades']
@@ -160,6 +162,7 @@ def bingham_chord_solve_reference(s_sorted, x0, *, iterations, lower, upper,
                                 lower=lower, upper=upper, fd_step=fd_step))
 
 
+@counted
 def bingham_chord_solve(s_sorted, x0, *, iterations, lower, upper,
                         fd_step=FD_STEP):
     """Chord Gauss-Newton Bingham moment inversion, one launch.
@@ -191,19 +194,11 @@ def bingham_chord_solve(s_sorted, x0, *, iterations, lower, upper,
     x_ = x0.to(torch.float32).contiguous()
     out = torch.empty_like(s_)
     if B:
-        from ._build import load
-        err = load('bingham').bingham_chord_launch(
-            s_.data_ptr(), x_.data_ptr(), out.data_ptr(), B, D,
-            int(iterations), float(lower), float(upper), float(fd_step),
-            torch.cuda.current_stream(s_.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f'bingham_chord kernel launch failed: CUDA error {err}')
-        bingham_chord_solve.launches += 1
+        launch(bingham_chord_solve, 'bingham', 'bingham_chord_launch',
+               s_.data_ptr(), x_.data_ptr(), out.data_ptr(), B, D,
+               int(iterations), float(lower), float(upper), float(fd_step),
+               torch.cuda.current_stream(s_.device).cuda_stream)
     return out
-
-
-bingham_chord_solve.launches = 0
 
 
 def cascade_flops(D):

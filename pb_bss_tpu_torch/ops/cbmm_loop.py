@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from .._dtypes import tiny as _tiny
-from ._build import SM_SMEM, SM_WARPS, SMEM_LIMIT
+from ._build import SM_SMEM, SM_WARPS, SMEM_LIMIT, counted, launch
 from .bingham import FD_STEP, chord_round, grad_cascade, lam_of_u
 from .linalg import eigh_jacobi
 
@@ -238,6 +238,7 @@ def cbmm_em_full_reference(y, affiliation, *, iterations,
     return out
 
 
+@counted
 def cbmm_em_full(y, affiliation, *, iterations, sweeps=6, warm_sweeps=2,
                  spacing_eps=1e-3, affiliation_eps=0., cold_rounds=3,
                  cold_steps=10, warm_steps=16, saliency=None,
@@ -309,25 +310,17 @@ def cbmm_em_full(y, affiliation, *, iterations, sweeps=6, warm_sweeps=2,
     log_c = torch.empty((N, K), dtype=torch.float32, device=y.device)
     aff = torch.empty((N, K, T), dtype=torch.float32, device=y.device)
     if N:
-        from ._build import load
-        err = load('cbmm_loop').cbmm_em_full_launch(
-            y_.data_ptr(), a_.data_ptr(),
-            0 if sal_ is None else sal_.data_ptr(), weight.data_ptr(),
-            lam.data_ptr(), vec.data_ptr(), log_c.data_ptr(), aff.data_ptr(),
-            N, D, K, T, _threads(D, K, T, has_sal), int(iterations),
-            int(sweeps), int(warm_sweeps),
-            int(cold_rounds), int(cold_steps), int(warm_steps),
-            float(spacing_eps), lower, upper, FD_STEP,
-            float(affiliation_eps), cap_init,
-            mc if np.isfinite(mc) else -1.0, _log_norm_constant(D),
-            torch.cuda.current_stream(y.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f'cbmm_em_full kernel launch failed: CUDA error {err}')
-        cbmm_em_full.launches += 1
+        launch(cbmm_em_full, 'cbmm_loop', 'cbmm_em_full_launch',
+               y_.data_ptr(), a_.data_ptr(),
+               0 if sal_ is None else sal_.data_ptr(), weight.data_ptr(),
+               lam.data_ptr(), vec.data_ptr(), log_c.data_ptr(),
+               aff.data_ptr(), N, D, K, T, _threads(D, K, T, has_sal),
+               int(iterations), int(sweeps), int(warm_sweeps),
+               int(cold_rounds), int(cold_steps), int(warm_steps),
+               float(spacing_eps), lower, upper, FD_STEP,
+               float(affiliation_eps), cap_init,
+               mc if np.isfinite(mc) else -1.0, _log_norm_constant(D),
+               torch.cuda.current_stream(y.device).cuda_stream)
     return (weight.reshape(*lead, K), lam.reshape(*lead, K, D),
             vec.reshape(*lead, K, D, D), log_c.reshape(*lead, K),
             aff.reshape(*lead, K, T))
-
-
-cbmm_em_full.launches = 0

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from .._dtypes import tiny as _tiny
-from ._build import SMEM_LIMIT
+from ._build import SMEM_LIMIT, counted, launch
 from .em_loop import cta_threads
 from .linalg import eigh_jacobi
 
@@ -240,6 +240,7 @@ def cwmm_em_full_reference(y, affiliation, *, iterations, sweeps=6,
     return out if return_eigenvectors else out[:4]
 
 
+@counted
 def cwmm_em_full(y, affiliation, *, iterations, sweeps=6, warm_sweeps=None,
                  max_concentration=500.0, saliency=None,
                  return_eigenvectors=False):
@@ -307,24 +308,16 @@ def cwmm_em_full(y, affiliation, *, iterations, sweeps=6, warm_sweeps=None,
     vec = torch.empty((N, K, D, D), dtype=torch.complex64, device=y.device) \
         if return_eigenvectors else None
     if N:
-        from ._build import load
-        err = load('cwmm_loop').cwmm_em_full_launch(
-            y_.data_ptr(), a_.data_ptr(),
-            0 if sal_ is None else sal_.data_ptr(), table.data_ptr(),
-            weight.data_ptr(), mode.data_ptr(), kappa.data_ptr(),
-            aff.data_ptr(), 0 if vec is None else vec.data_ptr(), N, D, K,
-            T, _threads(D, K, T, has_sal), int(iterations), int(sweeps),
-            -1 if warm_sweeps is None else int(warm_sweeps), r0, dr,
-            table.shape[0], log2pi_d, lgamma_d,
-            torch.cuda.current_stream(y.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f'cwmm_em_full kernel launch failed: CUDA error {err}')
-        cwmm_em_full.launches += 1
+        launch(cwmm_em_full, 'cwmm_loop', 'cwmm_em_full_launch',
+               y_.data_ptr(), a_.data_ptr(),
+               0 if sal_ is None else sal_.data_ptr(), table.data_ptr(),
+               weight.data_ptr(), mode.data_ptr(), kappa.data_ptr(),
+               aff.data_ptr(), 0 if vec is None else vec.data_ptr(), N, D,
+               K, T, _threads(D, K, T, has_sal), int(iterations),
+               int(sweeps), -1 if warm_sweeps is None else int(warm_sweeps),
+               r0, dr, table.shape[0], log2pi_d, lgamma_d,
+               torch.cuda.current_stream(y.device).cuda_stream)
     out = (weight.reshape(*lead, K), mode.reshape(*lead, K, D),
            kappa.reshape(*lead, K), aff.reshape(*lead, K, T))
     return out + (vec.reshape(*lead, K, D, D),) if return_eigenvectors \
         else out
-
-
-cwmm_em_full.launches = 0

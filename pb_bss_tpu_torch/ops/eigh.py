@@ -27,6 +27,7 @@ import functools
 
 import torch
 
+from ._build import counted, launch
 from .linalg import eigh_jacobi as _plain_eigh_jacobi
 
 __all__ = ['eigh_jacobi', 'eigh_jacobi_reference', 'default_sweeps',
@@ -65,6 +66,7 @@ def eigh_jacobi_reference(a, *, sweeps=None, sort=True):
         sort=sort)
 
 
+@counted
 def eigh_jacobi(a, *, sweeps=None, sort=True):
     """Batched Hermitian eigendecomposition.
 
@@ -99,19 +101,10 @@ def eigh_jacobi(a, *, sweeps=None, sort=True):
     w = torch.empty((B, d), dtype=torch.float32, device=a.device)
     v = torch.empty((B, d, d), dtype=a.dtype, device=a.device)
     if B:
-        from ._build import load
-        index = a.device.index or 0
-        err = load('eigh').eigh_jacobi_launch(
-            flat.data_ptr(), w.data_ptr(), v.data_ptr(), B, d,
-            default_sweeps(d) if sweeps is None else int(sweeps),
-            int(a.is_complex()), int(bool(sort)),
-            cta_warps(B, d, _sms(index)),
-            torch.cuda.current_stream(a.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f'eigh_jacobi kernel launch failed: CUDA error {err}')
-        eigh_jacobi.launches += 1
+        launch(eigh_jacobi, 'eigh', 'eigh_jacobi_launch',
+               flat.data_ptr(), w.data_ptr(), v.data_ptr(), B, d,
+               default_sweeps(d) if sweeps is None else int(sweeps),
+               int(a.is_complex()), int(bool(sort)),
+               cta_warps(B, d, _sms(a.device.index or 0)),
+               torch.cuda.current_stream(a.device).cuda_stream)
     return w.reshape(*batch, d), v.reshape(*batch, d, d)
-
-
-eigh_jacobi.launches = 0

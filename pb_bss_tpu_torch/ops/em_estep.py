@@ -47,7 +47,7 @@ import torch
 
 from .._dtypes import tiny as _tiny
 from . import _plan
-from ._build import SMEM_LIMIT
+from ._build import SMEM_LIMIT, counted, launch
 
 __all__ = ['cacgmm_e_step', 'cacgmm_e_step_reference', 'cacgmm_em_scatter',
            'cacgmm_em_scatter_reference', 'em_scatter_model', 'scatter_fits',
@@ -186,25 +186,26 @@ def _grid(kind, device_index, F, D, K, T, waves):
 def _launch(kind, operands, outputs, F, D, K, T):
     """One launch of kernel ``kind`` over the F bins of T > 0 frames:
     operands (y, v, inv_eigenvalues, logdet, weight), outputs as the C
-    entry point takes them. Returns the CUDA error (0 on success)."""
-    from ._build import load
+    entry point takes them; counted in :func:`cacgmm_e_step` or
+    :func:`cacgmm_em_scatter`."""
     device = operands[0].device
     index = device.index or 0
     ctas, span, slots = _grid(kind, index, F, D, K, T, WAVES)
     stream = torch.cuda.current_stream(device).cuda_stream
     pointers = [x.data_ptr() for x in (*operands, *outputs)]
-    lib = load('em_estep')
     if kind == 'e_step':
-        return lib.em_e_step_launch(*pointers, F, D, K, T, ctas, span,
-                                    stream)
+        launch(cacgmm_e_step, 'em_estep', 'em_e_step_launch', *pointers, F,
+               D, K, T, ctas, span, stream)
+        return
     counters, work = _plan.workspace(
         device, stream, F,
         2 * slots * F * K * (D * (D + 1) // 2 + 1) if slots > 1 else 0)
-    return lib.em_scatter_launch(*pointers, work.data_ptr(),
-                                 counters.data_ptr(), F, D, K, T, ctas, span,
-                                 stream)
+    launch(cacgmm_em_scatter, 'em_estep', 'em_scatter_launch', *pointers,
+           work.data_ptr(), counters.data_ptr(), F, D, K, T, ctas, span,
+           stream)
 
 
+@counted
 def cacgmm_e_step(y_re, y_im, v_re, v_im, inv_eigenvalues, logdet, weight):
     """Fused cACGMM E-step over all frequency bins.
 
@@ -228,17 +229,11 @@ def cacgmm_e_step(y_re, y_im, v_re, v_im, inv_eigenvalues, logdet, weight):
     aff = torch.empty((F, K, T), dtype=torch.float32, device=y_re.device)
     qf = torch.empty((F, K, T), dtype=torch.float32, device=y_re.device)
     if F and T:
-        err = _launch('e_step', operands, (aff, qf), F, D, K, T)
-        if err:
-            raise RuntimeError(
-                f'cacgmm_e_step kernel launch failed: CUDA error {err}')
-        cacgmm_e_step.launches += 1
+        _launch('e_step', operands, (aff, qf), F, D, K, T)
     return aff, qf
 
 
-cacgmm_e_step.launches = 0
-
-
+@counted
 def cacgmm_em_scatter(y_re, y_im, v_re, v_im, inv_eigenvalues, logdet,
                       weight):
     """Fused E-step + M-step scatter over all frequency bins.
@@ -276,12 +271,5 @@ def em_scatter_model(y, eigenvectors, inv_eigenvalues, logdet, weight):
         for x in (s_re, s_im, asum):
             x.zero_()
     elif F:
-        err = _launch('scatter', operands, (s_re, s_im, asum), F, D, K, T)
-        if err:
-            raise RuntimeError(
-                f'cacgmm_em_scatter kernel launch failed: CUDA error {err}')
-        cacgmm_em_scatter.launches += 1
+        _launch('scatter', operands, (s_re, s_im, asum), F, D, K, T)
     return s_re, s_im, asum
-
-
-cacgmm_em_scatter.launches = 0

@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import torch
 
-from ._build import SM_SMEM, SM_WARPS, SMEM_LIMIT
+from ._build import SM_SMEM, SM_WARPS, SMEM_LIMIT, counted, launch
 from .linalg import sort_ascending
 
 __all__ = ['cacgmm_em_full', 'cacgmm_em_full_reference', 'smem_bytes',
@@ -161,6 +161,7 @@ def cacgmm_em_full_reference(y, affiliation, quadratic_form, *,
             model.cacg.covariance_eigenvectors, affiliation)
 
 
+@counted
 def cacgmm_em_full(y, affiliation, quadratic_form, *, iterations,
                    sweeps=6, warm_sweeps=None, eigenvalue_floor=1e-10,
                    affiliation_eps=1e-10, saliency=None,
@@ -237,23 +238,15 @@ def cacgmm_em_full(y, affiliation, quadratic_form, *, iterations,
     vec = torch.empty((N, K, D, D), dtype=torch.complex64, device=y.device)
     aff = torch.empty((N, K, T), dtype=torch.float32, device=y.device)
     if N:
-        from ._build import load
-        err = load('em_loop').cacgmm_em_full_launch(
-            y_.data_ptr(), a_.data_ptr(), q_.data_ptr(),
-            0 if sal_ is None else sal_.data_ptr(),
-            0 if mask_ is None else mask_.data_ptr(), weight.data_ptr(),
-            eig.data_ptr(), vec.data_ptr(), aff.data_ptr(), N, D, K, T,
-            _threads(D, K, T), int(iterations), int(sweeps),
-            -1 if warm_sweeps is None else int(warm_sweeps),
-            float(eigenvalue_floor), float(affiliation_eps),
-            torch.cuda.current_stream(y.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f'cacgmm_em_full kernel launch failed: CUDA error {err}')
-        cacgmm_em_full.launches += 1
+        launch(cacgmm_em_full, 'em_loop', 'cacgmm_em_full_launch',
+               y_.data_ptr(), a_.data_ptr(), q_.data_ptr(),
+               0 if sal_ is None else sal_.data_ptr(),
+               0 if mask_ is None else mask_.data_ptr(), weight.data_ptr(),
+               eig.data_ptr(), vec.data_ptr(), aff.data_ptr(), N, D, K, T,
+               _threads(D, K, T), int(iterations), int(sweeps),
+               -1 if warm_sweeps is None else int(warm_sweeps),
+               float(eigenvalue_floor), float(affiliation_eps),
+               torch.cuda.current_stream(y.device).cuda_stream)
     eig, vec = sort_ascending(eig, vec)
     return (weight.reshape(*lead, K), eig.reshape(*lead, K, D),
             vec.reshape(*lead, K, D, D), aff.reshape(*lead, K, T))
-
-
-cacgmm_em_full.launches = 0

@@ -55,7 +55,7 @@ from .._shard import (
     frequency_rows,
     frequency_sum,
 )
-from ._build import SMEM_LIMIT
+from ._build import SMEM_LIMIT, counted, launch
 from .em_loop import cta_threads
 from .linalg import eigh_jacobi, sort_ascending
 
@@ -142,6 +142,7 @@ def m_init_reference(y, affiliation, quadratic_form, *, sweeps,
     return eigenvectors, _floor(eigenvalues, eigenvalue_floor), asum
 
 
+@counted
 def m_init(y, affiliation, quadratic_form, *, sweeps, eigenvalue_floor,
            saliency=None):
     """The first M-step of a frequency-constant fit, one launch.
@@ -169,22 +170,13 @@ def m_init(y, affiliation, quadratic_form, *, sweeps, eigenvalue_floor,
     y_ = y.resolve_conj().contiguous()
     vec, eig, asum = _state(y, N, K, D)
     if N:
-        from ._build import load
-        err = load('em_step').em_fc_init_launch(
-            y_.data_ptr(),
-            *[0 if x is None else x.data_ptr() for x in operands],
-            vec.data_ptr(), eig.data_ptr(), asum.data_ptr(), N, D, K, T,
-            row_stride(D, K, T), _threads(D, K, T), int(sweeps),
-            float(eigenvalue_floor),
-            torch.cuda.current_stream(y.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f'em_fc_init kernel launch failed: CUDA error {err}')
-        m_init.launches += 1
+        launch(m_init, 'em_step', 'em_fc_init_launch', y_.data_ptr(),
+               *[0 if x is None else x.data_ptr() for x in operands],
+               vec.data_ptr(), eig.data_ptr(), asum.data_ptr(), N, D, K, T,
+               row_stride(D, K, T), _threads(D, K, T), int(sweeps),
+               float(eigenvalue_floor),
+               torch.cuda.current_stream(y.device).cuda_stream)
     return vec, eig, asum
-
-
-m_init.launches = 0
 
 
 def em_step_reference(y, eigenvalues, eigenvectors, weight, *,
@@ -228,6 +220,7 @@ def em_step_reference(y, eigenvalues, eigenvectors, weight, *,
     return eigenvectors, _floor(eig, eigenvalue_floor), asum, emitted
 
 
+@counted
 def em_step(y, eigenvalues, eigenvectors, weight, *, warm_sweeps,
             eigenvalue_floor, affiliation_eps, saliency=None,
             source_activity_mask=None, emit_affiliation=False):
@@ -269,24 +262,15 @@ def em_step(y, eigenvalues, eigenvectors, weight, *, warm_sweeps,
     emitted = (torch.empty((N, K, T), dtype=torch.float32, device=y.device)
                if emit_affiliation else None)
     if N:
-        from ._build import load
-        err = load('em_step').em_fc_step_launch(
-            y_.data_ptr(),
-            *[0 if x is None else x.data_ptr() for x in operands],
-            vec.data_ptr(), eig.data_ptr(), asum.data_ptr(),
-            0 if emitted is None else emitted.data_ptr(), N, N // B, D, K,
-            T, row_stride(D, K, T), _threads(D, K, T), int(warm_sweeps),
-            float(eigenvalue_floor),
-            float(affiliation_eps),
-            torch.cuda.current_stream(y.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f'em_fc_step kernel launch failed: CUDA error {err}')
-        em_step.launches += 1
+        launch(em_step, 'em_step', 'em_fc_step_launch', y_.data_ptr(),
+               *[0 if x is None else x.data_ptr() for x in operands],
+               vec.data_ptr(), eig.data_ptr(), asum.data_ptr(),
+               0 if emitted is None else emitted.data_ptr(), N, N // B, D,
+               K, T, row_stride(D, K, T), _threads(D, K, T),
+               int(warm_sweeps), float(eigenvalue_floor),
+               float(affiliation_eps),
+               torch.cuda.current_stream(y.device).cuda_stream)
     return vec, eig, asum, emitted
-
-
-em_step.launches = 0
 
 
 def _check(y, K):

@@ -40,7 +40,7 @@ import torch
 from .._dtypes import tiny as _tiny
 from .._shard import frequency_bins, frequency_sum
 from . import _plan
-from ._build import SMEM_LIMIT
+from ._build import SMEM_LIMIT, counted, launch
 from .eigh import default_sweeps, eigh_jacobi, eigh_jacobi_reference
 
 __all__ = ['cacgmm_em_long', 'cacgmm_em_long_reference', 'e_stats',
@@ -127,6 +127,7 @@ def e_stats_reference(y, *, affiliation=None, quadratic_form=None,
     return scatter, aff.sum(-1)
 
 
+@counted
 def e_stats(y, *, affiliation=None, quadratic_form=None, eigenvalues=None,
             eigenvectors=None, weight=None, affiliation_eps=0.,
             saliency=None, source_activity_mask=None):
@@ -202,20 +203,13 @@ def e_stats(y, *, affiliation=None, quadratic_form=None, eigenvalues=None,
     scatter = torch.zeros((slots, N, K, D, D), dtype=torch.complex64,
                           device=y.device)
     asum = torch.zeros((slots, N, K), dtype=torch.float32, device=y.device)
-    from ._build import load
-    err = load('em_stream').em_stream_launch(
-        y_.data_ptr(), *[0 if x is None else x.data_ptr() for x in operands],
-        scatter.data_ptr(), asum.data_ptr(), N, D, K, T, ctas, span,
-        float(affiliation_eps),
-        torch.cuda.current_stream(y.device).cuda_stream)
-    if err:
-        raise RuntimeError(f'em_stream kernel launch failed: CUDA error {err}')
-    e_stats.launches += 1
+    launch(e_stats, 'em_stream', 'em_stream_launch', y_.data_ptr(),
+           *[0 if x is None else x.data_ptr() for x in operands],
+           scatter.data_ptr(), asum.data_ptr(), N, D, K, T, ctas, span,
+           float(affiliation_eps),
+           torch.cuda.current_stream(y.device).cuda_stream)
     # the second pass of the reduction: each bin's slots, in order
     return scatter.sum(0), asum.sum(0)
-
-
-e_stats.launches = 0
 
 
 def mixture_weight(asum, *, weight_mode, lead, frames, saliency):

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from ._build import counted, launch
 from .eigh import _sms, cta_warps, default_sweeps
 from .linalg import condition_hermitian, gev_staged
 
@@ -83,20 +84,17 @@ def _launch(phi_xx, phi_nn, sweeps, loading):
     B = xx.shape[0]
     beam = torch.empty((B, d), dtype=torch.complex64, device=xx.device)
     if B:
-        from ._build import load
-        err = load('gev').gev_launch(
-            xx.data_ptr(), nn.data_ptr(), beam.data_ptr(), B, d,
-            default_sweeps(d) if sweeps is None else int(sweeps),
-            cta_warps(B, d, _sms(xx.device.index or 0)),
-            int(loading is not None),
-            0.0 if loading is None else float(loading),
-            torch.cuda.current_stream(xx.device).cuda_stream)
-        if err:
-            raise RuntimeError(f'gev kernel launch failed: CUDA error {err}')
-        gev.launches += 1
+        launch(gev, 'gev', 'gev_launch',
+               xx.data_ptr(), nn.data_ptr(), beam.data_ptr(), B, d,
+               default_sweeps(d) if sweeps is None else int(sweeps),
+               cta_warps(B, d, _sms(xx.device.index or 0)),
+               int(loading is not None),
+               0.0 if loading is None else float(loading),
+               torch.cuda.current_stream(xx.device).cuda_stream)
     return beam.reshape(*batch, d)
 
 
+@counted
 def gev(target_psd_matrix, noise_psd_matrix, *, sweeps=None):
     """Dominant generalized eigenvector of batched Hermitian pencils.
 
@@ -123,6 +121,3 @@ def gev_with_retry(target_psd_matrix, noise_psd_matrix, loading, *,
         return gev_with_retry_reference(target_psd_matrix, noise_psd_matrix,
                                         loading, sweeps=sweeps)
     return _launch(target_psd_matrix, noise_psd_matrix, sweeps, loading)
-
-
-gev.launches = 0

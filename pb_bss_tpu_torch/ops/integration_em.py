@@ -40,7 +40,7 @@ import torch
 
 from .._dtypes import tiny as _tiny
 from . import _plan
-from ._build import SMEM_LIMIT
+from ._build import SMEM_LIMIT, counted, launch
 
 __all__ = ['e_stats', 'e_stats_reference', 'smem_bytes', 'fits', 'plan',
            'MODES']
@@ -174,6 +174,7 @@ def e_stats_reference(y, emb, *, eigenvalues, eigenvectors, weight, mu,
     return scatter, aff.sum(-1), res, m2
 
 
+@counted
 def e_stats(y, emb, *, eigenvalues, eigenvectors, weight, mu, kappa, log_c,
             bins_per_utt=None, spectral_mode='vmf', spatial_weight=1.,
             spectral_weight=1., affiliation_eps=1e-10, saliency=None):
@@ -260,7 +261,6 @@ def e_stats(y, emb, *, eigenvalues, eigenvectors, weight, mu, kappa, log_c,
             if x is not None:
                 x.zero_()
         return scatter, asum, res, m2
-    from ._build import load
     index = y.device.index or 0
     tile = TILE
     stages = _stages(D, K, E, tile)
@@ -271,18 +271,12 @@ def e_stats(y, emb, *, eigenvalues, eigenvectors, weight, mu, kappa, log_c,
     counters, work = _plan.workspace(
         y.device, stream, N,
         2 * slots * N * K * (D * (D + 1) // 2 + 1 + E) if slots > 1 else 0)
-    err = load('integration_em').integration_stats_launch(
-        y_.data_ptr(), *[0 if x is None else x.data_ptr() for x in operands],
-        scatter.data_ptr(), asum.data_ptr(), res.data_ptr(),
-        0 if m2 is None else m2.data_ptr(), work.data_ptr(),
-        counters.data_ptr(), N, D, K, T, E, bins_per_utt, ctas, span,
-        stages, tile, MODES[spectral_mode], float(spatial_weight),
-        float(spectral_weight), float(affiliation_eps), stream)
-    if err:
-        raise RuntimeError(
-            f'integration e_stats kernel launch failed: CUDA error {err}')
-    e_stats.launches += 1
+    launch(e_stats, 'integration_em', 'integration_stats_launch',
+           y_.data_ptr(),
+           *[0 if x is None else x.data_ptr() for x in operands],
+           scatter.data_ptr(), asum.data_ptr(), res.data_ptr(),
+           0 if m2 is None else m2.data_ptr(), work.data_ptr(),
+           counters.data_ptr(), N, D, K, T, E, bins_per_utt, ctas, span,
+           stages, tile, MODES[spectral_mode], float(spatial_weight),
+           float(spectral_weight), float(affiliation_eps), stream)
     return scatter, asum, res, m2
-
-
-e_stats.launches = 0

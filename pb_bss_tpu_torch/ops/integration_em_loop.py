@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from .._dtypes import tiny as _tiny
-from ._build import SM_SMEM, SMEM_LIMIT
+from ._build import SM_SMEM, SMEM_LIMIT, counted, launch, load
 from .integration_em import MODES, _check_mode, e_stats_reference
 from .linalg import eigh_jacobi, sort_ascending
 
@@ -141,7 +141,6 @@ def frames_per_tile(D, K, E, T, spectral_mode, ctas):
 def _register_ctas(D):
     """CTAs of the kernel at D that an SM's registers hold (its launch
     bounds; the library's occupancy query with no shared memory)."""
-    from ._build import load
     ctas = load('integration_em_loop').integration_em_loop_register_ctas(D)
     if ctas < 1:
         raise RuntimeError(
@@ -305,6 +304,7 @@ def integration_em_full_reference(y, emb, eigenvectors, eigenvalues, weight,
     return values, vectors, state[2], acc
 
 
+@counted
 def integration_em_full(y, emb, eigenvectors, eigenvalues, weight, mu, kappa,
                         log_c, *, iterations, bins_per_utt=None, sweeps=6,
                         warm_sweeps=2, spectral_mode='vmf', spherical=True,
@@ -404,32 +404,32 @@ def integration_em_full(y, emb, eigenvectors, eigenvalues, weight, mu, kappa,
             E, float(min_concentration), float(max_concentration),
             int(table_size), y.device)
     if N:
-        from ._build import load
+        tile = frames_per_tile(D, K, E, T, spectral_mode, _register_ctas(D))
         used = ctypes.c_int(0)
-        err = load('integration_em_loop').integration_em_loop_launch(
-            y_.data_ptr(), emb_.data_ptr(), vec.data_ptr(), eig.data_ptr(),
-            w.data_ptr(), svec.data_ptr(), sb.data_ptr(), sc.data_ptr(),
-            rows.data_ptr(), acc.data_ptr(),
-            0 if table is None else table.data_ptr(), N, D, K, T, E,
-            frames_per_tile(D, K, E, T, spectral_mode, _register_ctas(D)),
-            bins_per_utt, int(iterations), int(sweeps), int(warm_sweeps),
-            MODES[spectral_mode], float(eigenvalue_floor),
-            float(spatial_weight), float(spectral_weight),
-            float(affiliation_eps), float(min_concentration),
-            float(max_concentration), int(table_size), float(s0), float(ds),
-            int(bool(spherical)), 0 if grid is None else int(grid),
-            ctypes.byref(used),
-            torch.cuda.current_stream(y.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f'integration_em_full kernel launch failed: CUDA error {err}'
-                f' (grid {used.value or grid})')
-        integration_em_full.launches += 1
+        try:
+            launch(
+                integration_em_full, 'integration_em_loop',
+                'integration_em_loop_launch', y_.data_ptr(), emb_.data_ptr(),
+                vec.data_ptr(), eig.data_ptr(), w.data_ptr(),
+                svec.data_ptr(), sb.data_ptr(), sc.data_ptr(),
+                rows.data_ptr(), acc.data_ptr(),
+                0 if table is None else table.data_ptr(), N, D, K, T, E,
+                tile, bins_per_utt, int(iterations), int(sweeps),
+                int(warm_sweeps),
+                MODES[spectral_mode], float(eigenvalue_floor),
+                float(spatial_weight), float(spectral_weight),
+                float(affiliation_eps), float(min_concentration),
+                float(max_concentration), int(table_size), float(s0),
+                float(ds), int(bool(spherical)),
+                0 if grid is None else int(grid), ctypes.byref(used),
+                torch.cuda.current_stream(y.device).cuda_stream)
+        except RuntimeError as error:
+            error.add_note(f'grid {used.value or grid}')
+            raise
         integration_em_full.last_grid = used.value
     if sort:
         eig, vec = sort_ascending(eig, vec)
     return eig, vec, w, acc
 
 
-integration_em_full.launches = 0
 integration_em_full.last_grid = 0

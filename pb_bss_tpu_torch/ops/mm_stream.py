@@ -49,7 +49,7 @@ import torch
 
 from .._dtypes import tiny as _tiny
 from . import _plan
-from ._build import SMEM_LIMIT
+from ._build import SMEM_LIMIT, counted, launch
 from .em_stream import mixture_weight
 from .linalg import eigh
 
@@ -148,6 +148,7 @@ def mm_stats_reference(y, *, affiliation=None, mode=None, concentration=None,
     return scatter, affiliation.sum(-1)
 
 
+@counted
 def mm_stats(y, *, affiliation=None, mode=None, concentration=None,
              log_norm=None, weight=None, bins_per_weight=1, saliency=None,
              eigenvectors=None, eigenvalues=None, affiliation_eps=0.):
@@ -238,22 +239,15 @@ def mm_stats(y, *, affiliation=None, mode=None, concentration=None,
     upper = torch.zeros((slots, N, K, D * (D + 1) // 2),
                         dtype=torch.complex64, device=y.device)
     asum = torch.zeros((slots, N, K), dtype=torch.float32, device=y.device)
-    from ._build import load
-    err = load('mm_stream').mm_stream_launch(
-        y_.data_ptr(), *[0 if x is None else x.data_ptr() for x in operands],
-        upper.data_ptr(), asum.data_ptr(), N, D, K, T, ctas, span,
-        int(bins_per_weight),
-        float(affiliation_eps) if step_bingham else 0.,
-        torch.cuda.current_stream(y.device).cuda_stream)
-    if err:
-        raise RuntimeError(f'mm_stream kernel launch failed: CUDA error {err}')
-    mm_stats.launches += 1
+    launch(mm_stats, 'mm_stream', 'mm_stream_launch', y_.data_ptr(),
+           *[0 if x is None else x.data_ptr() for x in operands],
+           upper.data_ptr(), asum.data_ptr(), N, D, K, T, ctas, span,
+           int(bins_per_weight),
+           float(affiliation_eps) if step_bingham else 0.,
+           torch.cuda.current_stream(y.device).cuda_stream)
     # the second pass of the reduction: each bin's slots, in order; then
     # the lower triangle from the upper
     return _mirror(upper.sum(0), D), asum.sum(0)
-
-
-mm_stats.launches = 0
 
 
 def _cwmm_em_long(stats, eigh_method, y, affiliation, *, iterations,

@@ -10,8 +10,9 @@ its parent and its start and end on ``time.time_ns()``, the clock the
 profiler stamps its host events with, so a span can be laid over a
 ``torch.profiler`` trace. The outermost span on a thread opens a
 *request*; every span and :func:`count` until it closes belongs to it,
-and so do the kernel launches made meanwhile (the change of the kernel
-wrappers' ``.launches`` attributes, as ``launches.<module>.<function>``).
+and so do the kernel launches made meanwhile (the change of the
+``.launches`` attribute of each kernel wrapper that ``ops._build.counted``
+registered, as ``launches.<module>.<function>``).
 :func:`requests` returns the last 1,024 completed requests. Nothing is
 written to disk, and no setting turns the recording on or off: it
 costs a few microseconds a span.
@@ -56,7 +57,6 @@ import contextlib
 import functools
 import itertools
 import os
-import sys
 import tempfile
 import threading
 import time
@@ -107,23 +107,16 @@ class Timer:
 RING = 1024
 PREFIX = 'pb_bss_tpu_torch.'
 # the kernel wrappers that count their launches in ``.launches``, by
-# (module, function) under pb_bss_tpu_torch.ops
-LAUNCH_COUNTERS = (
-    ('bingham', 'bingham_chord_solve'),
-    ('cbmm_loop', 'cbmm_em_full'),
-    ('cwmm_loop', 'cwmm_em_full'),
-    ('eigh', 'eigh_jacobi'),
-    ('em_estep', 'cacgmm_e_step'),
-    ('em_estep', 'cacgmm_em_scatter'),
-    ('em_loop', 'cacgmm_em_full'),
-    ('em_step', 'em_step'),
-    ('em_step', 'm_init'),
-    ('em_stream', 'e_stats'),
-    ('gev', 'gev'),
-    ('integration_em', 'e_stats'),
-    ('integration_em_loop', 'integration_em_full'),
-    ('mm_stream', 'mm_stats'),
-)
+# counter name ``launches.<module>.<function>``; ``ops._build.counted``
+# registers each as its module is imported
+_launch_counters = {}
+
+
+def _register_launches(function):
+    """Carry ``function.launches`` in every request (``ops._build.counted``;
+    a function registered again under its name replaces the first)."""
+    module = function.__module__.rpartition('.')[2]
+    _launch_counters[f'launches.{module}.{function.__name__}'] = function
 
 
 class Span(typing.NamedTuple):
@@ -148,8 +141,8 @@ class Request(typing.NamedTuple):
 class _Thread(threading.local):
     """The open spans, as (index in ``spans``, profiler range or None);
     the open request's ``spans`` ([name, parent, start_ns, end_ns]),
-    ``counters`` and ``launches`` (the counts at its start) are set by
-    its root."""
+    ``counters`` and ``launches`` (the counts at its start, by wrapper)
+    are set by its root."""
 
     def __init__(self):
         self.stack = []
@@ -162,11 +155,8 @@ _ranges = 0  # > 0 while trace() records
 
 
 def _launch_counts():
-    counts = []
-    for module, name in LAUNCH_COUNTERS:
-        module = sys.modules.get(f'{PREFIX}ops.{module}')
-        counts.append(getattr(getattr(module, name, None), 'launches', 0))
-    return counts
+    return {function: function.launches
+            for function in _launch_counters.values()}
 
 
 class span:
@@ -208,10 +198,13 @@ class span:
         state.spans[index][3] = time.time_ns()
         if not state.stack:
             counters = state.counters
-            for (module, name), before, after in zip(
-                    LAUNCH_COUNTERS, state.launches, _launch_counts()):
-                if after != before:
-                    counters[f'launches.{module}.{name}'] = after - before
+            for name, function in _launch_counters.items():
+                # a wrapper registered since the request opened counts
+                # from 0
+                launched = function.launches \
+                    - state.launches.get(function, 0)
+                if launched:
+                    counters[name] = launched
             _finished.append(Request(
                 next(_ids), state.spans[0][0],
                 tuple(Span(*s) for s in state.spans), counters))

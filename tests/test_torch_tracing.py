@@ -1,10 +1,13 @@
 """The program's spans and counters (pb_bss_tpu_torch.utils.profiling):
 one request per call of separate_batch, its spans nested by layer, the
 EM route and DHTV's iterations counted, the kernels' launches carried
-over from their ``.launches`` attributes, the ring bounded, the spans
-on the profiler's host clock, and profiler ranges only inside
-``profiling.trace()``."""
+over from their ``.launches`` attributes (counted by the one launch
+seam, ``ops._build.launch``, in wrappers that ``ops._build.counted``
+registers), the ring bounded, the spans on the profiler's host clock,
+and profiler ranges only inside ``profiling.trace()``."""
+import ast
 import importlib
+import importlib.util
 import json
 import os
 import threading
@@ -17,7 +20,7 @@ from pb_bss_tpu_torch import separate_batch
 from pb_bss_tpu_torch.evaluation.batch_wrapper import bss_eval_stoi_fused_batch
 from pb_bss_tpu_torch.models.cbmm import CBMMTrainer
 from pb_bss_tpu_torch.models.cwmm import CWMMTrainer
-from pb_bss_tpu_torch.ops import em_loop, gev
+from pb_bss_tpu_torch.ops import _build, em_loop, gev
 from pb_bss_tpu_torch.permutation_alignment import DHTVPermutationAlignment
 from pb_bss_tpu_torch.utils import profiling
 
@@ -83,12 +86,8 @@ def test_the_cpu_fit_takes_the_scan_route(call):
 
 
 def _launches():
-    out = {}
-    for module, name in profiling.LAUNCH_COUNTERS:
-        function = getattr(importlib.import_module(
-            f'pb_bss_tpu_torch.ops.{module}'), name)
-        out[f'launches.{module}.{name}'] = function.launches
-    return out
+    return {name: function.launches
+            for name, function in profiling._launch_counters.items()}
 
 
 def test_the_request_counts_the_change_in_launches(monkeypatch):
@@ -114,9 +113,11 @@ def test_the_request_counts_the_change_in_launches(monkeypatch):
 
 
 def test_every_launch_counter_of_the_kernels_is_carried():
-    """LAUNCH_COUNTERS names every kernel wrapper with ``.launches``."""
+    """The registry holds every kernel wrapper with ``.launches`` and
+    every wrapper that ``launch`` counts in (one that forgot ``@counted``
+    is missing from it), under ``launches.<module>.<function>``."""
     import pb_bss_tpu_torch.ops as ops
-    found = set()
+    found, launched = {}, {}
     for entry in os.scandir(os.path.dirname(ops.__file__)):
         name, ext = os.path.splitext(entry.name)
         if ext != '.py' or name == '__init__':
@@ -125,8 +126,95 @@ def test_every_launch_counter_of_the_kernels_is_carried():
         for attr, value in vars(module).items():
             if callable(value) and hasattr(value, 'launches') \
                     and value.__module__ == module.__name__:
-                found.add((name, attr))
-    assert found == set(profiling.LAUNCH_COUNTERS)
+                found[f'launches.{name}.{attr}'] = value
+        with open(entry.path) as f:
+            for node in ast.walk(ast.parse(f.read())):
+                if isinstance(node, ast.Call) \
+                        and getattr(node.func, 'id', None) == 'launch':
+                    wrapper = node.args[0].id
+                    launched[f'launches.{name}.{wrapper}'] = getattr(
+                        module, wrapper)
+    assert launched and found == launched == profiling._launch_counters
+
+
+class _Library:
+    """A kernel library whose entry ``kernel_launch`` returns ``code``."""
+
+    def __init__(self, code):
+        self.code = code
+        self.calls = []
+
+    def kernel_launch(self, *args):
+        self.calls.append(args)
+        return self.code
+
+
+@pytest.fixture
+def fake_kernel(monkeypatch):
+    """(a ``@counted`` wrapper of this module, its library), with the
+    registry restored afterwards and ``load`` giving the fake library."""
+    monkeypatch.setattr(profiling, '_launch_counters',
+                        dict(profiling._launch_counters))
+    library = _Library(0)
+    monkeypatch.setattr(_build, 'load', lambda name: library)
+
+    def fake_wrapper():
+        _build.launch(fake_wrapper, 'fake', 'kernel_launch', 7, 8)
+
+    return fake_wrapper, library
+
+
+def test_the_launch_seam_raises_on_an_error_and_counts_a_launch(
+        fake_kernel):
+    wrapper, library = fake_kernel
+    _build.counted(wrapper)
+    assert wrapper.launches == 0
+    library.code = 700
+    with pytest.raises(RuntimeError, match='^fake_wrapper kernel launch '
+                       'failed: CUDA error 700$'):
+        wrapper()
+    assert wrapper.launches == 0 and library.calls == [(7, 8)]
+    library.code = 0
+    wrapper()
+    wrapper()
+    assert wrapper.launches == 2 and library.calls == [(7, 8)] * 3
+
+
+def test_a_wrapper_registered_in_an_open_request_counts_from_zero(
+        fake_kernel, monkeypatch):
+    wrapper, _ = fake_kernel
+    name = f'launches.{__name__.rpartition(".")[2]}.fake_wrapper'
+    monkeypatch.setattr(gev.gev, 'launches', gev.gev.launches)
+    profiling.clear()
+    with profiling.span('outer'):
+        gev.gev.launches += 1
+        _build.counted(wrapper)
+        with profiling.span('inner'):
+            wrapper()
+            wrapper()
+    [request] = profiling.requests()
+    assert request.counters == {name: 2, 'launches.gev.gev': 1}
+    assert profiling._launch_counters[name] is wrapper
+
+
+def test_profiling_imports_no_ops_module():
+    """The registry is filled by the wrappers: the profiling layer names
+    no module above it."""
+    path = profiling.__file__
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            module = importlib.util.resolve_name(
+                '.' * node.level + (node.module or ''),
+                'pb_bss_tpu_torch.utils')
+            imported.add(module)
+            imported.update(f'{module}.{alias.name}' for alias in node.names)
+    assert imported and not {m for m in imported
+                             if m.startswith('pb_bss_tpu_torch.ops')}
 
 
 @pytest.mark.parametrize('route,kwargs', [
